@@ -1,0 +1,246 @@
+"""Synthetic learned models, catalogs, and spectra (numpy only).
+
+A copy of the generators of ``gpy_dla_detection_tpu/data/synthetic.py``
+that the catalog path uses, without the JAX model container: the learned
+GP comes back as :class:`LearnedArrays`, plain numpy arrays in the field
+order of the reference's ``LearnedModel``, which
+``models.learned.LearnedModel.from_numpy`` moves to a device.  For the
+same seed every array is bit-identical to the reference's.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+from gpy_dla_detection_tpu.data.catalog import PriorCatalog
+from gpy_dla_detection_tpu.data.spectrum import Spectrum, preprocess
+from gpy_dla_detection_tpu.params import Parameters
+
+
+class LearnedArrays(NamedTuple):
+    """Trained null-model GP as numpy arrays (field order of the
+    reference's ``LearnedModel``)."""
+
+    rest_wavelengths: np.ndarray  # (R,) uniform rest grid [A]
+    mu: np.ndarray  # (R,)
+    M: np.ndarray  # (R, k)
+    log_omega: np.ndarray  # (R,)
+    log_c_0: np.ndarray  # scalar
+    log_tau_0: np.ndarray  # scalar
+    log_beta: np.ndarray  # scalar
+    prev_tau_0: np.ndarray  # scalar
+    prev_beta: np.ndarray  # scalar
+
+
+def _smooth(x: np.ndarray, width: int) -> np.ndarray:
+    kernel = np.exp(-0.5 * (np.arange(-3 * width, 3 * width + 1) / width) ** 2)
+    kernel /= kernel.sum()
+    return np.convolve(x, kernel, mode="same")
+
+
+def synthetic_learned_model(params: Parameters, seed: int = 0) -> LearnedArrays:
+    """A quasar-continuum-like learned GP on the standard rest grid."""
+    rng = np.random.default_rng(seed)
+    rest = np.arange(params.min_lambda, params.max_lambda + params.dlambda / 2, params.dlambda)
+    R = rest.shape[0]
+
+    # continuum with Lya / Lyb emission-line bumps
+    mu = (
+        1.0
+        + 2.2 * np.exp(-0.5 * ((rest - 1215.67) / 12.0) ** 2)
+        + 0.6 * np.exp(-0.5 * ((rest - 1025.72) / 9.0) ** 2)
+        + 0.25 * np.exp(-0.5 * ((rest - 972.54) / 7.0) ** 2)
+        + 0.1 * (rest - rest[0]) / (rest[-1] - rest[0])
+    )
+
+    # smooth random low-rank covariance factor, scaled to ~10% of mu
+    M = np.stack(
+        [_smooth(rng.normal(size=R), 25) for _ in range(params.k)], axis=1
+    )
+    M *= 0.35 * mu[:, None] / np.sqrt(params.k) * 3.0
+
+    log_omega = np.log(0.1 + 0.05 * np.abs(np.sin(rest / 40.0)))
+
+    return LearnedArrays(
+        rest_wavelengths=rest,
+        mu=mu,
+        M=M,
+        log_omega=log_omega,
+        log_c_0=np.float64(np.log(params.initial_c_0)),
+        log_tau_0=np.float64(np.log(params.initial_tau_0)),
+        log_beta=np.float64(np.log(params.initial_beta)),
+        prev_tau_0=np.float64(params.prev_tau_0),
+        prev_beta=np.float64(params.prev_beta),
+    )
+
+
+def synthetic_prior_catalog(
+    params: Parameters, num_quasars: int = 5000, dla_rate: float = 0.1, seed: int = 1
+) -> PriorCatalog:
+    rng = np.random.default_rng(seed)
+    z_qsos = rng.uniform(2.15, 5.5, size=num_quasars)
+    dla_ind = rng.uniform(size=num_quasars) < dla_rate
+    return PriorCatalog.from_arrays(params, z_qsos, dla_ind)
+
+
+def synthetic_sdss_grid(
+    min_lambda: float = 3600.0, max_lambda: float = 10400.0, dex: float = 1e-4
+) -> np.ndarray:
+    n = int(np.floor(np.log10(max_lambda / min_lambda) / dex)) + 1
+    return min_lambda * 10 ** (dex * np.arange(n))
+
+
+def synthetic_observation(
+    params: Parameters,
+    learned: LearnedArrays,
+    z_qso: float,
+    seed: int = 0,
+    noise_level: float = 0.1,
+    dlas: list[tuple[float, float]] | None = None,
+    masked_fraction: float = 0.01,
+    with_lls_break: bool = False,
+    with_omega_noise: bool = False,
+):
+    """Draw one observed spectrum from the learned GP's generative model.
+
+    :param dlas: optional [(z_dla, log_nhi), ...] absorbers to inject.
+    :param with_lls_break: add each injected absorber's Lyman-limit
+        break opacity (reference: voigt_lls.py:254-284) so the
+        LLS-finder accuracy gates can inject the 17.2 < logNHI < 20
+        regime its search targets.
+    :param with_omega_noise: also draw the model's diagonal
+        absorption-noise term omega * (1 - exp(-tau) + c_0) * a — the
+        Omega block of y ~ N(mu a, A(MM' + Omega)A + V) (reference:
+        null_gp.py:185,236) that the default draw omits.  With it, the
+        training rebuild's recovered omega/tau_0/beta are identifiable
+        (scripts/train_fullscale.py); without it the synthetic spectra
+        carry no stochastic forest and those parameters collapse.
+        Default off: the inference gates and golden artifacts predate
+        this flag and stay bit-stable.
+    :return: (wavelengths, flux, noise_variance, pixel_mask) in the
+        convention of the reference's ``read_spec``
+        (reference: read_spec.py:22-71).
+    """
+    rng = np.random.default_rng(seed)
+    wavelengths = synthetic_sdss_grid()
+    rest = wavelengths / (1.0 + z_qso)
+
+    # continuum: interpolate mu inside the model grid; outside it, a
+    # flat unit continuum — crucially this puts the 1310-1325 A
+    # normalization window at ~1, matching how the learned mean is
+    # normalized in the real pipeline (clamping mu's red edge there
+    # would bias every normalized flux low and fake absorption)
+    mu = np.interp(rest, learned.rest_wavelengths, learned.mu)
+    M = np.stack(
+        [
+            np.interp(rest, learned.rest_wavelengths, learned.M[:, i])
+            for i in range(learned.M.shape[1])
+        ],
+        axis=1,
+    )
+    outside = (rest < learned.rest_wavelengths[0]) | (
+        rest > learned.rest_wavelengths[-1]
+    )
+    M[outside] = 0.0
+    mu[outside] = 1.0
+
+    flux = mu + M @ rng.normal(size=M.shape[1])
+
+    # Lyman-forest mean-flux suppression blueward of Lya
+    tau = np.zeros_like(wavelengths)
+    from gpy_dla_detection_tpu.constants import (
+        LYMAN_OSCILLATOR_STRENGTHS,
+        LYMAN_WAVELENGTHS_A,
+    )
+
+    for i in range(params.num_forest_lines):
+        lam_i = LYMAN_WAVELENGTHS_A[i]
+        osc = LYMAN_OSCILLATOR_STRENGTHS[i]
+        z_i = wavelengths / lam_i - 1.0
+        scale = (
+            float(learned.prev_tau_0)
+            * osc
+            / LYMAN_OSCILLATOR_STRENGTHS[0]
+            * lam_i
+            / LYMAN_WAVELENGTHS_A[0]
+        )
+        tau += np.where(z_i <= z_qso, scale * (1.0 + z_i) ** float(learned.prev_beta), 0.0)
+    flux = flux * np.exp(-tau)
+
+    if with_omega_noise:
+        # noise std per the model's Omega block: omega * s * a with
+        # s = 1 - exp(-tau_eff) + c_0, tau_eff built from the LEARNED
+        # tau_0/beta (the parameters training recovers), a = exp(-tau)
+        # the mean-flux factor already applied to the flux above
+        # (reference: null_gp.py:204-242, learn_qso_model_meanflux.m:2-6)
+        omega = np.interp(rest, learned.rest_wavelengths, np.exp(learned.log_omega))
+        omega[outside] = 0.0
+        tau_eff = np.zeros_like(wavelengths)
+        tau_0 = float(np.exp(learned.log_tau_0))
+        beta = float(np.exp(learned.log_beta))
+        for i in range(params.num_forest_lines):
+            lam_i = LYMAN_WAVELENGTHS_A[i]
+            osc = LYMAN_OSCILLATOR_STRENGTHS[i]
+            z_i = wavelengths / lam_i - 1.0
+            scale = (
+                tau_0
+                * osc
+                / LYMAN_OSCILLATOR_STRENGTHS[0]
+                * lam_i
+                / LYMAN_WAVELENGTHS_A[0]
+            )
+            tau_eff += np.where(z_i <= z_qso, scale * (1.0 + z_i) ** beta, 0.0)
+        s = 1.0 - np.exp(-tau_eff) + float(np.exp(learned.log_c_0))
+        flux = flux + omega * s * np.exp(-tau) * rng.normal(size=wavelengths.shape)
+
+    if dlas:
+        from scipy.special import wofz
+
+        from gpy_dla_detection_tpu.constants import (
+            LYMAN_LEADING_CONSTANTS,
+            LYMAN_LORENTZIAN_WIDTHS,
+            SPEED_OF_LIGHT_CGS,
+            THERMAL_SIGMA_CGS,
+        )
+
+        for z_dla, log_nhi in dlas:
+            tau_dla = np.zeros_like(wavelengths)
+            for l in range(params.num_lines):
+                lam_c = LYMAN_WAVELENGTHS_A[l] * (1.0 + z_dla)
+                v = (wavelengths - lam_c) * (SPEED_OF_LIGHT_CGS / lam_c)
+                zz = (v + 1j * LYMAN_LORENTZIAN_WIDTHS[l]) / (
+                    np.sqrt(2.0) * THERMAL_SIGMA_CGS
+                )
+                profile = np.real(wofz(zz)) / (
+                    np.sqrt(2.0 * np.pi) * THERMAL_SIGMA_CGS
+                )
+                tau_dla += 10.0**log_nhi * LYMAN_LEADING_CONSTANTS[l] * profile
+            if with_lls_break:
+                rest_abs = wavelengths / (1.0 + z_dla)
+                tau_dla += np.where(
+                    rest_abs > 911.7641,
+                    0.0,
+                    10.0**log_nhi / 10**17.2 * (rest_abs / 911.7641) ** 3,
+                )
+            flux = flux * np.exp(-tau_dla)
+
+    noise_sigma = noise_level * (0.8 + 0.4 * rng.uniform(size=wavelengths.shape))
+    noise_variance = noise_sigma**2
+    flux = flux + noise_sigma * rng.normal(size=wavelengths.shape)
+
+    pixel_mask = rng.uniform(size=wavelengths.shape) < masked_fraction
+
+    return wavelengths, flux, noise_variance, pixel_mask
+
+
+def synthetic_spectrum(
+    params: Parameters,
+    learned: LearnedArrays,
+    z_qso: float,
+    seed: int = 0,
+    **kw,
+) -> Spectrum:
+    wl, flux, nv, mask = synthetic_observation(params, learned, z_qso, seed, **kw)
+    return preprocess(wl, flux, nv, mask, z_qso, params)

@@ -1,0 +1,194 @@
+"""Model evidences: null GP and QMC-marginalized k-absorber models.
+
+Port of ``gpy_dla_detection_tpu/models/evidence.py``.  Each level's S
+per-sample likelihoods are one batched Woodbury evaluation (K2 then K3
+on the float32 path); the single-absorber profiles are computed once (K1)
+and deeper levels gather rows of them by the importance-resampled parent
+indices.  The level-k evidence is
+
+    log P(D | k) = max_i ll_i + log(mean_{valid i} exp(ll_i - max)) - k log S
+
+with the mean over samples that pass the 3000 km/s pair-separation cut.
+Everything stays on the device: no value is read back inside the loop.
+"""
+
+from __future__ import annotations
+
+import math
+from collections.abc import Sequence
+from typing import NamedTuple
+
+import torch
+
+from gpy_dla_detection_tpu.params import Parameters
+
+from ..ops.logmvn import batched_log_mvnpdf, likelihood_pair_basis, log_mvnpdf_low_rank
+from ..ops.voigt import absorption_from_unit_tau, unit_lyman_optical_depth
+from ..ops.voigt_kernels import absorption_all
+from .learned import SpectrumModel
+
+
+def single_absorber_profiles(
+    wavelengths: torch.Tensor,
+    z_samples: torch.Tensor,
+    nhis: Sequence[torch.Tensor],
+    num_lines: int,
+) -> tuple[torch.Tensor, ...]:
+    """(S, N) broadened absorption of one absorber per sample for every
+    column-density family sharing the redshift samples: float32 runs K1
+    (its twin on the CPU); float64 runs the exact Voigt on the CPU, with
+    one unit optical depth serving every family."""
+    if wavelengths.dtype == torch.float64:
+        if wavelengths.device.type != "cpu":
+            raise TypeError(
+                "the float64 absorption is the CPU conformance path; the "
+                "CUDA kernels take float32"
+            )
+        unit = unit_lyman_optical_depth(wavelengths, z_samples, num_lines)
+        return tuple(absorption_from_unit_tau(unit, nhi) for nhi in nhis)
+    return absorption_all(wavelengths, z_samples, nhis, num_lines)
+
+
+def _draw_base_indices(generator: torch.Generator, probs: torch.Tensor) -> torch.Tensor:
+    """S parent indices ~ Categorical(probs / sum(probs)): multinomial
+    inverse-CDF draws (the reference's default resampler)."""
+    S = probs.shape[0]
+    cdf = torch.cumsum(probs, dim=0)
+    u = torch.rand(
+        S, generator=generator, dtype=probs.dtype, device=probs.device
+    ) * cdf[-1]
+    return torch.clamp(torch.searchsorted(cdf, u, right=True), max=S - 1)
+
+
+def null_log_evidence(model: SpectrumModel) -> torch.Tensor:
+    """log p(D | no absorber)."""
+    return log_mvnpdf_low_rank(
+        model.y, model.mu, model.M, model.omega2 + model.v, model.mask
+    )
+
+
+class QMCEvidenceResult(NamedTuple):
+    """Everything the catalog records per spectrum and model."""
+
+    log_evidences: torch.Tensor  # (max_k,) log p(D | k absorbers)
+    sample_log_likelihoods: torch.Tensor  # (S, max_k), NaN where invalid
+    base_sample_inds: torch.Tensor  # (max_k - 1, S) resampled indices
+    map_z_dlas: torch.Tensor  # (max_k, max_k) MAP redshifts (NaN padded)
+    map_log_nhis: torch.Tensor  # (max_k, max_k)
+
+
+def qmc_log_evidences(
+    model: SpectrumModel,
+    offset_samples: torch.Tensor,
+    log_nhi_samples: torch.Tensor,
+    nhi_samples: torch.Tensor,
+    generator: torch.Generator,
+    max_k: int,
+    params: Parameters,
+    base_inds_override: torch.Tensor | None = None,
+    A_override: torch.Tensor | None = None,
+) -> QMCEvidenceResult:
+    """Marginalize the k-absorber models over the QMC sample set.
+
+    :param model: interpolated model of one spectrum.
+    :param offset_samples: (S,) uniform offsets mapped onto
+        [min_z_dla, max_z_dla].
+    :param log_nhi_samples, nhi_samples: (S,) column-density samples.
+    :param generator: drives the importance resampling; on the model's
+        device.
+    :param max_k: number of absorber models.
+    :param base_inds_override: optional (max_k - 1, S) resampling indices
+        replacing the draws (reproduces a reference run exactly).
+    :param A_override: optional precomputed (S, N) single-absorber
+        profiles for these samples (the batch layer computes both families
+        in one K1 launch).
+    """
+    S = offset_samples.shape[0]
+    dtype, device = model.y.dtype, model.y.device
+    log_S = math.log(S)
+    min_sep = params.min_z_separation
+
+    z_samples = model.min_z_dla + (model.max_z_dla - model.min_z_dla) * offset_samples
+    if A_override is None:
+        (A,) = single_absorber_profiles(
+            model.padded_wavelengths, z_samples, (nhi_samples,), params.num_lines
+        )
+    else:
+        A = A_override
+    M_pair = likelihood_pair_basis(model.M)
+
+    extra = []  # gathered parent profile rows, one per chained level
+    z_rows = [z_samples]
+    lognhi_rows = [log_nhi_samples]
+    alive = torch.ones((), dtype=torch.bool, device=device)
+    prev_valid = torch.ones((S,), dtype=torch.bool, device=device)
+    prev_ll_centered = torch.zeros((S,), dtype=dtype, device=device)
+
+    log_evidences, sample_lls, base_inds_rows, map_z, map_lognhi = [], [], [], [], []
+    for k0 in range(max_k):  # k0 = number of additional absorbers
+        if k0 > 0:
+            if base_inds_override is not None:
+                base = base_inds_override[k0 - 1].to(device=device, dtype=torch.int64)
+            else:
+                logits = torch.where(prev_valid, prev_ll_centered, -math.inf)
+                # an underflowed previous level keeps indices in range with
+                # uniform logits (its results are NaN-masked)
+                logits = torch.where(alive, logits, 0.0)
+                probs = torch.exp(logits - torch.max(logits))
+                base = _draw_base_indices(generator, probs)
+            base_inds_rows.append(base)
+            extra.append(A[base])
+            z_rows.append(z_samples[base])
+            lognhi_rows.append(log_nhi_samples[base])
+
+        ll = (
+            batched_log_mvnpdf(
+                model.y, model.mu, model.M, model.omega2, model.v, model.mask,
+                A, M_pair, extra=extra,
+            )
+            - log_S
+        )
+
+        # pair-separation validity
+        if k0 > 0:
+            all_z = torch.sort(torch.stack(z_rows), dim=0).values
+            valid = torch.all(torch.diff(all_z, dim=0) >= min_sep, dim=0)
+        else:
+            valid = torch.ones((S,), dtype=torch.bool, device=device)
+
+        masked_ll = torch.where(valid, ll, -math.inf)
+        max_ll = torch.max(masked_ll)
+        ll_centered = ll - max_ll
+        n_valid = torch.sum(valid)
+        mean_prob = torch.sum(torch.where(valid, torch.exp(ll_centered), 0.0)) / n_valid
+        evidence = max_ll + torch.log(mean_prob) - k0 * log_S
+        prev_valid, prev_ll_centered = valid, ll_centered
+
+        evidence = torch.where(alive, evidence, math.nan)
+        alive = alive & torch.isfinite(evidence)
+
+        log_evidences.append(evidence)
+        sample_lls.append(torch.where(valid & alive, ll, math.nan))
+
+        # MAP chain: argmax returns the first maximum, as the reference's.
+        # index_select keeps the index on the device (indexing with a 0-dim
+        # tensor reads it back to the host and stalls the queue)
+        maxind = torch.argmax(masked_ll).reshape(1)
+        pad = torch.full((max_k - k0 - 1,), math.nan, dtype=dtype, device=device)
+        map_z.append(torch.cat([torch.stack(z_rows).index_select(1, maxind)[:, 0], pad]))
+        map_lognhi.append(
+            torch.cat([torch.stack(lognhi_rows).index_select(1, maxind)[:, 0], pad])
+        )
+
+    base_sample_inds = (
+        torch.stack(base_inds_rows)
+        if base_inds_rows
+        else torch.zeros((0, S), dtype=torch.int64, device=device)
+    )
+    return QMCEvidenceResult(
+        log_evidences=torch.stack(log_evidences),
+        sample_log_likelihoods=torch.stack(sample_lls, dim=1),
+        base_sample_inds=base_sample_inds,
+        map_z_dlas=torch.stack(map_z),
+        map_log_nhis=torch.stack(map_lognhi),
+    )

@@ -1,0 +1,152 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface.  On first use they
+are compiled by ``nvcc`` for ``sm_90a`` (Hopper) into one shared library
+in ``csrc/build/``, named by a hash of the sources and flags, and loaded
+with ``ctypes``.  Nothing is built at import time, and nothing falls
+back: a missing ``nvcc`` or a failed build raises.
+
+Which implementation runs is decided by the tensor alone
+(:func:`use_kernel`): float32 on a CUDA device launches the kernel,
+float32 on the CPU takes the kernel's plain PyTorch twin, anything else
+raises.  Every wrapper adds one to ``launch_counts[name]`` where it
+launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("absorption_all.cu", "logmvn_cap.cu", "logmvn_chain.cu")
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",
+)
+
+# kernel name -> launches since the last reset
+launch_counts: Counter = Counter()
+
+_lib: ctypes.CDLL | None = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # wl, P, z, S, nhi, F, line_params, num_lines, far_lines, inv,
+    # c_cgs, sqrt_pi, out, stream
+    "absorption_all_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _F,
+                              _F, _F, _P, _P],
+    # rows, N, M, k, Mp, kp, A, e0, e1, e2, n_extra, S, B, u, misc, stream
+    "logmvn_cap_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I,
+                          _P, _P, _P, _P],
+    # B, u, misc, S, k, ll, stream
+    "logmvn_chain_launch": [_P, _P, _P, _I, _I, _P, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    launch_counts.clear()
+
+
+def use_kernel(x: torch.Tensor) -> bool:
+    """True when ``x`` selects the CUDA kernel, False for the CPU twin.
+
+    The kernels are float32-only; every other dtype raises, so a float64
+    tensor cannot reach a float32 kernel or its twin by accident."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"the kernels take float32 tensors, got {x.dtype}")
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise TypeError(f"no kernel for device {x.device}")
+
+
+def check_cuda_f32(device: torch.device, **tensors: torch.Tensor) -> None:
+    """Validate kernel operands: float32, contiguous, on ``device``."""
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libgpydla_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact build exists; returns the
+    library path.  The compiler's output (``-Xptxas=-v``: registers and
+    shared memory per kernel) is kept beside it as ``.log``."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(CSRC / s) for s in SOURCES]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib

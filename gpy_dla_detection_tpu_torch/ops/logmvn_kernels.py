@@ -1,0 +1,190 @@
+"""K2 and K3: the two-stage batched Woodbury log-likelihood.
+
+Stage A (K2, ``logmvn_cap``, ``csrc/logmvn_cap.cu``) assembles the noise
+model per sample and forms the packed capacitance products; stage B (K3,
+``logmvn_chain``, ``csrc/logmvn_chain.cu``) runs the k x k Cholesky with
+the forward substitution and emits the per-sample log-likelihood.  Each
+wrapper launches its kernel on float32 CUDA tensors and runs its plain
+twin (``*_reference``) on float32 CPU tensors.
+
+Replaces ``gpy_dla_detection_tpu/ops/logmvn_pallas.py``:
+``_make_cap_kernel`` (K2) and ``_make_chain_kernel_tp2c`` (K3).
+"""
+
+from __future__ import annotations
+
+import functools
+from collections.abc import Sequence
+
+import numpy as np
+import torch
+
+from ._build import (
+    check_cuda_f32,
+    check_launch,
+    launch_counts,
+    load_library,
+    ptr,
+    stream_ptr,
+    use_kernel,
+)
+from .logmvn import LOG_2PI, batched_quad_logdet
+
+MAX_EXTRA_STREAMS = 3  # streams K2 multiplies in; more are folded first
+
+
+@functools.lru_cache(maxsize=16)
+def _packed_maps(k: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Column-major lower-triangle packing: packed column r holds matrix
+    entry (rows[r], cols[r]) with rows >= cols; column j's segment (rows
+    j..k-1) starts at j*k - j*(j-1)/2."""
+    cols, rows = [], []
+    for j in range(k):
+        for a in range(j, k):
+            cols.append(j)
+            rows.append(a)
+    return tuple(cols), tuple(rows)
+
+
+def packed_pair_basis(M: torch.Tensor) -> torch.Tensor:
+    """Packed lower-triangle pair basis ``P[n, r] = M[n, a_r] M[n, j_r]``:
+    (N, k(k+1)/2), formed once per spectrum and shared by its likelihood
+    calls."""
+    cols, rows = _packed_maps(M.shape[-1])
+    idx = lambda v: torch.as_tensor(v, dtype=torch.int64, device=M.device)
+    return M[:, idx(rows)] * M[:, idx(cols)]
+
+
+def unpack_capacitance(B: torch.Tensor, k: int) -> torch.Tensor:
+    """(S, k(k+1)/2) packed lower triangle -> (S, k, k) symmetric ``I + B``."""
+    cols, rows = _packed_maps(k)
+    flat = np.empty(k * k, np.int64)
+    for r, (j, a) in enumerate(zip(cols, rows)):
+        flat[j * k + a] = r
+        flat[a * k + j] = r
+    full = B[:, torch.as_tensor(flat, device=B.device)].reshape(-1, k, k)
+    return full + torch.eye(k, dtype=B.dtype, device=B.device)
+
+
+def logmvn_cap_reference(
+    rows: torch.Tensor,
+    M: torch.Tensor,
+    M_pair: torch.Tensor,
+    absorption: torch.Tensor,
+    extra: Sequence[torch.Tensor] = (),
+):
+    """Plain twin of K2: the elementwise noise assembly and the two
+    products of the reference's composition
+    (``gpy_dla_detection_tpu/ops/logmvn.py:201-221``), with K2's masking.
+
+    :param rows: (5, N) rows y, mu, omega2, v, mask (1.0 = valid pixel).
+    :param M: (N, k).
+    :param M_pair: (N, k(k+1)/2) packed pair basis.
+    :param absorption: (S, N).
+    :param extra: chained streams, each (S, N), multiplied into ``a``.
+    :return: B (S, k(k+1)/2) without the +I, u (S, k), misc (S, 2) =
+        (quad0, logdet0 + n log 2 pi).
+    """
+    y, mu, omega2, v, mask = rows
+    a_raw = absorption
+    for e in extra:
+        a_raw = a_raw * e
+    valid = mask > 0
+    a = torch.where(valid, a_raw, 1.0)
+    d = omega2 * a * a + v
+    d_inv = mask / torch.where(valid, d, 1.0)
+    delta = torch.where(valid, y - mu * a, 0.0)
+    w = a * a * d_inv
+    r = a * delta * d_inv
+    B = torch.matmul(w, M_pair)
+    u = torch.matmul(r, M)
+    quad0 = torch.sum(delta * delta * d_inv, dim=1)
+    logdet0 = -torch.sum(torch.log(d_inv + (~valid).to(d_inv.dtype)), dim=1)
+    n = torch.sum(mask)
+    return B, u, torch.stack([quad0, logdet0 + n * LOG_2PI], dim=1)
+
+
+def logmvn_chain_reference(B: torch.Tensor, u: torch.Tensor, misc: torch.Tensor):
+    """Plain twin of K3: ``batched_quad_logdet`` on the unpacked I + B.
+
+    :return: (S,) per-sample log-likelihoods
+        ``-1/2 (quad0 - quad + logdet0 + logdet)``.
+    """
+    quad, logdet = batched_quad_logdet(unpack_capacitance(B, u.shape[1]), u)
+    return -0.5 * (misc[:, 0] - quad + misc[:, 1] + logdet)
+
+
+def logmvn_cap(
+    rows: torch.Tensor,
+    M: torch.Tensor,
+    M_pair: torch.Tensor,
+    absorption: torch.Tensor,
+    extra: Sequence[torch.Tensor] = (),
+):
+    """Stage A of the Woodbury likelihood: K2 on CUDA, its twin on the
+    CPU (float32).  Same contract as :func:`logmvn_cap_reference`."""
+    extra = tuple(extra)
+    if not use_kernel(absorption):
+        return logmvn_cap_reference(rows, M, M_pair, absorption, extra)
+    if len(extra) > MAX_EXTRA_STREAMS:
+        # deeper chains than the catalog's 4 levels: fold the oldest rows
+        head = extra[: len(extra) - MAX_EXTRA_STREAMS + 1]
+        extra = (torch.prod(torch.stack(head), dim=0),) + extra[len(head):]
+    device = absorption.device
+    check_cuda_f32(device, rows=rows, M=M, M_pair=M_pair, absorption=absorption)
+    for i, e in enumerate(extra):
+        check_cuda_f32(device, **{f"extra[{i}]": e})
+    S, N = absorption.shape
+    k = M.shape[1]
+    kp = k * (k + 1) // 2
+    if (
+        rows.shape != (5, N)
+        or M.shape != (N, k)
+        or M_pair.shape != (N, kp)
+        or any(e.shape != (S, N) for e in extra)
+    ):
+        raise ValueError(
+            f"shape mismatch: rows {tuple(rows.shape)}, M {tuple(M.shape)}, "
+            f"M_pair {tuple(M_pair.shape)}, absorption {(S, N)}, extra "
+            f"{[tuple(e.shape) for e in extra]}"
+        )
+    if S == 0 or N == 0:
+        raise ValueError(f"empty problem: S={S}, N={N}")
+    B = torch.empty((S, kp), dtype=torch.float32, device=device)
+    u = torch.empty((S, k), dtype=torch.float32, device=device)
+    misc = torch.empty((S, 2), dtype=torch.float32, device=device)
+    e = list(extra) + [None] * (MAX_EXTRA_STREAMS - len(extra))
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.logmvn_cap_launch(
+            ptr(rows), N, ptr(M), k, ptr(M_pair), kp, ptr(absorption),
+            ptr(e[0]), ptr(e[1]), ptr(e[2]), len(extra), S,
+            ptr(B), ptr(u), ptr(misc), stream_ptr(device),
+        )
+    check_launch("logmvn_cap", err)
+    launch_counts["logmvn_cap"] += 1
+    return B, u, misc
+
+
+def logmvn_chain(B: torch.Tensor, u: torch.Tensor, misc: torch.Tensor):
+    """Stage B of the Woodbury likelihood: K3 on CUDA, its twin on the
+    CPU (float32).  Returns the (S,) per-sample log-likelihoods."""
+    if not use_kernel(B):
+        return logmvn_chain_reference(B, u, misc)
+    device = B.device
+    check_cuda_f32(device, B=B, u=u, misc=misc)
+    S, k = u.shape
+    if B.shape != (S, k * (k + 1) // 2) or misc.shape != (S, 2) or S == 0:
+        raise ValueError(
+            f"shape mismatch: B {tuple(B.shape)}, u {tuple(u.shape)}, "
+            f"misc {tuple(misc.shape)}"
+        )
+    ll = torch.empty((S,), dtype=torch.float32, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.logmvn_chain_launch(
+            ptr(B), ptr(u), ptr(misc), S, k, ptr(ll), stream_ptr(device)
+        )
+    check_launch("logmvn_chain", err)
+    launch_counts["logmvn_chain"] += 1
+    return ll

@@ -1,0 +1,209 @@
+"""K1: the fused broadened Voigt absorption of every column-density family.
+
+``absorption_all`` launches ``csrc/absorption_all.cu`` on float32 CUDA
+tensors and runs its plain twin ``absorption_all_reference`` on float32
+CPU tensors.  Both evaluate, per sample and pixel, the far-field
+Lorentzian beyond ``|z| = CF_FAR_RADIUS`` and the per-line polynomial
+Faddeeva inside it, with the float32 constants of
+``gpy_dla_detection_tpu/ops/voigt_pallas.py:_abs_all_kernel`` (poly=True).
+"""
+
+from __future__ import annotations
+
+import functools
+from collections.abc import Sequence
+
+import numpy as np
+import torch
+
+from gpy_dla_detection_tpu import constants as C
+
+from ._build import (
+    check_cuda_f32,
+    check_launch,
+    launch_counts,
+    load_library,
+    ptr,
+    stream_ptr,
+    use_kernel,
+)
+from .voigt import CF_FAR_RADIUS, FAR_FIELD_LINES, instrumental_broadening
+
+WINDOW_U0 = 9.0  # disk/wing split of the polynomial Faddeeva, in u = x^2
+
+
+@functools.lru_cache(maxsize=32)
+def _window_poly_coeffs(y: float, u0: float = 9.0,
+                        deg_disk: int = 16, deg_wing: int = 10):
+    """Per-line polynomial fit of Re w(x + iy) for a fixed Lorentzian
+    width ``y``: ``exp(-u) + y * R(u)`` with u = x^2.
+
+    * disk  u in [0, u0]:           R(s),  s = 2 u / u0 - 1
+    * wing  u in [u0, CF_FAR^2]:    w = exp(-u) + y * t * S(st),
+                                    t = 1/u, st = 2 u0 t - 1
+
+    Monomial coefficients (lowest power first) of Chebyshev fits to
+    scipy's float64 ``wofz``, rounded to float32; a copy of
+    ``gpy_dla_detection_tpu/ops/voigt_pallas.py:_window_poly_coeffs``.
+    """
+    from scipy.special import wofz
+
+    u = np.linspace(0.0, u0, 30001)
+    w = wofz(np.sqrt(u) + 1j * y).real
+    R = (w - np.exp(-u)) / y
+    s = 2.0 * u / u0 - 1.0
+    cd = (
+        np.polynomial.chebyshev.Chebyshev.fit(s, R, deg_disk)
+        .convert(kind=np.polynomial.Polynomial)
+        .coef.astype(np.float32)
+    )
+    uu = np.geomspace(u0, float(CF_FAR_RADIUS) ** 2, 30001)
+    t = 1.0 / uu
+    S = (wofz(np.sqrt(uu) + 1j * y).real - np.exp(-uu)) / (y * t)
+    st = 2.0 * u0 * t - 1.0
+    cw = (
+        np.polynomial.chebyshev.Chebyshev.fit(st, S, deg_wing)
+        .convert(kind=np.polynomial.Polynomial)
+        .coef.astype(np.float32)
+    )
+    return tuple(float(c) for c in cd), tuple(float(c) for c in cw)
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_constants(num_lines: int) -> tuple[dict, tuple[float, ...]]:
+    """Scalar float32 constants shared by the kernel and its twin, rounded
+    exactly as the reference kernel rounds them, plus the flat parameter
+    table the CUDA kernel reads (per line: lam, amp, y, y^2, disk and wing
+    coefficients; then the 7 instrument taps)."""
+    f32 = np.float32
+    sigma = float(C.THERMAL_SIGMA_CGS)
+    inv = f32(1.0) / (f32(np.sqrt(f32(2.0))) * f32(sigma))
+    sqrt_pi = f32(np.sqrt(np.pi))
+    lines = []
+    table = []
+    for l in range(num_lines):
+        amp = f32(C.LYMAN_LEADING_CONSTANTS[l]) * inv / sqrt_pi
+        y = f32(C.LYMAN_LORENTZIAN_WIDTHS[l]) * inv
+        y_fit = float(C.LYMAN_LORENTZIAN_WIDTHS[l]) * (
+            1.0 / (float(np.sqrt(2.0)) * sigma)
+        )
+        cd, cw = _window_poly_coeffs(y_fit, WINDOW_U0)
+        line = dict(
+            lam=_f32(C.LYMAN_WAVELENGTHS_A[l]), amp=float(amp), y=float(y),
+            y2=float(y * y), cd=cd, cw=cw,
+        )
+        lines.append(line)
+        table += [line["lam"], line["amp"], line["y"], line["y2"], *cd, *cw]
+    table += [_f32(t) for t in C.INSTRUMENT_PROFILE]
+    consts = dict(
+        inv=float(inv), sqrt_pi=float(sqrt_pi),
+        c_cgs=_f32(C.SPEED_OF_LIGHT_CGS), lines=tuple(lines),
+    )
+    return consts, tuple(table)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_table(num_lines: int, device: torch.device) -> torch.Tensor:
+    _, table = _kernel_constants(num_lines)
+    return torch.tensor(table, dtype=torch.float32, device=device)
+
+
+def absorption_all_reference(
+    wavelengths: torch.Tensor,
+    z_absorber: torch.Tensor,
+    nhis: Sequence[torch.Tensor],
+    num_lines: int = 3,
+) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch twin of K1 (dense per-pixel formula).
+
+    :param wavelengths: (P,) padded observed wavelengths [A], float32.
+    :param z_absorber: (S,) absorber redshifts.
+    :param nhis: column densities, one (S,) tensor per family.
+    :return: one (S, P - 6) broadened absorption per family.
+    """
+    consts, _ = _kernel_constants(num_lines)
+    inv, sqrt_pi, c_cgs = consts["inv"], consts["sqrt_pi"], consts["c_cgs"]
+    far_r2 = CF_FAR_RADIUS * CF_FAR_RADIUS
+    u0 = WINDOW_U0
+    wl = wavelengths[None, :]
+    one_plus_z = (1.0 + z_absorber)[:, None]
+    tau = torch.zeros(
+        (z_absorber.shape[0], wavelengths.shape[0]),
+        dtype=wavelengths.dtype, device=wavelengths.device,
+    )
+    for l, line in enumerate(consts["lines"]):
+        amp, y = line["amp"], line["y"]
+        lam_c = line["lam"] * one_plus_z
+        x = (wl - lam_c) * (c_cgs / lam_c) * inv
+        u = x * x
+        r2 = u + line["y2"]
+        far = r2 > far_r2
+        if l < FAR_FIELD_LINES:
+            tau = tau + amp * torch.where(far, y / (sqrt_pi * r2), 0.0)
+        eu = torch.exp(-u)
+        cd, cw = line["cd"], line["cw"]
+        s = u * (2.0 / u0) - 1.0
+        disk = torch.full_like(u, cd[-1])
+        for c in cd[-2::-1]:
+            disk = disk * s + c
+        disk = eu + y * disk
+        t = 1.0 / torch.clamp(u, min=u0)
+        st = t * (2.0 * u0) - 1.0
+        wing = torch.full_like(u, cw[-1])
+        for c in cw[-2::-1]:
+            wing = wing * st + c
+        wing = eu + y * t * wing
+        tau = tau + amp * torch.where(far, 0.0, torch.where(u <= u0, disk, wing))
+    return tuple(
+        instrumental_broadening(torch.exp(-nhi[:, None] * tau)) for nhi in nhis
+    )
+
+
+def absorption_all(
+    wavelengths: torch.Tensor,
+    z_absorber: torch.Tensor,
+    nhis: Sequence[torch.Tensor],
+    num_lines: int = 3,
+) -> tuple[torch.Tensor, ...]:
+    """Broadened absorption profiles of every family in ``nhis`` from the
+    shared redshift samples: K1 on CUDA, its twin on the CPU (float32).
+
+    :return: one (S, P - 6) float32 profile per family.
+    """
+    if not use_kernel(wavelengths):
+        return absorption_all_reference(wavelengths, z_absorber, nhis, num_lines)
+    device = wavelengths.device
+    nhi = torch.stack(tuple(nhis)).contiguous()  # (F, S)
+    check_cuda_f32(device, wavelengths=wavelengths, z_absorber=z_absorber, nhi=nhi)
+    P = wavelengths.shape[0]
+    S = z_absorber.shape[0]
+    F = nhi.shape[0]
+    if wavelengths.ndim != 1 or z_absorber.ndim != 1 or nhi.shape[1] != S:
+        raise ValueError(
+            f"expected wavelengths (P,), z (S,), nhis F x (S,); got "
+            f"{tuple(wavelengths.shape)}, {tuple(z_absorber.shape)}, "
+            f"{tuple(nhi.shape)}"
+        )
+    if S == 0 or P <= 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH:
+        raise ValueError(f"empty problem: S={S}, P={P}")
+    consts, _ = _kernel_constants(num_lines)
+    table = _device_table(num_lines, device)
+    out = torch.empty(
+        (F, S, P - 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH),
+        dtype=torch.float32, device=device,
+    )
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.absorption_all_launch(
+            ptr(wavelengths), P, ptr(z_absorber), S, ptr(nhi), F, ptr(table),
+            num_lines, min(num_lines, FAR_FIELD_LINES), consts["inv"],
+            consts["c_cgs"], consts["sqrt_pi"], ptr(out), stream_ptr(device),
+        )
+    check_launch("absorption_all", err)
+    launch_counts["absorption_all"] += 1
+    return tuple(out.unbind(0))
+

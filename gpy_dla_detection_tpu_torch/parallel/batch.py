@@ -1,0 +1,181 @@
+"""Batched Bayesian model selection over many spectra on one device.
+
+Port of the single-device part of
+``gpy_dla_detection_tpu/parallel/batch.py``.  The spectra of a batch are
+interpolated and their null evidences computed as one batched pass; the
+QMC marginalization then loops over the spectra, each level launching the
+likelihood kernels over all S samples of one spectrum.  When the DLA and
+subDLA sample sets share their redshift offsets (as the reference's
+sample files do), one K1 launch computes both families' profiles.
+
+``dispatch_batch`` only enqueues device work and returns device tensors;
+``finalize_batch`` copies them to the host once and runs the model
+selection, so a caller can overlap one batch's host work with the next
+batch's device work.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gpy_dla_detection_tpu.data.catalog import PriorCatalog
+from gpy_dla_detection_tpu.data.samples import DLASamples, SubDLASamples
+from gpy_dla_detection_tpu.data.spectrum import Spectrum, stack
+from gpy_dla_detection_tpu.params import Parameters
+
+from ..data.spectrum import to_torch
+from ..models.evidence import (
+    QMCEvidenceResult,
+    null_log_evidence,
+    qmc_log_evidences,
+    single_absorber_profiles,
+)
+from ..models.learned import LearnedModel, SpectrumModel, build_spectrum_model
+from ..models.pipeline import (
+    EvidenceOutputs,
+    SampleTensors,
+    SpectrumResult,
+    sample_tensors,
+    spectrum_result,
+)
+
+
+def _stack_results(results: list[QMCEvidenceResult]) -> QMCEvidenceResult:
+    return QMCEvidenceResult(*[torch.stack(f) for f in zip(*results)])
+
+
+def batch_evidences(
+    learned: LearnedModel,
+    specs: Spectrum,
+    dla: SampleTensors,
+    sub: SampleTensors,
+    generator: torch.Generator,
+    params: Parameters,
+    max_dlas: int = 4,
+    shared_offsets: bool = False,
+    base_inds_override: torch.Tensor | None = None,
+) -> EvidenceOutputs:
+    """Evidences for a batch of tensor spectra (leading axis).
+
+    :param shared_offsets: the DLA and subDLA offsets are equal, so one
+        profile evaluation serves both families.
+    :param base_inds_override: optional (B, max_dlas - 1, S) resampling
+        indices replacing the draws of each spectrum's DLA chain.
+    """
+    models = build_spectrum_model(learned, specs, params)
+    null = null_log_evidence(models)
+    dla_out, sub_out = [], []
+    for i in range(null.shape[0]):
+        model = SpectrumModel(*[f[i] for f in models])
+        A_dla = A_sub = None
+        if shared_offsets:
+            z = model.min_z_dla + (model.max_z_dla - model.min_z_dla) * dla.offset_samples
+            A_dla, A_sub = single_absorber_profiles(
+                model.padded_wavelengths, z,
+                (dla.nhi_samples, sub.nhi_samples), params.num_lines,
+            )
+        dla_out.append(
+            qmc_log_evidences(
+                model, *dla, generator, max_dlas, params,
+                base_inds_override=(
+                    None if base_inds_override is None else base_inds_override[i]
+                ),
+                A_override=A_dla,
+            )
+        )
+        sub_out.append(
+            qmc_log_evidences(model, *sub, generator, 1, params, A_override=A_sub)
+        )
+    return EvidenceOutputs(null, _stack_results(dla_out), _stack_results(sub_out))
+
+
+def dispatch_batch(
+    learned: LearnedModel,
+    spectra: list[Spectrum],
+    dla_samples: DLASamples,
+    subdla_samples: SubDLASamples,
+    params: Parameters,
+    generator: torch.Generator,
+    max_dlas: int = 4,
+    base_inds_override: np.ndarray | None = None,
+) -> EvidenceOutputs:
+    """Enqueue one batch's evidence computation on the learned model's
+    device and dtype, and return the device outputs without waiting.
+
+    :param base_inds_override: optional (B, max_dlas - 1, S) resampling
+        indices replacing the draws (reproduces a reference run).
+    """
+    device, dtype = learned.mu.device, learned.mu.dtype
+    shared = np.array_equal(
+        np.asarray(dla_samples.offset_samples),
+        np.asarray(subdla_samples.offset_samples),
+    )
+    return batch_evidences(
+        learned,
+        to_torch(stack(spectra), device, dtype),
+        sample_tensors(dla_samples, device, dtype),
+        sample_tensors(subdla_samples, device, dtype),
+        generator,
+        params,
+        max_dlas,
+        shared_offsets=bool(shared),
+        base_inds_override=(
+            None
+            if base_inds_override is None
+            else torch.as_tensor(np.asarray(base_inds_override, np.int64), device=device)
+        ),
+    )
+
+
+def finalize_batch(
+    out: EvidenceOutputs,
+    spectra: list[Spectrum],
+    subdla_samples: SubDLASamples,
+    prior: PriorCatalog,
+    max_dlas: int = 4,
+) -> list[SpectrumResult]:
+    """Copy one dispatched batch to the host (once per output) and run
+    the model selection per spectrum."""
+    host = lambda t: t.detach().cpu().numpy()
+    null_ev = host(out.log_evidence_null)
+    dla_ev = host(out.dla.log_evidences)
+    sub_ev = host(out.subdla.log_evidences)
+    dla_sll = host(out.dla.sample_log_likelihoods)
+    sub_sll = host(out.subdla.sample_log_likelihoods)
+    base_inds = host(out.dla.base_sample_inds)
+    map_z = host(out.dla.map_z_dlas)
+    map_lognhi = host(out.dla.map_log_nhis)
+    return [
+        spectrum_result(
+            null_ev[i], dla_ev[i], sub_ev[i], dla_sll[i], sub_sll[i],
+            base_inds[i], map_z[i], map_lognhi[i], spec, subdla_samples,
+            prior, max_dlas,
+        )
+        for i, spec in enumerate(spectra)
+    ]
+
+
+def process_batch(
+    learned: LearnedModel,
+    spectra: list[Spectrum],
+    dla_samples: DLASamples,
+    subdla_samples: SubDLASamples,
+    prior: PriorCatalog,
+    params: Parameters,
+    generator: torch.Generator,
+    max_dlas: int = 4,
+    base_inds_override: np.ndarray | None = None,
+) -> list[SpectrumResult]:
+    """Full model selection for a list of spectra: dispatch + finalize.
+
+    :param generator: drives the importance resampling; on the learned
+        model's device.
+    :param base_inds_override: optional (B, max_dlas - 1, S) resampling
+        indices replacing the draws.
+    """
+    out = dispatch_batch(
+        learned, spectra, dla_samples, subdla_samples, params, generator,
+        max_dlas, base_inds_override,
+    )
+    return finalize_batch(out, spectra, subdla_samples, prior, max_dlas)

@@ -1,0 +1,103 @@
+"""Write the full-width golden fixture that the PyTorch port is held to on
+the card (``chip_smoke.py``, phase 5).
+
+The JAX package runs on the CPU in float64 at the full ``Parameters()``
+(S = 10,000 samples, N = 1,280 pixels, k = 20, max_dlas = 4): exact Voigt
+profiles and float64 profile storage.  Two synthetic spectra, one clean
+and one with an injected DLA, go through ``process_spectrum`` with
+resampling indices drawn by numpy, so the port can replay the identical
+chain without JAX.  Run from the repository root:
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py
+
+Output: tests/data/torch_golden_fullscale.npz
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from pathlib import Path
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+
+jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_default_device", jax.devices("cpu")[0])
+
+import numpy as np  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from gpy_dla_detection_tpu.data.samples import (  # noqa: E402
+    generate_dla_samples,
+    generate_subdla_samples,
+)
+from gpy_dla_detection_tpu.data.synthetic import (  # noqa: E402
+    synthetic_learned_model,
+    synthetic_prior_catalog,
+    synthetic_spectrum,
+)
+from gpy_dla_detection_tpu.models.pipeline import process_spectrum  # noqa: E402
+from gpy_dla_detection_tpu.params import Parameters  # noqa: E402
+
+OUT = ROOT / "tests" / "data" / "torch_golden_fullscale.npz"
+MAX_DLAS = 4
+INDEX_SEED = 2026
+# (z_qso, observation seed, injected (z_dla, logNHI) or None); the first
+# two spectra of chip_smoke.py's 16
+SPECTRA = (
+    (2.6, 0, None),
+    (2.6 + 0.8 / 15, 1, (2.6 + 0.8 / 15 - 0.3, 21.2)),
+)
+
+
+def main() -> None:
+    params = Parameters()
+    learned = synthetic_learned_model(params)
+    prior = synthetic_prior_catalog(params)
+    dla_samples = generate_dla_samples(params)
+    sub_samples = generate_subdla_samples(params)
+    S = params.num_dla_samples
+    base_inds = np.random.default_rng(INDEX_SEED).integers(
+        0, S, size=(len(SPECTRA), MAX_DLAS - 1, S)
+    )
+    fields = {k: [] for k in (
+        "log_evidence_null", "log_evidences_dla", "log_evidence_subdla",
+        "map_z_dlas", "map_log_nhis", "model_posteriors", "p_dla",
+    )}
+    for (z_qso, seed, dla), inds in zip(SPECTRA, base_inds):
+        spec = synthetic_spectrum(
+            params, learned, z_qso, seed=seed, dlas=None if dla is None else [dla]
+        )
+        res = process_spectrum(
+            learned, spec, dla_samples, sub_samples, prior, params,
+            jax.random.PRNGKey(0), max_dlas=MAX_DLAS, base_inds_override=inds,
+        )
+        fields["log_evidence_null"].append(res.log_evidence_null)
+        fields["log_evidences_dla"].append(res.log_evidences_dla)
+        fields["log_evidence_subdla"].append(res.log_evidence_subdla)
+        fields["map_z_dlas"].append(res.map_z_dlas)
+        fields["map_log_nhis"].append(res.map_log_nhis)
+        fields["model_posteriors"].append(res.selection.model_posteriors)
+        fields["p_dla"].append(res.p_dla)
+        print(f"z_qso={z_qso:.4f} injected={dla is not None} p_dla={res.p_dla:.6f} "
+              f"dla evidences={np.asarray(res.log_evidences_dla)}")
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(
+        OUT,
+        z_qso=np.array([s[0] for s in SPECTRA], np.float64),
+        obs_seed=np.array([s[1] for s in SPECTRA], np.int64),
+        injected=np.array([s[2] is not None for s in SPECTRA]),
+        dla_z=np.array([np.nan if s[2] is None else s[2][0] for s in SPECTRA]),
+        dla_log_nhi=np.array([np.nan if s[2] is None else s[2][1] for s in SPECTRA]),
+        base_inds=base_inds.astype(np.uint16),
+        **{k: np.asarray(v, np.float64) for k, v in fields.items()},
+    )
+    print(f"wrote {OUT} ({OUT.stat().st_size} bytes)")
+
+
+if __name__ == "__main__":
+    main()

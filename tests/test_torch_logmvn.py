@@ -1,0 +1,223 @@
+"""K2/K3 (two-stage Woodbury likelihood) and the low-rank MVN ops of the
+PyTorch port, against the JAX package.
+
+Tolerances:
+* float32 twins vs ``batched_log_mvnpdf_pallas(..., interpret=True)``:
+  |dll| <= 2e-6 |ll|, with |ll| the largest magnitude of the sample set
+  (measured <= 5.7e-7 |ll|);
+* float32 twins vs the float64 composition at full width (N = 1280,
+  k = 20): median |dll| <= 7.4e-4 and max <= 3.8e-3, the reference
+  kernel's own budget on |ll| ~ 1.1e4 (ops/logmvn_pallas.py:206-210); on
+  inputs with larger |ll| the max may reach 1.5x the reference kernel's
+  own error on the same inputs;
+* float64 port vs float64 JAX: 1e-10 relative (same algorithm, only the
+  summation order differs).
+
+The CUDA kernels are held against the twins in
+tests/test_torch_kernels_gpu.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gpy_dla_detection_tpu.data.samples import generate_dla_samples
+from gpy_dla_detection_tpu.ops import logmvn as J
+from gpy_dla_detection_tpu.ops.logmvn_pallas import (
+    batched_log_mvnpdf_pallas,
+    packed_pair_basis as jax_packed_pair_basis,
+)
+from gpy_dla_detection_tpu.params import Parameters
+from gpy_dla_detection_tpu_torch.data.spectrum import to_torch
+from gpy_dla_detection_tpu_torch.data.synthetic import (
+    synthetic_learned_model,
+    synthetic_spectrum,
+)
+from gpy_dla_detection_tpu_torch.models.learned import (
+    LearnedModel,
+    build_spectrum_model,
+)
+from gpy_dla_detection_tpu_torch.ops import _build
+from gpy_dla_detection_tpu_torch.ops import logmvn as T
+from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
+    logmvn_cap,
+    logmvn_cap_reference,
+    logmvn_chain,
+    logmvn_chain_reference,
+    packed_pair_basis,
+    unpack_capacitance,
+)
+from gpy_dla_detection_tpu_torch.ops.voigt_kernels import absorption_all_reference
+
+torch.set_num_threads(2)
+
+REL_VS_JAX_KERNEL = 2e-6
+MEDIAN_VS_F64 = 7.4e-4
+MAX_VS_F64 = 3.8e-3
+REL_F64 = 1e-10
+
+
+
+def _problem(N=300, k=4, S=72, n_extra=0, seed=7):
+    """A masked Woodbury problem in the shape of tests/test_logmvn.py's
+    kernel tests; S = 72 is not a multiple of any kernel block."""
+    rng = np.random.default_rng(seed)
+    M = (rng.normal(size=(N, k)) / np.sqrt(k) * 0.1).astype(np.float32)
+    y = (1 + 0.1 * rng.normal(size=N)).astype(np.float32)
+    mu = np.ones(N, np.float32)
+    omega2 = rng.uniform(0.01, 0.05, N).astype(np.float32)
+    v = rng.uniform(0.02, 0.1, N).astype(np.float32)
+    mask = rng.uniform(size=N) > 0.1
+    A = np.exp(-rng.random((S, N))).astype(np.float32)
+    extra = [np.exp(-0.3 * rng.random((S, N))).astype(np.float32) for _ in range(n_extra)]
+    return (y, mu, M, omega2, v, mask), A, extra
+
+
+def _torch(xs, device="cpu"):
+    return [torch.as_tensor(x, device=device) for x in xs]
+
+
+@pytest.mark.parametrize("k,n_extra", [(4, 0), (4, 3), (8, 3)])
+def test_twins_match_jax_kernel_interpret(k, n_extra):
+    base, A, extra = _problem(k=k, n_extra=n_extra)
+    ja = [jnp.asarray(x) for x in base]
+    want = np.asarray(
+        batched_log_mvnpdf_pallas(
+            *ja, jnp.asarray(A), J.pair_basis(ja[2]), k, interpret=True,
+            extra=tuple(jnp.asarray(e) for e in extra) if extra else None,
+        )
+    )
+    got = T.batched_log_mvnpdf(*_torch(base), torch.as_tensor(A), extra=_torch(extra))
+    assert got.dtype == torch.float32 and got.shape == (A.shape[0],)
+    np.testing.assert_allclose(
+        got.numpy(), want, rtol=0, atol=REL_VS_JAX_KERNEL * np.abs(want).max()
+    )
+
+
+@pytest.mark.parametrize("n_extra", [0, 3])
+def test_twins_match_f64_composition_at_full_width(n_extra):
+    """Main-path widths (N = 1280, k = 20) on a synthetic spectrum with
+    K1-twin profiles, against the float64 JAX composition of the same
+    inputs.  The chained streams push |ll| to ~1.4e4, above the ~1.1e4
+    the reference budget was measured at, where the float32 capacitance
+    product sets the floor: there the maximum may reach 1.5x the JAX
+    kernel's own maximum error on the same inputs (its measured 4.7e-3;
+    the port measures 3.4e-3 to 5.4e-3 with the CPU's thread count)."""
+    params = Parameters(num_dla_samples=256)
+    learned = synthetic_learned_model(params)
+    spec = synthetic_spectrum(params, learned, 3.1, seed=2)
+    model = build_spectrum_model(
+        LearnedModel.from_numpy(learned, dtype=torch.float32),
+        to_torch(spec, "cpu", torch.float32), params,
+    )
+    samples = generate_dla_samples(params)
+    z = model.min_z_dla + (model.max_z_dla - model.min_z_dla) * torch.as_tensor(
+        samples.offset_samples, dtype=torch.float32
+    )
+    (A,) = absorption_all_reference(
+        model.padded_wavelengths, z,
+        (torch.as_tensor(samples.nhi_samples, dtype=torch.float32),),
+    )
+    rng = np.random.default_rng(0)
+    extra = [A[torch.as_tensor(rng.integers(0, 256, 256))] for _ in range(n_extra)]
+    base = (model.y, model.mu, model.M, model.omega2, model.v, model.mask)
+    got = T.batched_log_mvnpdf(*base, A, extra=extra).numpy().astype(np.float64)
+
+    f64 = lambda t: jnp.asarray(
+        t.numpy().astype(np.float64) if t.dtype != torch.bool else t.numpy()
+    )
+    prod = (
+        jnp.asarray(np.prod(np.stack([e.numpy().astype(np.float64) for e in extra]), axis=0))
+        if extra else None
+    )
+    want = np.asarray(
+        J.batched_log_mvnpdf(*[f64(t) for t in base], f64(A), use_pallas=False, extra=prod)
+    )
+    ja = [jnp.asarray(t.numpy()) for t in base]
+    jax_kernel = np.asarray(
+        batched_log_mvnpdf_pallas(
+            *ja, jnp.asarray(A.numpy()), J.pair_basis(ja[2]), 20, interpret=True,
+            extra=tuple(jnp.asarray(e.numpy()) for e in extra) if extra else None,
+        )
+    )
+    err = np.abs(got - want)
+    jax_max = np.abs(jax_kernel.astype(np.float64) - want).max()
+    assert np.median(err) <= MEDIAN_VS_F64, np.median(err)
+    assert err.max() <= max(MAX_VS_F64, 1.5 * jax_max), (err.max(), jax_max)
+
+
+@pytest.mark.parametrize("n_extra", [0, 2])
+def test_float64_matches_jax_composition(n_extra):
+    base, A, extra = _problem(k=6, n_extra=n_extra, seed=1)
+    base64 = [x.astype(np.float64) if x.dtype != bool else x for x in base]
+    A64 = A.astype(np.float64)
+    extra64 = [e.astype(np.float64) for e in extra]
+    prod = np.prod(np.stack(extra64), axis=0) if extra64 else None
+    want = np.asarray(
+        J.batched_log_mvnpdf(
+            *[jnp.asarray(x) for x in base64], jnp.asarray(A64), use_pallas=False,
+            extra=None if prod is None else jnp.asarray(prod),
+        )
+    )
+    got = T.batched_log_mvnpdf(*_torch(base64), torch.as_tensor(A64), extra=_torch(extra64))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=REL_F64)
+
+
+def test_low_rank_and_iid_match_jax():
+    rng = np.random.default_rng(4)
+    n, k = 200, 6
+    y, mu = rng.normal(size=n), rng.normal(size=n)
+    M = rng.normal(size=(2, n, k)) / np.sqrt(k)  # a batch of two
+    d = rng.uniform(0.5, 2.0, size=n)
+    mask = rng.uniform(size=n) > 0.2
+    want = np.asarray(J.log_mvnpdf_low_rank(y, mu, M, d, mask))
+    got = T.log_mvnpdf_low_rank(*_torch([y, mu, M, d, mask]))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
+    np.testing.assert_allclose(
+        T.log_mvnpdf_iid(*_torch([y, mu, d, mask])).numpy(),
+        np.asarray(J.log_mvnpdf_iid(y, mu, d, mask)), rtol=1e-12,
+    )
+
+
+def test_pair_bases_match_jax_and_unpack():
+    rng = np.random.default_rng(5)
+    M = rng.normal(size=(50, 6))
+    np.testing.assert_array_equal(
+        packed_pair_basis(torch.as_tensor(M)).numpy(),
+        np.asarray(jax_packed_pair_basis(jnp.asarray(M))),
+    )
+    np.testing.assert_array_equal(
+        T.pair_basis(torch.as_tensor(M)).numpy(), np.asarray(J.pair_basis(jnp.asarray(M)))
+    )
+    w = torch.as_tensor(rng.uniform(size=(3, 50)))
+    full = unpack_capacitance(w @ packed_pair_basis(torch.as_tensor(M)), 6)
+    want = torch.eye(6, dtype=torch.float64) + (w @ T.pair_basis(torch.as_tensor(M))).reshape(3, 6, 6)
+    torch.testing.assert_close(full, want, rtol=1e-13, atol=1e-13)
+
+
+def test_masked_pixel_with_zero_or_nan_variance_stays_finite():
+    base, A, _ = _problem(k=4, S=16)
+    y, mu, M, omega2, v, mask = base
+    v, omega2, mask = v.copy(), omega2.copy(), mask.copy()
+    mask[:3] = False
+    v[0], omega2[0] = 0.0, 0.0
+    v[1] = np.nan
+    ll = T.batched_log_mvnpdf(*_torch((y, mu, M, omega2, v, mask)), torch.as_tensor(A))
+    assert torch.isfinite(ll).all()
+
+
+def test_cpu_wrappers_run_the_twins_without_counting():
+    base, A, extra = _problem(k=4, S=16, n_extra=1)
+    y, mu, M, omega2, v, mask = _torch(base)
+    rows = torch.stack([y, mu, omega2, v, mask.float()])
+    _build.reset_launch_counts()
+    B, u, misc = logmvn_cap(rows, M, packed_pair_basis(M), torch.as_tensor(A), _torch(extra))
+    want = logmvn_cap_reference(rows, M, packed_pair_basis(M), torch.as_tensor(A), _torch(extra))
+    for g, w in zip((B, u, misc), want):
+        assert torch.equal(g, w)
+    assert torch.equal(logmvn_chain(B, u, misc), logmvn_chain_reference(B, u, misc))
+    assert _build.launch_counts["logmvn_cap"] == 0
+    assert _build.launch_counts["logmvn_chain"] == 0
