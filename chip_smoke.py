@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DLA catalog path once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -7,17 +7,26 @@ Phases, one line each; any failure exits non-zero before the result:
   1. environment (torch, CUDA, nvcc, the card and its power limit, TF32 off)
   2. build of the CUDA kernels from gpy_dla_detection_tpu_torch/csrc
   3. each kernel against its plain PyTorch twin at main-path shapes
-     (S = 10,000 samples, N = 1,280 pixels, k = 20, two families,
-     0 and 3 chained streams)
-  4. the slice end to end at Parameters(): process_batch on 16 synthetic
-     spectra (odd ones carry a DLA at z_qso - 0.3, logNHI 21.2), with the
-     kernels' launch counts over that run and the detections checked
+     (S = 10,000 samples, N = 1,280 pixels, k = 20, two families, 0 and 3
+     chained streams; K5 at 10,000 x 1,286 and at the MCMC half-steps'
+     16 and 20 x 1,286; K3 also at the odd k = 21 of the rank-1 chain variant)
+  4. the default catalog path at Parameters(): process_batch on 16
+     synthetic spectra (odd ones carry a DLA at z_qso - 0.3, logNHI 21.2),
+     with the kernels' launch counts over that run and the detections
   5. full-width parity with the JAX package's float64 run on the same
      inputs and resampling indices (tests/data/torch_golden_fullscale.npz)
-  6. timings: each kernel vs its twin, and the slice's spectra/s
+  6. the exact-Voigt catalog configuration (voigt_impl="exact": exact
+     unit optical depth + K5 per family) on 4 of those spectra, with its
+     launch counts and detections, and its golden parity as in phase 5
+  7. the absorber MCMC head: a DLA chain (32 walkers x 5,000 steps) on an
+     injected spectrum at full width, checked against the truth, and a
+     CIV chain (40 walkers x 1,000 steps); posterior evaluations per second
+  8. timings: each kernel vs its twin and its bound, and the spectra/s of
+     the default slice and of the exact configuration
 Then a JSON line of the kernels, the card line, and the result line.
 
-It imports nothing of JAX: ``jax`` is blocked before the port is imported.
+It imports nothing of JAX and nothing of the JAX package: both are
+blocked before the port is imported.
 """
 
 from __future__ import annotations
@@ -29,7 +38,10 @@ import sys
 import time
 from pathlib import Path
 
-sys.modules["jax"] = None  # the card's machine has no JAX; fail loudly if reached
+# the card's machine has no JAX, and the port stands alone: fail loudly if
+# either is reached
+sys.modules["jax"] = None
+sys.modules["gpy_dla_detection_tpu"] = None
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -37,27 +49,44 @@ import torch  # noqa: E402
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_fullscale.npz"
 NUM_SPECTRA = 16
+NUM_EXACT = 4
 MAX_DLAS = 4
+DLA_CHAIN = (32, 5000)  # walkers, steps (the reference's)
+CIV_CHAIN = (40, 1000)
+ODD_K = 21
 
 TOL_K1 = 2e-6  # absolute, kernel vs twin (measured 2.4e-7)
+TOL_K5 = 1e-6  # absolute, kernel vs twin; profiles lie in [0, 1] (measured 1.8e-7)
 REL_K23 = 1e-6  # |dll| <= REL_K23 * max|ll|, kernel vs twin (measured 3.7e-7)
 REL_GOLDEN_EVIDENCE = 1e-4  # of the largest |log evidence|, float32 vs float64 JAX
 ABS_GOLDEN_P_DLA = 1e-3
 
+# published H100 SXM peaks (NVIDIA data sheet; 700 W): HBM3 bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+LOGMVN = "gpy_dla_detection_tpu/ops/logmvn_pallas.py"
 KERNELS = {
     "absorption_all": (
         "gpy_dla_detection_tpu_torch/csrc/absorption_all.cu",
         "gpy_dla_detection_tpu/ops/voigt_pallas.py:239",
     ),
+    "absorption_tail": (
+        "gpy_dla_detection_tpu_torch/csrc/absorption_tail.cu",
+        "gpy_dla_detection_tpu/ops/voigt_pallas.py:75",
+    ),
     "logmvn_cap": (
         "gpy_dla_detection_tpu_torch/csrc/logmvn_cap.cu",
-        "gpy_dla_detection_tpu/ops/logmvn_pallas.py:238",
+        f"{LOGMVN}:238",
     ),
     "logmvn_chain": (
         "gpy_dla_detection_tpu_torch/csrc/logmvn_chain.cu",
-        "gpy_dla_detection_tpu/ops/logmvn_pallas.py:497",
+        f"{LOGMVN}:497",
     ),
 }
+# the chain variants K3 stands for: rank-1 packed (odd k), flat rank-2, flat rank-1
+ALSO_REPLACES = {"logmvn_chain": [f"{LOGMVN}:422", f"{LOGMVN}:319", f"{LOGMVN}:258"]}
 
 
 def fail(msg: str) -> None:
@@ -84,21 +113,74 @@ def timed_median(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """Least milliseconds for the work: bytes over HBM rate or float32
+    operations over the float32 peak, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_work(wl, z, n_fam, consts, far_lines) -> tuple[float, float]:
+    """Bytes and float32 operations of one K1 call on these inputs.  Per
+    sample, pixel and line: 6 for the line's x and |z|^2, then 4 in the
+    far field, 38 on the disk fit (degree 16) or 30 on the wing fit
+    (degree 10, one division); per family an exp and a product per pixel
+    and 7 FMAs per output pixel.  An exp or a division counts as one."""
+    S, P = z.shape[0], wl.shape[0]
+    ops = 0.0
+    one_plus_z = (1.0 + z)[:, None]
+    for l, line in enumerate(consts["lines"]):
+        lam_c = line["lam"] * one_plus_z
+        u = ((wl[None, :] - lam_c) * (consts["c_cgs"] / lam_c) * consts["inv"]) ** 2
+        far = (u + line["y2"]) > 256.0**2
+        n_far = float(far.sum())
+        n_disk = float((~far & (u <= 9.0)).sum())
+        n_wing = S * P - n_far - n_disk
+        ops += 6 * S * P + (4 * n_far if l < far_lines else 0) + 38 * n_disk + 30 * n_wing
+    ops += n_fam * (2 * S * P + 14 * S * (P - 6))
+    n_bytes = 4 * (P + S + n_fam * S + n_fam * S * (P - 6))
+    return n_bytes, ops
+
+
+def k2_work(S, N, k, n_extra) -> tuple[float, float]:
+    """The two capacitance products (2 S N (k(k+1)/2 + k)) and ~12 + n_extra
+    elementwise operations per sample and pixel; reads A, the extras, the
+    rows, M and M_pair, writes B, u and misc."""
+    kp = k * (k + 1) // 2
+    ops = 2.0 * S * N * (kp + k) + S * N * (12 + n_extra)
+    n_bytes = 4.0 * (5 * N + N * k + N * kp + S * N * (1 + n_extra) + S * (kp + k + 2))
+    return n_bytes, ops
+
+
+def k3_work(S, k) -> tuple[float, float]:
+    """Per sample the Cholesky (~k^3/3), the substitution and the logs
+    (~2 k^2); reads B, u, misc, writes ll."""
+    kp = k * (k + 1) // 2
+    return 4.0 * S * (kp + k + 2 + 1), S * (k**3 / 3.0 + 2.0 * k * k)
+
+
+def k5_work(S, P) -> tuple[float, float]:
+    """An exp and a product per input pixel, 7 FMAs per output pixel;
+    reads unit_tau, nhi and the taps, writes the profile."""
+    return 4.0 * (S * P + S + 7 + S * (P - 6)), S * (2.0 * P + 14.0 * (P - 6))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
 
-    from gpy_dla_detection_tpu.data.samples import (
+    from gpy_dla_detection_tpu_torch.data.samples import (
         generate_dla_samples,
         generate_subdla_samples,
     )
-    from gpy_dla_detection_tpu.params import Parameters
+    from gpy_dla_detection_tpu_torch.data.spectrum import to_torch
     from gpy_dla_detection_tpu_torch.data.synthetic import (
         synthetic_learned_model,
         synthetic_prior_catalog,
         synthetic_spectrum,
     )
-    from gpy_dla_detection_tpu_torch.data.spectrum import to_torch
+    from gpy_dla_detection_tpu_torch.models.absorber_mcmc import run_civ_mcmc, run_dla_mcmc
     from gpy_dla_detection_tpu_torch.models.learned import (
         LearnedModel,
         build_spectrum_model,
@@ -111,10 +193,15 @@ def main() -> None:
         logmvn_chain_reference,
         packed_pair_basis,
     )
+    from gpy_dla_detection_tpu_torch.ops.voigt import FAR_FIELD_LINES, unit_lyman_optical_depth
     from gpy_dla_detection_tpu_torch.ops.voigt_kernels import (
+        _kernel_constants,
         absorption_all,
         absorption_all_reference,
+        absorption_tail,
+        absorption_tail_reference,
     )
+    from gpy_dla_detection_tpu_torch.params import Parameters
     from gpy_dla_detection_tpu_torch.parallel.batch import process_batch
 
     device = torch.device("cuda", 0)
@@ -164,6 +251,18 @@ def main() -> None:
     err = {"absorption_all": max(float((a - b).abs().max()) for a, b in zip(k1_out, k1_ref))}
     check(err["absorption_all"] <= TOL_K1, f"K1 vs twin {err['absorption_all']:.3e} > {TOL_K1}")
 
+    # K5 on the exact unit optical depth, at the catalog's and the MCMC
+    # half-steps' row counts
+    unit_tau = unit_lyman_optical_depth(wl, z_s, params.num_lines)
+    k5_rows = {}
+    for rows_n in (unit_tau.shape[0], DLA_CHAIN[0] // 2, CIV_CHAIN[0] // 2):
+        tau_r, nhi_r = unit_tau[:rows_n].contiguous(), nhis[0][:rows_n].contiguous()
+        k5_rows[rows_n] = (tau_r, nhi_r)
+        e5 = float((absorption_tail(tau_r, nhi_r) - absorption_tail_reference(tau_r, nhi_r))
+                   .abs().max())
+        check(e5 <= TOL_K5, f"K5 ({rows_n} rows) vs twin {e5:.3e} > {TOL_K5}")
+        err["absorption_tail"] = max(err.get("absorption_tail", 0.0), e5)
+
     A = k1_out[0]
     S = A.shape[0]
     gen = torch.Generator(device=device).manual_seed(0)
@@ -187,45 +286,68 @@ def main() -> None:
         ))
     err["logmvn_cap"] = max(k2_err)
     err["logmvn_chain"] = max(k3_err)
+
+    # K3 at an odd k (the rank-1 variant's case): a GP basis of ODD_K
+    # columns through K2's twin, so the capacitance is a real one
+    M_odd = torch.cat([model.M, model.M[:, :ODD_K - model.M.shape[1]] * 0.5], dim=1)
+    cap_odd = logmvn_cap_reference(rows, M_odd, packed_pair_basis(M_odd), A)
+    ll_odd_ref = logmvn_chain_reference(*cap_odd)
+    scale_odd = float(ll_odd_ref.abs().max())
+    k3_odd = float((logmvn_chain(*cap_odd) - ll_odd_ref).abs().max())
+    check(k3_odd <= REL_K23 * scale_odd,
+          f"K3 (k={ODD_K}) |dll| {k3_odd:.3e} > {REL_K23} x {scale_odd:.4g}")
+    err["logmvn_chain"] = max(err["logmvn_chain"], k3_odd)
     torch.cuda.synchronize()
     print(f"[3 parity] S={S} N={A.shape[1]} k={model.M.shape[1]} F=2 | K1 max|d| "
-          f"{err['absorption_all']:.3e} (tol {TOL_K1}) | K2 max|dll| 0/3 streams "
-          f"{k2_err[0]:.3e}/{k2_err[1]:.3e}, outputs max rel {max(k2_rel):.3e} | K3 max|dll| "
-          f"{k3_err[0]:.3e}/{k3_err[1]:.3e} (tol {REL_K23} x max|ll| {scale:.4g})")
+          f"{err['absorption_all']:.3e} (tol {TOL_K1}) | K5 max|d| {err['absorption_tail']:.3e} "
+          f"at {' and '.join(f'{r}x{unit_tau.shape[1]}' for r in k5_rows)} (tol {TOL_K5}) | "
+          f"K2 max|dll| 0/3 streams {k2_err[0]:.3e}/{k2_err[1]:.3e}, outputs max rel "
+          f"{max(k2_rel):.3e} | K3 max|dll| {k3_err[0]:.3e}/{k3_err[1]:.3e} (tol {REL_K23} x "
+          f"max|ll| {scale:.4g}), k={ODD_K} {k3_odd:.3e} (tol {REL_K23} x {scale_odd:.4g})")
 
-    # 4. the slice end to end through the batch entry point
-    def run_slice(base_inds=None, batch=spectra):
+    def run_slice(base_inds=None, batch=spectra, voigt_impl="windowed"):
         return process_batch(
             learned, batch, dla_samples, sub_samples, prior, params,
             torch.Generator(device=device).manual_seed(1), MAX_DLAS,
-            base_inds_override=base_inds,
+            base_inds_override=base_inds, voigt_impl=voigt_impl,
         )
 
-    _build.reset_launch_counts()
-    results = run_slice()
-    launches = dict(_build.launch_counts)
+    def check_detections(results, batch_truths, label):
+        dzs, p_clean, p_inj = [], [0.0], [1.0]
+        for res, truth in zip(results, batch_truths):
+            finite = (np.isfinite(res.log_evidence_null) and np.isfinite(res.log_evidence_subdla)
+                      and np.isfinite(res.log_evidences_dla).all())
+            check(finite, f"{label}: non-finite evidence")
+            if truth is None:
+                check(res.p_dla < 0.1, f"{label}: clean spectrum p_dla {res.p_dla:.4f} >= 0.1")
+                p_clean.append(res.p_dla)
+            else:
+                dz = abs(float(res.map_z_dlas[0][0]) - truth[0])
+                check(res.p_dla > 0.9, f"{label}: injected DLA missed: p_dla {res.p_dla:.4f}")
+                check(dz < 0.01, f"{label}: injected DLA MAP z off by {dz:.4f}")
+                dzs.append(dz)
+                p_inj.append(res.p_dla)
+        return (f"clean max p_dla {max(p_clean):.3e} | injected min p_dla {min(p_inj):.6f}, "
+                f"max |MAP z - truth| {max(dzs):.2e}")
+
+    def count_launches(fn):
+        _build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(_build.launch_counts)
+
+    path_launches = {}
+
+    # 4. the default catalog path through the batch entry point
+    results, launches = count_launches(run_slice)
+    path_launches["windowed"] = launches
     need = {"absorption_all": NUM_SPECTRA, "logmvn_cap": 5 * NUM_SPECTRA,
             "logmvn_chain": 5 * NUM_SPECTRA}
     for name, n in need.items():
         check(launches.get(name, 0) >= n, f"{name} launched {launches.get(name, 0)} < {n} times")
-    detections = []
-    for res, truth in zip(results, truths):
-        finite = (np.isfinite(res.log_evidence_null) and np.isfinite(res.log_evidence_subdla)
-                  and np.isfinite(res.log_evidences_dla).all())
-        check(finite, "non-finite evidence")
-        if truth is None:
-            check(res.p_dla < 0.1, f"clean spectrum p_dla {res.p_dla:.4f} >= 0.1")
-        else:
-            dz = abs(float(res.map_z_dlas[0][0]) - truth[0])
-            check(res.p_dla > 0.9, f"injected DLA missed: p_dla {res.p_dla:.4f}")
-            check(dz < 0.01, f"injected DLA MAP z off by {dz:.4f}")
-            detections.append(dz)
-    p_clean = max(r.p_dla for r, t in zip(results, truths) if t is None)
-    p_inj = min(r.p_dla for r, t in zip(results, truths) if t is not None)
     print(f"[4 slice] {NUM_SPECTRA} spectra at S={params.num_dla_samples} N="
           f"{params.num_pixels_padded} k={params.k} max_dlas={MAX_DLAS} | launches {launches} | "
-          f"clean max p_dla {p_clean:.3e} | injected min p_dla {p_inj:.6f}, "
-          f"max |MAP z - truth| {max(detections):.2e}")
+          f"{check_detections(results, truths, 'slice')}")
 
     # 5. full-width golden parity with the JAX float64 run
     g = np.load(GOLDEN)
@@ -237,51 +359,141 @@ def main() -> None:
         for z, seed, inj, dz, dn in zip(g["z_qso"], g["obs_seed"], g["injected"],
                                         g["dla_z"], g["dla_log_nhi"])
     ]
-    gres = run_slice(g["base_inds"].astype(np.int64), golden_spectra)
-    worst_rel, worst_dp = 0.0, 0.0
-    for i, res in enumerate(gres):
-        got = np.concatenate([[res.log_evidence_null, res.log_evidence_subdla],
-                              res.log_evidences_dla]).astype(np.float64)
-        want = np.concatenate([[g["log_evidence_null"][i], g["log_evidence_subdla"][i]],
-                               g["log_evidences_dla"][i]])
-        # relative to the spectrum's evidence scale (a log evidence may cross 0)
-        rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
-        dp = abs(res.p_dla - float(g["p_dla"][i]))
-        worst_rel, worst_dp = max(worst_rel, rel), max(worst_dp, dp)
-        check(rel <= REL_GOLDEN_EVIDENCE, f"golden {i}: log evidence rel {rel:.3e}")
-        check(dp <= ABS_GOLDEN_P_DLA, f"golden {i}: |dp_dla| {dp:.3e}")
-        check(np.argmax(res.selection.model_posteriors) == np.argmax(g["model_posteriors"][i]),
-              f"golden {i}: argmax model differs")
-    print(f"[5 golden] {len(gres)} spectra vs JAX float64 at full width, same indices | "
-          f"log evidence max rel {worst_rel:.3e} (tol {REL_GOLDEN_EVIDENCE}) | "
-          f"max |dp_dla| {worst_dp:.3e} (tol {ABS_GOLDEN_P_DLA}) | argmax models equal")
 
-    # 6. timings on the card
+    def golden_parity(voigt_impl):
+        gres = run_slice(g["base_inds"].astype(np.int64), golden_spectra, voigt_impl)
+        worst_rel, worst_dp = 0.0, 0.0
+        for i, res in enumerate(gres):
+            got = np.concatenate([[res.log_evidence_null, res.log_evidence_subdla],
+                                  res.log_evidences_dla]).astype(np.float64)
+            want = np.concatenate([[g["log_evidence_null"][i], g["log_evidence_subdla"][i]],
+                                   g["log_evidences_dla"][i]])
+            # relative to the spectrum's evidence scale (a log evidence may cross 0)
+            rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+            dp = abs(res.p_dla - float(g["p_dla"][i]))
+            worst_rel, worst_dp = max(worst_rel, rel), max(worst_dp, dp)
+            check(rel <= REL_GOLDEN_EVIDENCE,
+                  f"golden {voigt_impl} {i}: log evidence rel {rel:.3e}")
+            check(dp <= ABS_GOLDEN_P_DLA, f"golden {voigt_impl} {i}: |dp_dla| {dp:.3e}")
+            check(np.argmax(res.selection.model_posteriors) == np.argmax(g["model_posteriors"][i]),
+                  f"golden {voigt_impl} {i}: argmax model differs")
+        return (f"{len(gres)} spectra vs JAX float64 at full width, same indices | "
+                f"log evidence max rel {worst_rel:.3e} (tol {REL_GOLDEN_EVIDENCE}) | "
+                f"max |dp_dla| {worst_dp:.3e} (tol {ABS_GOLDEN_P_DLA}) | argmax models equal")
+
+    print(f"[5 golden] {golden_parity('windowed')}")
+
+    # 6. the exact-Voigt configuration: exact unit tau once per spectrum,
+    # then one K5 launch per family (DLA and subDLA): 2 per spectrum
+    results, launches = count_launches(
+        lambda: run_slice(batch=spectra[:NUM_EXACT], voigt_impl="exact"))
+    path_launches["exact"] = launches
+    need = {"absorption_tail": 2 * NUM_EXACT, "logmvn_cap": 5 * NUM_EXACT,
+            "logmvn_chain": 5 * NUM_EXACT}
+    for name, n in need.items():
+        check(launches.get(name, 0) == n, f"exact: {name} launched {launches.get(name, 0)} != {n}")
+    check(launches.get("absorption_all", 0) == 0, "exact: K1 launched")
+    print(f"[6 exact] {NUM_EXACT} spectra, voigt_impl=exact | launches {launches} "
+          f"(absorption_tail 2 per spectrum: one per family) | "
+          f"{check_detections(results, truths[:NUM_EXACT], 'exact')} | "
+          f"golden: {golden_parity('exact')}")
+
+    # 7. the absorber MCMC head on an injected spectrum at full width
+    z_dla, log_nhi = 2.82, 21.0
+    mspec = synthetic_spectrum(params, arrays, 3.05, seed=11, dlas=[(z_dla, log_nhi)],
+                               noise_level=0.05)
+    mmodel = build_spectrum_model(learned, to_torch(mspec, device, torch.float32), params)
+    mgen = torch.Generator(device=device).manual_seed(2)
+    W, steps = DLA_CHAIN
+    # walkers start near the absorber (the reference seeds them from the
+    # QMC draws; the k = 1 posterior is a needle in a flat landscape)
+    pos0 = torch.stack([
+        z_dla + 0.01 * torch.randn(W, generator=mgen, device=device),
+        log_nhi + 0.3 * torch.randn(W, generator=mgen, device=device),
+    ], dim=1)
+    t0 = time.perf_counter()
+    (chain, lps, acc), launches = count_launches(
+        lambda: run_dla_mcmc(mmodel, params, mgen, nwalkers=W, nsamples=steps,
+                             initial_positions=pos0))
+    dla_s = time.perf_counter() - t0
+    path_launches["mcmc_dla"] = launches
+    check(launches.get("absorption_tail", 0) == 2 * steps + 1,
+          f"mcmc: absorption_tail launched {launches.get('absorption_tail', 0)} != {2 * steps + 1}")
+    acc = float(acc)
+    tail = chain[-steps // 4:].reshape(-1, 2).cpu().numpy()
+    med_z, med_n = float(np.median(tail[:, 0])), float(np.median(tail[:, 1]))
+    check(bool(torch.isfinite(lps[-1]).all()), "mcmc: non-finite log posterior at the end")
+    check(0.05 < acc < 0.95, f"mcmc: acceptance {acc:.3f} outside (0.05, 0.95)")
+    check(abs(med_z - z_dla) < 0.01, f"mcmc: median z {med_z:.4f} vs truth {z_dla}")
+    dla_rate = W * steps / dla_s
+
+    Wc, steps_c = CIV_CHAIN
+    t0 = time.perf_counter()
+    (chain_c, lps_c, acc_c), launches_c = count_launches(
+        lambda: run_civ_mcmc(mmodel, params, mgen, nwalkers=Wc, nsamples=steps_c))
+    civ_s = time.perf_counter() - t0
+    path_launches["mcmc_civ"] = launches_c
+    check(launches_c.get("absorption_tail", 0) == 2 * steps_c + 1,
+          f"civ mcmc: absorption_tail launched {launches_c.get('absorption_tail', 0)}")
+    check(bool(torch.isfinite(lps_c[-1]).all()), "civ mcmc: non-finite log posterior")
+    civ_rate = Wc * steps_c / civ_s
+    print(f"[7 mcmc] {card} | DLA {W} walkers x {steps} steps at full width: {dla_s:.2f} s, "
+          f"{dla_rate:.1f} posterior evals/s, acceptance {acc:.3f}, tail median z {med_z:.5f} "
+          f"(truth {z_dla}), logNHI {med_n:.3f} (truth {log_nhi}), launches {launches} | "
+          f"CIV {Wc} walkers x {steps_c} steps: {civ_s:.2f} s, {civ_rate:.1f} posterior "
+          f"evals/s, acceptance {float(acc_c):.3f}, launches {launches_c}")
+
+    # 8. timings on the card (kernel vs twin, within this call)
     ms = {
         "absorption_all": (timed_median(lambda: absorption_all(wl, z_s, nhis)),
                            timed_median(lambda: absorption_all_reference(wl, z_s, nhis))),
     }
+    for rows_n, (tau_r, nhi_r) in k5_rows.items():
+        ms[f"absorption_tail_{rows_n}"] = (
+            timed_median(lambda: absorption_tail(tau_r, nhi_r)),
+            timed_median(lambda: absorption_tail_reference(tau_r, nhi_r)))
+    ms["absorption_tail"] = ms[f"absorption_tail_{unit_tau.shape[0]}"]
     cap0 = logmvn_cap(rows, model.M, Mp, A)
     for name, extra in (("logmvn_cap", []), ("logmvn_cap_3", extras3)):
         ms[name] = (timed_median(lambda: logmvn_cap(rows, model.M, Mp, A, extra)),
                     timed_median(lambda: logmvn_cap_reference(rows, model.M, Mp, A, extra)))
     ms["logmvn_chain"] = (timed_median(lambda: logmvn_chain(*cap0)),
                           timed_median(lambda: logmvn_chain_reference(*cap0)))
-    slice_s = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_slice()
-        slice_s.append(time.perf_counter() - t0)
-    rate = NUM_SPECTRA / statistics.median(slice_s)
-    timing = " | ".join(f"{n} {k:.3f} ms vs twin {p:.3f} ms" for n, (k, p) in ms.items())
-    print(f"[6 timing] {card} | median of 10 synchronised calls: {timing} | slice "
-          f"{rate:.2f} spectra/s (median of 3 runs of {NUM_SPECTRA}, after warm-up)")
+    ms[f"logmvn_chain_k{ODD_K}"] = (timed_median(lambda: logmvn_chain(*cap_odd)),
+                                    timed_median(lambda: logmvn_chain_reference(*cap_odd)))
+    def slice_rate(batch, voigt_impl):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_slice(batch=batch, voigt_impl=voigt_impl)
+            runs.append(time.perf_counter() - t0)
+        return len(batch) / statistics.median(runs)
 
+    rate = slice_rate(spectra, "windowed")
+    exact_rate = slice_rate(spectra[:NUM_EXACT], "exact")
+
+    consts, _ = _kernel_constants(params.num_lines)
+    work = {
+        "absorption_all": k1_work(wl, z_s, 2, consts, min(params.num_lines, FAR_FIELD_LINES)),
+        "absorption_tail": k5_work(*unit_tau.shape),
+        "logmvn_cap": k2_work(S, A.shape[1], model.M.shape[1], 0),
+        "logmvn_chain": k3_work(S, model.M.shape[1]),
+    }
+    bounds = {name: bound(*w) for name, w in work.items()}
+    timing = " | ".join(f"{n} {k:.3f} ms vs twin {p:.3f} ms" for n, (k, p) in ms.items())
+    print(f"[8 timing] {card} | median of 10 synchronised calls: {timing} | bounds "
+          + ", ".join(f"{n} {b:.4f} ms ({by})" for n, (b, by) in bounds.items())
+          + f" | slice {rate:.2f} spectra/s (median of 3 runs of {NUM_SPECTRA}, after warm-up), "
+          f"exact configuration {exact_rate:.2f} spectra/s (median of 3 runs of {NUM_EXACT})")
+
+    total = {name: sum(p.get(name, 0) for p in path_launches.values()) for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": err[name],
-         "ms": ms[name][0], "plain_ms": ms[name][1]}
+         **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
+         "launches": total[name], "max_abs_err": err[name],
+         "ms": ms[name][0], "plain_ms": ms[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, rep) in KERNELS.items()
     ]}))
     print(card)

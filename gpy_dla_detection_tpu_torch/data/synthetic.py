@@ -14,9 +14,9 @@ from typing import NamedTuple
 
 import numpy as np
 
-from gpy_dla_detection_tpu.data.catalog import PriorCatalog
-from gpy_dla_detection_tpu.data.spectrum import Spectrum, preprocess
-from gpy_dla_detection_tpu.params import Parameters
+from ..params import Parameters
+from .catalog import PriorCatalog
+from .spectrum import Spectrum, preprocess
 
 
 class LearnedArrays(NamedTuple):
@@ -150,7 +150,7 @@ def synthetic_observation(
 
     # Lyman-forest mean-flux suppression blueward of Lya
     tau = np.zeros_like(wavelengths)
-    from gpy_dla_detection_tpu.constants import (
+    from ..constants import (
         LYMAN_OSCILLATOR_STRENGTHS,
         LYMAN_WAVELENGTHS_A,
     )
@@ -198,7 +198,7 @@ def synthetic_observation(
     if dlas:
         from scipy.special import wofz
 
-        from gpy_dla_detection_tpu.constants import (
+        from ..constants import (
             LYMAN_LEADING_CONSTANTS,
             LYMAN_LORENTZIAN_WIDTHS,
             SPEED_OF_LIGHT_CGS,

@@ -2,8 +2,9 @@
 
 Port of ``gpy_dla_detection_tpu/models/evidence.py``.  Each level's S
 per-sample likelihoods are one batched Woodbury evaluation (K2 then K3
-on the float32 path); the single-absorber profiles are computed once (K1)
-and deeper levels gather rows of them by the importance-resampled parent
+on the float32 path); the single-absorber profiles are computed once (K1,
+or in the exact configuration the exact unit optical depth and K5) and
+deeper levels gather rows of them by the importance-resampled parent
 indices.  The level-k evidence is
 
     log P(D | k) = max_i ll_i + log(mean_{valid i} exp(ll_i - max)) - k log S
@@ -20,12 +21,14 @@ from typing import NamedTuple
 
 import torch
 
-from gpy_dla_detection_tpu.params import Parameters
-
 from ..ops.logmvn import batched_log_mvnpdf, likelihood_pair_basis, log_mvnpdf_low_rank
 from ..ops.voigt import absorption_from_unit_tau, unit_lyman_optical_depth
 from ..ops.voigt_kernels import absorption_all
+from ..params import Parameters
 from .learned import SpectrumModel
+
+
+VOIGT_IMPLS = ("windowed", "exact")
 
 
 def single_absorber_profiles(
@@ -33,20 +36,24 @@ def single_absorber_profiles(
     z_samples: torch.Tensor,
     nhis: Sequence[torch.Tensor],
     num_lines: int,
+    voigt_impl: str = "windowed",
 ) -> tuple[torch.Tensor, ...]:
     """(S, N) broadened absorption of one absorber per sample for every
-    column-density family sharing the redshift samples: float32 runs K1
-    (its twin on the CPU); float64 runs the exact Voigt on the CPU, with
-    one unit optical depth serving every family."""
-    if wavelengths.dtype == torch.float64:
-        if wavelengths.device.type != "cpu":
-            raise TypeError(
-                "the float64 absorption is the CPU conformance path; the "
-                "CUDA kernels take float32"
-            )
-        unit = unit_lyman_optical_depth(wavelengths, z_samples, num_lines)
-        return tuple(absorption_from_unit_tau(unit, nhi) for nhi in nhis)
-    return absorption_all(wavelengths, z_samples, nhis, num_lines)
+    column-density family sharing the redshift samples.
+
+    :param voigt_impl: float32 evaluation: ``"windowed"`` runs K1 for all
+        families in one launch; ``"exact"`` evaluates the exact unit
+        optical depth once and runs K5 once per family (the reference's
+        ``GPY_DLA_FAST_VOIGT=0`` configuration).  On the CPU both run
+        the kernels' twins.  float64 is always exact (the CPU conformance
+        path), with one unit optical depth serving every family.
+    """
+    if voigt_impl not in VOIGT_IMPLS:
+        raise ValueError(f"voigt_impl must be one of {VOIGT_IMPLS}, got {voigt_impl!r}")
+    if wavelengths.dtype == torch.float32 and voigt_impl == "windowed":
+        return absorption_all(wavelengths, z_samples, nhis, num_lines)
+    unit = unit_lyman_optical_depth(wavelengths, z_samples, num_lines)
+    return tuple(absorption_from_unit_tau(unit, nhi) for nhi in nhis)
 
 
 def _draw_base_indices(generator: torch.Generator, probs: torch.Tensor) -> torch.Tensor:
@@ -87,6 +94,7 @@ def qmc_log_evidences(
     params: Parameters,
     base_inds_override: torch.Tensor | None = None,
     A_override: torch.Tensor | None = None,
+    voigt_impl: str = "windowed",
 ) -> QMCEvidenceResult:
     """Marginalize the k-absorber models over the QMC sample set.
 
@@ -101,7 +109,9 @@ def qmc_log_evidences(
         replacing the draws (reproduces a reference run exactly).
     :param A_override: optional precomputed (S, N) single-absorber
         profiles for these samples (the batch layer computes both families
-        in one K1 launch).
+        from one redshift evaluation).
+    :param voigt_impl: profile evaluation when ``A_override`` is None
+        (see :func:`single_absorber_profiles`).
     """
     S = offset_samples.shape[0]
     dtype, device = model.y.dtype, model.y.device
@@ -111,7 +121,8 @@ def qmc_log_evidences(
     z_samples = model.min_z_dla + (model.max_z_dla - model.min_z_dla) * offset_samples
     if A_override is None:
         (A,) = single_absorber_profiles(
-            model.padded_wavelengths, z_samples, (nhi_samples,), params.num_lines
+            model.padded_wavelengths, z_samples, (nhi_samples,), params.num_lines,
+            voigt_impl,
         )
     else:
         A = A_override

@@ -15,11 +15,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from gpy_dla_detection_tpu.data.spectrum import Spectrum
-from gpy_dla_detection_tpu.params import Parameters
-
+from ..data.spectrum import Spectrum
 from ..ops.interp import interp_uniform
 from ..ops.optical_depth import effective_optical_depth
+from ..params import Parameters
 
 FIELDS = (
     "rest_wavelengths",  # (R,) uniform rest grid [A]
@@ -49,12 +48,14 @@ class LearnedModel(nn.Module):
     def from_numpy(
         cls,
         fields: Iterable,
-        device=None,
-        dtype: torch.dtype = torch.float64,
+        device="cuda",
+        dtype: torch.dtype = torch.float32,
     ) -> "LearnedModel":
         """The weight carry-over: the reference container's fields as
         numpy arrays (``np.asarray(f) for f in learned``, in its field
-        order) moved to ``device`` in ``dtype``."""
+        order) moved to ``device`` in ``dtype``.  The default is the
+        card in float32, the kernels' path; the CPU (float32 twins, or
+        the float64 conformance path) is asked for explicitly."""
         return cls(
             *[
                 torch.as_tensor(np.asarray(f), dtype=dtype, device=device)

@@ -3,7 +3,7 @@
 Port of ``gpy_dla_detection_tpu/models/pipeline.py``: model construction,
 the null evidence and the subDLA and multi-DLA QMC evidences run on the
 device; the catalog priors and the posterior combination are host
-scalars (the reference's numpy ``models.selection``, reused).
+scalars (``models.selection``, the port's copy of the reference's).
 """
 
 from __future__ import annotations
@@ -13,20 +13,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gpy_dla_detection_tpu.data.catalog import PriorCatalog
-from gpy_dla_detection_tpu.data.samples import DLASamples, SubDLASamples
-from gpy_dla_detection_tpu.data.spectrum import Spectrum
-from gpy_dla_detection_tpu.models.selection import (
+from ..data.catalog import PriorCatalog
+from ..data.samples import DLASamples, SubDLASamples
+from ..data.spectrum import Spectrum, to_torch
+from ..params import Parameters
+from .evidence import QMCEvidenceResult, null_log_evidence, qmc_log_evidences
+from .learned import LearnedModel, build_spectrum_model
+from .selection import (
     ModelSelectionResult,
     log_priors_k_dlas,
     log_priors_subdla,
     model_selection,
 )
-from gpy_dla_detection_tpu.params import Parameters
-
-from ..data.spectrum import to_torch
-from .evidence import QMCEvidenceResult, null_log_evidence, qmc_log_evidences
-from .learned import LearnedModel, build_spectrum_model
 
 
 class EvidenceOutputs(NamedTuple):
@@ -63,20 +61,25 @@ def compute_evidences(
     params: Parameters,
     max_dlas: int,
     base_inds_override: torch.Tensor | None = None,
+    voigt_impl: str = "windowed",
 ) -> EvidenceOutputs:
     """All model evidences for one tensor spectrum.
 
     :param base_inds_override: optional (max_dlas - 1, S) resampling
         indices replacing the draws of the DLA chain.
+    :param voigt_impl: ``"windowed"`` (K1) or ``"exact"`` (exact unit
+        optical depth + K5).
     """
     model = build_spectrum_model(learned, spec, params)
     return EvidenceOutputs(
         log_evidence_null=null_log_evidence(model),
         dla=qmc_log_evidences(
             model, *dla, generator, max_dlas, params,
-            base_inds_override=base_inds_override,
+            base_inds_override=base_inds_override, voigt_impl=voigt_impl,
         ),
-        subdla=qmc_log_evidences(model, *sub, generator, 1, params),
+        subdla=qmc_log_evidences(
+            model, *sub, generator, 1, params, voigt_impl=voigt_impl
+        ),
     )
 
 
@@ -146,9 +149,11 @@ def process_spectrum(
     generator: torch.Generator,
     max_dlas: int = 4,
     base_inds_override: np.ndarray | None = None,
+    voigt_impl: str = "windowed",
 ) -> SpectrumResult:
     """Full Bayesian model selection for one preprocessed spectrum, on the
-    learned model's device and dtype."""
+    learned model's device and dtype (``voigt_impl`` as in
+    :func:`compute_evidences`)."""
     device, dtype = learned.mu.device, learned.mu.dtype
     out = compute_evidences(
         learned,
@@ -163,6 +168,7 @@ def process_spectrum(
             if base_inds_override is None
             else torch.as_tensor(np.asarray(base_inds_override, np.int64), device=device)
         ),
+        voigt_impl=voigt_impl,
     )
     host = lambda t: t.detach().cpu().numpy()
     return spectrum_result(

@@ -27,13 +27,18 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("absorption_all.cu", "logmvn_cap.cu", "logmvn_chain.cu")
+SOURCES = (
+    "absorption_all.cu", "absorption_tail.cu", "logmvn_cap.cu", "logmvn_chain.cu",
+)
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",
 )
+
+# dynamic shared memory one block may use on Hopper (227 KB)
+MAX_DYNAMIC_SHARED_BYTES = 232448
 
 # kernel name -> launches since the last reset
 launch_counts: Counter = Counter()
@@ -48,6 +53,8 @@ _SIGNATURES = {
     # c_cgs, sqrt_pi, out, stream
     "absorption_all_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _F,
                               _F, _F, _P, _P],
+    # unit_tau, nhi, S, P, taps, out, stream
+    "absorption_tail_launch": [_P, _P, _I, _I, _P, _P, _P],
     # rows, N, M, k, Mp, kp, A, e0, e1, e2, n_extra, S, B, u, misc, stream
     "logmvn_cap_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I,
                           _P, _P, _P, _P],

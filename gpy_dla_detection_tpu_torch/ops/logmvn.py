@@ -16,6 +16,7 @@ is the conformance path and exists on the CPU only.
 
 from __future__ import annotations
 
+import math
 from collections.abc import Sequence
 
 import torch
@@ -32,9 +33,15 @@ def _masked_inputs(y, mu, d, mask):
 
 
 def log_mvnpdf_low_rank(y, mu, M, d, mask=None):
-    """log N(y; mu, M M^T + diag(d)) over valid pixels.
+    """log N(y; mu, M M^T + diag(d)) over valid pixels, batched over any
+    leading axes (the MCMC head passes one row per walker, as the
+    reference ``vmap``s ``log_mvnpdf_low_rank``).
 
-    :param y, mu, d: (..., N).
+    The Cholesky factor is taken without an error check, so nothing is
+    read back to the host; a capacitance that is not positive definite
+    gives NaN, as in the reference.
+
+    :param y, mu, d: (..., N), broadcast against each other.
     :param M: (..., N, k).
     :param mask: (..., N) bool, True = valid pixel; None = all valid.
     :return: (...,) log density.
@@ -47,7 +54,7 @@ def log_mvnpdf_low_rank(y, mu, M, d, mask=None):
     B = torch.eye(k, dtype=y.dtype, device=y.device) + torch.einsum(
         "...ni,...nj->...ij", M, D_inv_M
     )
-    L = torch.linalg.cholesky(B)
+    L, info = torch.linalg.cholesky_ex(B)
     u = torch.einsum("...ni,...n->...i", M, d_inv * delta)
     t = torch.linalg.solve_triangular(L, u[..., None], upper=False)[..., 0]
     quad = torch.sum(delta * delta * d_inv, dim=-1) - torch.sum(t * t, dim=-1)
@@ -55,7 +62,7 @@ def log_mvnpdf_low_rank(y, mu, M, d, mask=None):
         torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1
     )
     n = torch.sum(mask, dim=-1).to(y.dtype)
-    return -0.5 * (quad + log_det + n * LOG_2PI)
+    return torch.where(info == 0, -0.5 * (quad + log_det + n * LOG_2PI), math.nan)
 
 
 def log_mvnpdf_iid(y, mu, d, mask=None):

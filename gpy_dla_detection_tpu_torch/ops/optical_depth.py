@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from gpy_dla_detection_tpu import constants as C
+from .. import constants as C
 
 
 def effective_optical_depth(wavelengths, beta, tau_0, z_qso, num_forest_lines: int):

@@ -1,10 +1,13 @@
-"""Exact batched Voigt absorption profiles (the float64 conformance path).
+"""Exact batched Voigt absorption profiles.
 
 Port of the exact parts of ``gpy_dla_detection_tpu/ops/voigt.py``: the
 summed Lyman-series unit optical depth from the blended Faddeeva function
-at every pixel, ``exp(-nhi * unit_tau)`` and the 7-tap instrumental
-convolution.  The TPU's windowed evaluation is not ported: the float32
-catalog path is the fused kernel K1 (``ops/voigt_kernels.py``).
+at every pixel (float64 or float32 tiers, on any device),
+``exp(-nhi * unit_tau)`` with the 7-tap instrumental convolution (K5 on
+float32, ``ops/voigt_kernels.absorption_tail``), and the CIV doublet
+profile with a free broadening per sample.  The TPU's windowed
+evaluation is not ported: the default float32 catalog path is the fused
+kernel K1 (``ops/voigt_kernels.absorption_all``).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import math
 
 import torch
 
-from gpy_dla_detection_tpu import constants as C
+from .. import constants as C
 
 from .faddeeva import SQRT_PI, wofz_parts
 
@@ -68,9 +71,26 @@ def unit_lyman_optical_depth(
 
 
 def absorption_from_unit_tau(unit_tau: torch.Tensor, nhi: torch.Tensor) -> torch.Tensor:
-    """Broadened absorption ``conv(exp(-nhi * unit_tau))``: (S, P) ->
-    (S, P - 6)."""
-    return instrumental_broadening(torch.exp(-nhi[..., None] * unit_tau))
+    """Broadened absorption ``conv(exp(-nhi * unit_tau))``: (..., P) ->
+    (..., P - 6), the leading axes of ``unit_tau`` matching ``nhi``'s.
+
+    Dispatch by tensor: float32 runs K5 (its kernel on CUDA, its plain
+    twin on the CPU); float64 runs the plain composition on the CPU, the
+    conformance path; anything else raises."""
+    if unit_tau.dtype == torch.float64:
+        if unit_tau.device.type != "cpu":
+            raise TypeError(
+                "the float64 absorption is the CPU conformance path; the "
+                "CUDA kernels take float32"
+            )
+        return instrumental_broadening(torch.exp(-nhi[..., None] * unit_tau))
+    from .voigt_kernels import absorption_tail
+
+    lead, P = unit_tau.shape[:-1], unit_tau.shape[-1]
+    out = absorption_tail(
+        unit_tau.reshape(-1, P).contiguous(), nhi.reshape(-1).contiguous()
+    )
+    return out.reshape(*lead, out.shape[-1])
 
 
 def voigt_absorption(
@@ -82,8 +102,41 @@ def voigt_absorption(
     """Broadened absorption exp(-tau) of one absorber per sample, exact
     Faddeeva at every pixel (the reference's ``impl="exact"``).
 
+    :param wavelengths: (P,) padded observed wavelengths [A].
+    :param nhi, z_absorber: (...,) column densities and redshifts.
     :return: (..., P - 6).
     """
     return absorption_from_unit_tau(
         unit_lyman_optical_depth(wavelengths, z_absorber, num_lines), nhi
     )
+
+
+def voigt_absorption_civ(
+    wavelengths: torch.Tensor,
+    nciv: torch.Tensor,
+    z_civ: torch.Tensor,
+    sigma: torch.Tensor,
+    num_lines: int = 2,
+) -> torch.Tensor:
+    """Broadened CIV doublet absorption; the broadening velocity ``sigma``
+    [cm/s] is a free parameter per sample
+    (``gpy_dla_detection_tpu/ops/voigt.py:voigt_absorption_civ``).  The
+    optical depth per unit column density goes through the same exp and
+    convolution as the Lyman series (K5 on float32).
+
+    :param nciv, z_civ, sigma: (...,) per-sample parameters.
+    :return: (..., P - 6).
+    """
+    sigma = sigma[..., None]
+    one_plus_z = (1.0 + z_civ)[..., None]
+    inv = 1.0 / (math.sqrt(2.0) * sigma)
+    tau = None
+    for l in range(num_lines):
+        lam_c = float(C.CIV_WAVELENGTHS_CM[l] * 1e8) * one_plus_z
+        velocity = (wavelengths - lam_c) * (C.SPEED_OF_LIGHT_CGS / lam_c)
+        w_re, _ = wofz_parts(
+            velocity * inv, float(C.CIV_LORENTZIAN_WIDTHS[l]) * inv
+        )
+        contrib = (float(C.CIV_LEADING_CONSTANTS[l]) / SQRT_PI) * inv * w_re
+        tau = contrib if tau is None else tau + contrib
+    return absorption_from_unit_tau(tau, nciv)

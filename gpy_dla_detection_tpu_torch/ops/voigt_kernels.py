@@ -1,4 +1,9 @@
-"""K1: the fused broadened Voigt absorption of every column-density family.
+"""K1 and K5: the broadened Voigt absorption kernels.
+
+K1 is the fused absorption of every column-density family from the
+shared redshift samples (the default catalog path); K5 is the tail alone,
+``conv7(exp(-nhi * unit_tau))`` over a precomputed unit optical depth
+(the exact-Voigt catalog configuration and the MCMC head).
 
 ``absorption_all`` launches ``csrc/absorption_all.cu`` on float32 CUDA
 tensors and runs its plain twin ``absorption_all_reference`` on float32
@@ -6,6 +11,9 @@ CPU tensors.  Both evaluate, per sample and pixel, the far-field
 Lorentzian beyond ``|z| = CF_FAR_RADIUS`` and the per-line polynomial
 Faddeeva inside it, with the float32 constants of
 ``gpy_dla_detection_tpu/ops/voigt_pallas.py:_abs_all_kernel`` (poly=True).
+``absorption_tail`` launches ``csrc/absorption_tail.cu`` on float32 CUDA
+tensors and runs ``absorption_tail_reference`` on float32 CPU tensors; it
+replaces ``voigt_pallas.py:_abs_tail_kernel``.
 """
 
 from __future__ import annotations
@@ -16,9 +24,10 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
-from gpy_dla_detection_tpu import constants as C
+from .. import constants as C
 
 from ._build import (
+    MAX_DYNAMIC_SHARED_BYTES,
     check_cuda_f32,
     check_launch,
     launch_counts,
@@ -207,3 +216,60 @@ def absorption_all(
     launch_counts["absorption_all"] += 1
     return tuple(out.unbind(0))
 
+
+
+@functools.lru_cache(maxsize=8)
+def _device_taps(device: torch.device) -> torch.Tensor:
+    return torch.tensor(
+        [_f32(t) for t in C.INSTRUMENT_PROFILE], dtype=torch.float32, device=device
+    )
+
+
+def absorption_tail_reference(unit_tau: torch.Tensor, nhi: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of K5: ``conv7(exp(-nhi[:, None] * unit_tau))``
+    with K5's float32 taps, summed in the kernel's order.
+
+    :param unit_tau: (S, P) optical depth per unit column density.
+    :param nhi: (S,) column densities.
+    :return: (S, P - 6).
+    """
+    return instrumental_broadening(torch.exp(-nhi[:, None] * unit_tau))
+
+
+def absorption_tail(unit_tau: torch.Tensor, nhi: torch.Tensor) -> torch.Tensor:
+    """Broadened absorption from a unit optical depth: K5 on CUDA, its
+    twin on the CPU (float32).  Any row count; one block per row.
+
+    :param unit_tau: (S, P) float32, contiguous.
+    :param nhi: (S,) float32.
+    :return: (S, P - 6) float32.
+    """
+    if not use_kernel(unit_tau):
+        return absorption_tail_reference(unit_tau, nhi)
+    device = unit_tau.device
+    check_cuda_f32(device, unit_tau=unit_tau, nhi=nhi)
+    if unit_tau.ndim != 2 or nhi.shape != unit_tau.shape[:1]:
+        raise ValueError(
+            f"expected unit_tau (S, P) and nhi (S,); got "
+            f"{tuple(unit_tau.shape)}, {tuple(nhi.shape)}"
+        )
+    S, P = unit_tau.shape
+    if S == 0 or P <= 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH:
+        raise ValueError(f"empty problem: S={S}, P={P}")
+    if P * 4 > MAX_DYNAMIC_SHARED_BYTES:
+        raise ValueError(
+            f"absorption_tail keeps a row of P={P} floats in shared memory; "
+            f"at most {MAX_DYNAMIC_SHARED_BYTES // 4} fit"
+        )
+    out = torch.empty(
+        (S, P - 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH), dtype=torch.float32, device=device
+    )
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.absorption_tail_launch(
+            ptr(unit_tau), ptr(nhi), S, P, ptr(_device_taps(device)), ptr(out),
+            stream_ptr(device),
+        )
+    check_launch("absorption_tail", err)
+    launch_counts["absorption_tail"] += 1
+    return out

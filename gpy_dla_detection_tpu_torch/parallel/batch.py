@@ -6,7 +6,10 @@ interpolated and their null evidences computed as one batched pass; the
 QMC marginalization then loops over the spectra, each level launching the
 likelihood kernels over all S samples of one spectrum.  When the DLA and
 subDLA sample sets share their redshift offsets (as the reference's
-sample files do), one K1 launch computes both families' profiles.
+sample files do), one redshift evaluation serves both families: one K1
+launch by default (``voigt_impl="windowed"``), or in the exact
+configuration (``voigt_impl="exact"``) one exact unit optical depth and
+one K5 launch per family.
 
 ``dispatch_batch`` only enqueues device work and returns device tensors;
 ``finalize_batch`` copies them to the host once and runs the model
@@ -19,12 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gpy_dla_detection_tpu.data.catalog import PriorCatalog
-from gpy_dla_detection_tpu.data.samples import DLASamples, SubDLASamples
-from gpy_dla_detection_tpu.data.spectrum import Spectrum, stack
-from gpy_dla_detection_tpu.params import Parameters
-
-from ..data.spectrum import to_torch
+from ..data.catalog import PriorCatalog
+from ..data.samples import DLASamples, SubDLASamples
+from ..data.spectrum import Spectrum, stack, to_torch
 from ..models.evidence import (
     QMCEvidenceResult,
     null_log_evidence,
@@ -39,6 +39,7 @@ from ..models.pipeline import (
     sample_tensors,
     spectrum_result,
 )
+from ..params import Parameters
 
 
 def _stack_results(results: list[QMCEvidenceResult]) -> QMCEvidenceResult:
@@ -55,6 +56,7 @@ def batch_evidences(
     max_dlas: int = 4,
     shared_offsets: bool = False,
     base_inds_override: torch.Tensor | None = None,
+    voigt_impl: str = "windowed",
 ) -> EvidenceOutputs:
     """Evidences for a batch of tensor spectra (leading axis).
 
@@ -62,6 +64,8 @@ def batch_evidences(
         profile evaluation serves both families.
     :param base_inds_override: optional (B, max_dlas - 1, S) resampling
         indices replacing the draws of each spectrum's DLA chain.
+    :param voigt_impl: ``"windowed"`` (K1) or ``"exact"`` (exact unit
+        optical depth + K5); see ``models.evidence.single_absorber_profiles``.
     """
     models = build_spectrum_model(learned, specs, params)
     null = null_log_evidence(models)
@@ -74,6 +78,7 @@ def batch_evidences(
             A_dla, A_sub = single_absorber_profiles(
                 model.padded_wavelengths, z,
                 (dla.nhi_samples, sub.nhi_samples), params.num_lines,
+                voigt_impl,
             )
         dla_out.append(
             qmc_log_evidences(
@@ -82,10 +87,14 @@ def batch_evidences(
                     None if base_inds_override is None else base_inds_override[i]
                 ),
                 A_override=A_dla,
+                voigt_impl=voigt_impl,
             )
         )
         sub_out.append(
-            qmc_log_evidences(model, *sub, generator, 1, params, A_override=A_sub)
+            qmc_log_evidences(
+                model, *sub, generator, 1, params, A_override=A_sub,
+                voigt_impl=voigt_impl,
+            )
         )
     return EvidenceOutputs(null, _stack_results(dla_out), _stack_results(sub_out))
 
@@ -99,12 +108,14 @@ def dispatch_batch(
     generator: torch.Generator,
     max_dlas: int = 4,
     base_inds_override: np.ndarray | None = None,
+    voigt_impl: str = "windowed",
 ) -> EvidenceOutputs:
     """Enqueue one batch's evidence computation on the learned model's
     device and dtype, and return the device outputs without waiting.
 
     :param base_inds_override: optional (B, max_dlas - 1, S) resampling
         indices replacing the draws (reproduces a reference run).
+    :param voigt_impl: ``"windowed"`` (default, K1) or ``"exact"``.
     """
     device, dtype = learned.mu.device, learned.mu.dtype
     shared = np.array_equal(
@@ -125,6 +136,7 @@ def dispatch_batch(
             if base_inds_override is None
             else torch.as_tensor(np.asarray(base_inds_override, np.int64), device=device)
         ),
+        voigt_impl=voigt_impl,
     )
 
 
@@ -166,6 +178,7 @@ def process_batch(
     generator: torch.Generator,
     max_dlas: int = 4,
     base_inds_override: np.ndarray | None = None,
+    voigt_impl: str = "windowed",
 ) -> list[SpectrumResult]:
     """Full model selection for a list of spectra: dispatch + finalize.
 
@@ -173,9 +186,12 @@ def process_batch(
         model's device.
     :param base_inds_override: optional (B, max_dlas - 1, S) resampling
         indices replacing the draws.
+    :param voigt_impl: ``"windowed"`` (default, K1) or ``"exact"``
+        (exact unit optical depth + K5, the reference's
+        ``GPY_DLA_FAST_VOIGT=0``).
     """
     out = dispatch_batch(
         learned, spectra, dla_samples, subdla_samples, params, generator,
-        max_dlas, base_inds_override,
+        max_dlas, base_inds_override, voigt_impl,
     )
     return finalize_batch(out, spectra, subdla_samples, prior, max_dlas)

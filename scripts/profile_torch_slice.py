@@ -5,7 +5,7 @@ at ``Parameters()`` on one CUDA card: one warm-up run, then one run under
 ``torch.profiler`` (after one timed without it).  Prints the device time
 per kernel name (top 15), the device busy time against both wall times,
 and the card's name and power limit; with ``--trace PATH`` also writes
-the Chrome trace there.  Imports no JAX.
+the Chrome trace there.  Imports no JAX and nothing of the JAX package.
 
     python3 scripts/profile_torch_slice.py [--trace PATH]
 """
@@ -25,17 +25,17 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from gpy_dla_detection_tpu.data.samples import (  # noqa: E402
+from gpy_dla_detection_tpu_torch.data.samples import (  # noqa: E402
     generate_dla_samples,
     generate_subdla_samples,
 )
-from gpy_dla_detection_tpu.params import Parameters  # noqa: E402
 from gpy_dla_detection_tpu_torch.data.synthetic import (  # noqa: E402
     synthetic_learned_model,
     synthetic_prior_catalog,
     synthetic_spectrum,
 )
 from gpy_dla_detection_tpu_torch.models.learned import LearnedModel  # noqa: E402
+from gpy_dla_detection_tpu_torch.params import Parameters  # noqa: E402
 from gpy_dla_detection_tpu_torch.parallel.batch import process_batch  # noqa: E402
 
 NUM_SPECTRA = 16

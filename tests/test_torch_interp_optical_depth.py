@@ -77,7 +77,9 @@ def test_spectrum_model_matches_batched(suppress):
     batch = stack(spectra)
     want = J_build(learned, batch, params)
     got = build_spectrum_model(
-        LearnedModel.from_numpy(learned), to_torch(batch, "cpu", torch.float64), params
+        LearnedModel.from_numpy(learned, "cpu", torch.float64),
+        to_torch(batch, "cpu", torch.float64),
+        params,
     )
     for name, g, w in zip(want._fields, got, want):
         np.testing.assert_allclose(

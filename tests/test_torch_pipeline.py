@@ -7,9 +7,12 @@
 * float32 (the kernel twins on the CPU) vs the JAX float64 run: log
   evidences within 1e-4 of the spectrum's largest |log evidence|,
   |dp_dla| <= 1e-3, same argmax model.
+* the same two comparisons in the exact-Voigt configuration
+  (``voigt_impl="exact"``: exact unit optical depth + K5's twin).
 * a chi-square test of the port's own resampler;
-* a subprocess that blocks ``jax`` and still imports the port and runs
-  its slice (the card's machine has no JAX);
+* a subprocess that blocks ``jax`` and the JAX package and still imports
+  the port and runs its slice and an MCMC chain (the card's machine has
+  no JAX);
 * the shape of the full-width golden fixture the card is held to.
 """
 
@@ -71,19 +74,18 @@ def slice_inputs():
     return params, learned, spectra, base, jax_results
 
 
-def _run_port(slice_inputs, dtype):
+def _run_port(slice_inputs, dtype, voigt_impl="windowed"):
     params, learned, spectra, base, _ = slice_inputs
     return process_batch(
         LearnedModel.from_numpy(learned, "cpu", dtype), spectra,
         generate_dla_samples(params), generate_subdla_samples(params),
         synthetic_prior_catalog(params), params, torch.Generator().manual_seed(0),
-        max_dlas=MAX_DLAS, base_inds_override=base,
+        max_dlas=MAX_DLAS, base_inds_override=base, voigt_impl=voigt_impl,
     )
 
 
-def test_float64_slice_matches_jax(slice_inputs):
-    jax_results = slice_inputs[-1]
-    for got, want in zip(_run_port(slice_inputs, torch.float64), jax_results):
+def _assert_float64_matches(results, jax_results):
+    for got, want in zip(results, jax_results):
         for name in ("log_evidence_null", "log_evidences_dla", "log_evidence_subdla",
                      "map_z_dlas", "map_log_nhis", "p_dla"):
             np.testing.assert_allclose(
@@ -101,10 +103,9 @@ def test_float64_slice_matches_jax(slice_inputs):
         )
 
 
-def test_float32_slice_matches_jax_float64(slice_inputs):
-    jax_results = slice_inputs[-1]
+def _assert_float32_matches_float64(results, jax_results):
     names = ("log_evidence_null", "log_evidences_dla", "log_evidence_subdla")
-    for got, want in zip(_run_port(slice_inputs, torch.float32), jax_results):
+    for got, want in zip(results, jax_results):
         # relative to the spectrum's evidence scale: a log evidence is a
         # sum over pixels and may cross zero, its error does not shrink there
         scale = max(np.abs(np.asarray(getattr(want, n))).max() for n in names)
@@ -119,11 +120,37 @@ def test_float32_slice_matches_jax_float64(slice_inputs):
         )
 
 
+def test_float64_slice_matches_jax(slice_inputs):
+    _assert_float64_matches(_run_port(slice_inputs, torch.float64), slice_inputs[-1])
+
+
+def test_float32_slice_matches_jax_float64(slice_inputs):
+    _assert_float32_matches_float64(_run_port(slice_inputs, torch.float32), slice_inputs[-1])
+
+
+def test_exact_configuration_float64_matches_jax(slice_inputs):
+    """voigt_impl="exact" (the reference's GPY_DLA_FAST_VOIGT=0): in float64
+    the same exact profiles as the default, held to the same 1e-9."""
+    _assert_float64_matches(_run_port(slice_inputs, torch.float64, "exact"), slice_inputs[-1])
+
+
+def test_exact_configuration_float32_matches_jax_float64(slice_inputs):
+    """voigt_impl="exact" in float32: the exact unit optical depth in the
+    float32 Faddeeva tiers and K5's twin per family, against the JAX
+    float64 run (which off the TPU is the exact configuration)."""
+    results = _run_port(slice_inputs, torch.float32, "exact")
+    _assert_float32_matches_float64(results, slice_inputs[-1])
+    windowed = _run_port(slice_inputs, torch.float32)
+    for e, w in zip(results, windowed):  # a different float32 profile path
+        assert not np.array_equal(e.log_evidences_dla, w.log_evidences_dla)
+
+
 def test_process_spectrum_equals_batch_entry(slice_inputs):
     params, learned, spectra, base, _ = slice_inputs
     batch = _run_port(slice_inputs, torch.float64)
     single = process_spectrum(
-        LearnedModel.from_numpy(learned), spectra[1], generate_dla_samples(params),
+        LearnedModel.from_numpy(learned, "cpu", torch.float64), spectra[1],
+        generate_dla_samples(params),
         generate_subdla_samples(params), synthetic_prior_catalog(params), params,
         torch.Generator().manual_seed(0), max_dlas=MAX_DLAS, base_inds_override=base[1],
     )
@@ -147,29 +174,42 @@ def test_resampler_chi_square():
 
 
 def test_port_runs_without_jax():
-    """With ``jax`` blocked the port imports and runs its float32 slice
-    (the kernels' twins on the CPU) end to end."""
+    """With ``jax`` and the JAX package blocked (the card's machine has
+    neither; the port keeps its own copies of the numpy modules), the
+    port imports and runs its float32 slice in both Voigt configurations
+    and a short DLA chain on the CPU (the kernels' twins)."""
     code = f"""
 import sys
 sys.modules["jax"] = None
+sys.modules["gpy_dla_detection_tpu"] = None
 sys.path.insert(0, {str(ROOT)!r})
 import numpy as np, torch
 torch.set_num_threads(2)
-from gpy_dla_detection_tpu.params import Parameters
-from gpy_dla_detection_tpu.data.samples import generate_dla_samples, generate_subdla_samples
+from gpy_dla_detection_tpu_torch.params import Parameters
+from gpy_dla_detection_tpu_torch.data.samples import generate_dla_samples, generate_subdla_samples
+from gpy_dla_detection_tpu_torch.data.spectrum import to_torch
 from gpy_dla_detection_tpu_torch.data.synthetic import (
     synthetic_learned_model, synthetic_prior_catalog, synthetic_spectrum)
-from gpy_dla_detection_tpu_torch.models.learned import LearnedModel
+from gpy_dla_detection_tpu_torch.models.absorber_mcmc import run_dla_mcmc
+from gpy_dla_detection_tpu_torch.models.learned import LearnedModel, build_spectrum_model
 from gpy_dla_detection_tpu_torch.parallel.batch import process_batch
 params = Parameters(num_dla_samples=64, k=6)
 learned = synthetic_learned_model(params)
 spectra = [synthetic_spectrum(params, learned, 3.0, seed=2, dlas=[(2.7, 21.0)])]
-res = process_batch(LearnedModel.from_numpy(learned, "cpu", torch.float32), spectra,
-    generate_dla_samples(params), generate_subdla_samples(params),
-    synthetic_prior_catalog(params), params, torch.Generator().manual_seed(0), max_dlas=2)
-assert np.isfinite(res[0].log_evidences_dla).all() and np.isfinite(res[0].log_evidence_null)
-assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None)
-print("ok", res[0].p_dla)
+module = LearnedModel.from_numpy(learned, "cpu", torch.float32)
+for impl in ("windowed", "exact"):
+    res = process_batch(module, spectra, generate_dla_samples(params),
+        generate_subdla_samples(params), synthetic_prior_catalog(params), params,
+        torch.Generator().manual_seed(0), max_dlas=2, voigt_impl=impl)
+    assert np.isfinite(res[0].log_evidences_dla).all() and np.isfinite(res[0].log_evidence_null)
+model = build_spectrum_model(module, to_torch(spectra[0], "cpu", torch.float32), params)
+chain, lps, acc = run_dla_mcmc(model, params, torch.Generator().manual_seed(1),
+    nwalkers=8, nsamples=20)
+assert chain.shape == (20, 8, 2) and torch.isfinite(lps[-1]).all() and 0 < float(acc) < 1
+loaded = [m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] in ("jax", "gpy_dla_detection_tpu"))]
+assert loaded == [], loaded
+print("ok", res[0].p_dla, float(acc))
 """
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
