@@ -9,7 +9,10 @@ Phases, one line each; any failure exits non-zero before the result:
   3. each kernel against its plain PyTorch twin at main-path shapes
      (S = 10,000 samples, N = 1,280 pixels, k = 20, two families, 0 and 3
      chained streams; K5 at 10,000 x 1,286 and at the MCMC half-steps'
-     16 and 20 x 1,286; K3 also at the odd k = 21 of the rank-1 chain variant)
+     16 and 20 x 1,286; K3 also at the odd k = 21 of the rank-1 chain
+     variant; K6 at 10,000 x 1,408 for both families; K1 with the
+     Lyman-limit break at the LLS search's P = 1,670, and K2 and K3 at its
+     N = 1,664)
   4. the default catalog path at Parameters(): process_batch on 16
      synthetic spectra (odd ones carry a DLA at z_qso - 0.3, logNHI 21.2),
      with the kernels' launch counts over that run and the detections
@@ -18,11 +21,20 @@ Phases, one line each; any failure exits non-zero before the result:
   6. the exact-Voigt catalog configuration (voigt_impl="exact": exact
      unit optical depth + K5 per family) on 4 of those spectra, with its
      launch counts and detections, and its golden parity as in phase 5
-  7. the absorber MCMC head: a DLA chain (32 walkers x 5,000 steps) on an
+  7. the unfused windowed configuration (voigt_impl="windowed_unfused":
+     windowed unit optical depth parts + K6 per family) likewise
+  8. the LLS search at the width of run_find_lls.py (S = 10,000, 850 A
+     window, N = 1,664, max_lya = 4, BOSS mean flux) on 8 synthetic
+     spectra through lls_inference_many (odd ones carry an LLS of logNHI
+     18.5 at z_qso - 0.2, its break inside the window), with launch counts
+     and detections, and its golden parity with the JAX float64 run
+     (tests/data/torch_golden_lls.npz)
+  9. the absorber MCMC head: a DLA chain (32 walkers x 5,000 steps) on an
      injected spectrum at full width, checked against the truth, and a
      CIV chain (40 walkers x 1,000 steps); posterior evaluations per second
-  8. timings: each kernel vs its twin and its bound, and the spectra/s of
-     the default slice and of the exact configuration
+ 10. timings: each kernel vs its twin and its bound, and the spectra/s of
+     the default slice, the exact and unfused configurations and the LLS
+     search
 Then a JSON line of the kernels, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package: both are
@@ -48,15 +60,22 @@ import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_fullscale.npz"
+GOLDEN_LLS = ROOT / "tests" / "data" / "torch_golden_lls.npz"
 NUM_SPECTRA = 16
 NUM_EXACT = 4
+NUM_UNFUSED = 4
+NUM_LLS = 8
 MAX_DLAS = 4
+MAX_LYA = 4
+LLS_PARAMS = dict(num_dla_samples=10000, min_lambda=850.0, num_pixels_padded=1664)
+LLS_LOG_NHI = 18.5
 DLA_CHAIN = (32, 5000)  # walkers, steps (the reference's)
 CIV_CHAIN = (40, 1000)
 ODD_K = 21
 
 TOL_K1 = 2e-6  # absolute, kernel vs twin (measured 2.4e-7)
 TOL_K5 = 1e-6  # absolute, kernel vs twin; profiles lie in [0, 1] (measured 1.8e-7)
+TOL_K6 = 1e-6  # absolute, kernel vs twin; the same exp and 7-tap sum as K5
 REL_K23 = 1e-6  # |dll| <= REL_K23 * max|ll|, kernel vs twin (measured 3.7e-7)
 REL_GOLDEN_EVIDENCE = 1e-4  # of the largest |log evidence|, float32 vs float64 JAX
 ABS_GOLDEN_P_DLA = 1e-3
@@ -75,6 +94,10 @@ KERNELS = {
     "absorption_tail": (
         "gpy_dla_detection_tpu_torch/csrc/absorption_tail.cu",
         "gpy_dla_detection_tpu/ops/voigt_pallas.py:75",
+    ),
+    "absorption_windowed": (
+        "gpy_dla_detection_tpu_torch/csrc/absorption_windowed.cu",
+        "gpy_dla_detection_tpu/ops/voigt_pallas.py:144",
     ),
     "logmvn_cap": (
         "gpy_dla_detection_tpu_torch/csrc/logmvn_cap.cu",
@@ -121,14 +144,16 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_work(wl, z, n_fam, consts, far_lines) -> tuple[float, float]:
+def k1_work(wl, z, n_fam, consts, far_lines, lls_break=False) -> tuple[float, float]:
     """Bytes and float32 operations of one K1 call on these inputs.  Per
     sample, pixel and line: 6 for the line's x and |z|^2, then 4 in the
     far field, 38 on the disk fit (degree 16) or 30 on the wing fit
     (degree 10, one division); per family an exp and a product per pixel
-    and 7 FMAs per output pixel.  An exp or a division counts as one."""
+    and 7 FMAs per output pixel; with the Lyman-limit break 5 per pixel
+    (a product, a comparison, three products).  An exp or a division
+    counts as one."""
     S, P = z.shape[0], wl.shape[0]
-    ops = 0.0
+    ops = 5.0 * S * P if lls_break else 0.0
     one_plus_z = (1.0 + z)[:, None]
     for l, line in enumerate(consts["lines"]):
         lam_c = line["lam"] * one_plus_z
@@ -166,6 +191,14 @@ def k5_work(S, P) -> tuple[float, float]:
     return 4.0 * (S * P + S + 7 + S * (P - 6)), S * (2.0 * P + 14.0 * (P - 6))
 
 
+def k6_work(S, P_pad, P, L) -> tuple[float, float]:
+    """256 adds per line window, an exp and a product per used pixel, 7
+    FMAs per output pixel; reads far, corr, c0 (int32), nhi and the taps,
+    writes the profile."""
+    n_bytes = 4.0 * (S * P_pad + S * L * 256 + S * L + S + 7 + S * (P - 6))
+    return n_bytes, S * (256.0 * L + 2.0 * P + 14.0 * (P - 6))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
@@ -185,6 +218,13 @@ def main() -> None:
         LearnedModel,
         build_spectrum_model,
     )
+    from gpy_dla_detection_tpu_torch.models.lls import (
+        generate_lya_samples,
+        lls_inference_many,
+        lls_log_evidences,
+        lls_model_posteriors,
+        with_boss_meanflux,
+    )
     from gpy_dla_detection_tpu_torch.ops import _build
     from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
         logmvn_cap,
@@ -193,13 +233,19 @@ def main() -> None:
         logmvn_chain_reference,
         packed_pair_basis,
     )
-    from gpy_dla_detection_tpu_torch.ops.voigt import FAR_FIELD_LINES, unit_lyman_optical_depth
+    from gpy_dla_detection_tpu_torch.ops.voigt import (
+        FAR_FIELD_LINES,
+        unit_lyman_optical_depth,
+        windowed_tau_parts,
+    )
     from gpy_dla_detection_tpu_torch.ops.voigt_kernels import (
         _kernel_constants,
         absorption_all,
         absorption_all_reference,
         absorption_tail,
         absorption_tail_reference,
+        absorption_windowed,
+        absorption_windowed_reference,
     )
     from gpy_dla_detection_tpu_torch.params import Parameters
     from gpy_dla_detection_tpu_torch.parallel.batch import process_batch
@@ -239,6 +285,19 @@ def main() -> None:
         synthetic_spectrum(params, arrays, z, seed=i, dlas=None if t is None else [t])
         for i, (z, t) in enumerate(zip(z_qsos, truths))
     ]
+    # the LLS search: spectra drawn from the synthetic model, searched with
+    # the BOSS mean flux; the first two are the golden fixture's
+    lls_params = Parameters(**LLS_PARAMS)
+    lls_arrays = synthetic_learned_model(lls_params)
+    lls_learned = with_boss_meanflux(LearnedModel.from_numpy(lls_arrays, device, torch.float32))
+    lya_samples = generate_lya_samples(lls_params.num_dla_samples)
+    lls_z_qsos = [3.0 + 0.2 * (i % 2) + 0.05 * (i // 2) for i in range(NUM_LLS)]
+    lls_truths = [(z - 0.2, LLS_LOG_NHI) if i % 2 else None for i, z in enumerate(lls_z_qsos)]
+    lls_spectra = [
+        synthetic_spectrum(lls_params, lls_arrays, z, seed=100 + i,
+                           dlas=None if t is None else [t], with_lls_break=True)
+        for i, (z, t) in enumerate(zip(lls_z_qsos, lls_truths))
+    ]
 
     # 3. kernels vs twins at main-path shapes
     model = build_spectrum_model(learned, to_torch(spectra[1], device, torch.float32), params)
@@ -248,8 +307,9 @@ def main() -> None:
     wl = model.padded_wavelengths
     k1_out = absorption_all(wl, z_s, nhis)
     k1_ref = absorption_all_reference(wl, z_s, nhis)
-    err = {"absorption_all": max(float((a - b).abs().max()) for a, b in zip(k1_out, k1_ref))}
-    check(err["absorption_all"] <= TOL_K1, f"K1 vs twin {err['absorption_all']:.3e} > {TOL_K1}")
+    err_k1 = max(float((a - b).abs().max()) for a, b in zip(k1_out, k1_ref))
+    check(err_k1 <= TOL_K1, f"K1 vs twin {err_k1:.3e} > {TOL_K1}")
+    err = {"absorption_all": err_k1}
 
     # K5 on the exact unit optical depth, at the catalog's and the MCMC
     # half-steps' row counts
@@ -262,6 +322,29 @@ def main() -> None:
                    .abs().max())
         check(e5 <= TOL_K5, f"K5 ({rows_n} rows) vs twin {e5:.3e} > {TOL_K5}")
         err["absorption_tail"] = max(err.get("absorption_tail", 0.0), e5)
+
+    # K6 on the windowed unit optical depth parts of the same samples
+    parts = windowed_tau_parts(wl, z_s, params.num_lines)
+    err["absorption_windowed"] = max(
+        float((absorption_windowed(parts, n) - absorption_windowed_reference(parts, n))
+              .abs().max())
+        for n in nhis
+    )
+    check(err["absorption_windowed"] <= TOL_K6,
+          f"K6 vs twin {err['absorption_windowed']:.3e} > {TOL_K6}")
+
+    # K1 with the Lyman-limit break at the LLS search's width
+    lls_model = build_spectrum_model(
+        lls_learned, to_torch(lls_spectra[1], device, torch.float32), lls_params)
+    z_lls = lls_model.min_z_dla + (lls_model.max_z_dla - lls_model.min_z_dla) * put(
+        lya_samples.offset_samples)
+    nhi_lls = (put(lya_samples.nhi_samples),)
+    wl_lls = lls_model.padded_wavelengths
+    (A_lls,) = absorption_all(wl_lls, z_lls, nhi_lls, lls_break=True)
+    err_k1_lls = float((A_lls - absorption_all_reference(wl_lls, z_lls, nhi_lls, lls_break=True)[0])
+                       .abs().max())
+    check(err_k1_lls <= TOL_K1, f"K1 with the break vs twin {err_k1_lls:.3e} > {TOL_K1}")
+    err["absorption_all"] = max(err["absorption_all"], err_k1_lls)
 
     A = k1_out[0]
     S = A.shape[0]
@@ -284,6 +367,20 @@ def main() -> None:
         k2_rel.append(max(
             float((a - b).abs().max() / b.abs().max()) for a, b in zip(cap, cap_ref)
         ))
+    # K2 and K3 at the LLS search's N = 1,664 on K1's profiles with the break
+    rows_lls = torch.stack([lls_model.y, lls_model.mu, lls_model.omega2, lls_model.v,
+                            lls_model.mask.float()])
+    Mp_lls = packed_pair_basis(lls_model.M)
+    cap_lls = logmvn_cap(rows_lls, lls_model.M, Mp_lls, A_lls)
+    cap_lls_ref = logmvn_cap_reference(rows_lls, lls_model.M, Mp_lls, A_lls)
+    ll_lls_ref = logmvn_chain_reference(*cap_lls_ref)
+    scale_lls = float(ll_lls_ref.abs().max())
+    k2_lls = float((logmvn_chain_reference(*cap_lls) - ll_lls_ref).abs().max())
+    k3_lls = float((logmvn_chain(*cap_lls) - logmvn_chain_reference(*cap_lls)).abs().max())
+    check(k2_lls <= REL_K23 * scale_lls, f"K2 (N=1664) |dll| {k2_lls:.3e} > {REL_K23} x {scale_lls:.4g}")
+    check(k3_lls <= REL_K23 * scale_lls, f"K3 (N=1664) |dll| {k3_lls:.3e} > {REL_K23} x {scale_lls:.4g}")
+    k2_err.append(k2_lls)
+    k3_err.append(k3_lls)
     err["logmvn_cap"] = max(k2_err)
     err["logmvn_chain"] = max(k3_err)
 
@@ -299,11 +396,15 @@ def main() -> None:
     err["logmvn_chain"] = max(err["logmvn_chain"], k3_odd)
     torch.cuda.synchronize()
     print(f"[3 parity] S={S} N={A.shape[1]} k={model.M.shape[1]} F=2 | K1 max|d| "
-          f"{err['absorption_all']:.3e} (tol {TOL_K1}) | K5 max|d| {err['absorption_tail']:.3e} "
+          f"{err_k1:.3e} (tol {TOL_K1}) | K5 max|d| {err['absorption_tail']:.3e} "
           f"at {' and '.join(f'{r}x{unit_tau.shape[1]}' for r in k5_rows)} (tol {TOL_K5}) | "
           f"K2 max|dll| 0/3 streams {k2_err[0]:.3e}/{k2_err[1]:.3e}, outputs max rel "
           f"{max(k2_rel):.3e} | K3 max|dll| {k3_err[0]:.3e}/{k3_err[1]:.3e} (tol {REL_K23} x "
-          f"max|ll| {scale:.4g}), k={ODD_K} {k3_odd:.3e} (tol {REL_K23} x {scale_odd:.4g})")
+          f"max|ll| {scale:.4g}), k={ODD_K} {k3_odd:.3e} (tol {REL_K23} x {scale_odd:.4g}) | "
+          f"K6 max|d| {err['absorption_windowed']:.3e} at {S}x{parts.far.shape[1]}, L="
+          f"{parts.c0.shape[1]}, both families (tol {TOL_K6}) | K1 with the break max|d| "
+          f"{err_k1_lls:.3e} at {S}x{wl_lls.shape[0]} (tol {TOL_K1}) | at N={A_lls.shape[1]}: "
+          f"K2 max|dll| {k2_lls:.3e}, K3 {k3_lls:.3e} (tol {REL_K23} x {scale_lls:.4g})")
 
     def run_slice(base_inds=None, batch=spectra, voigt_impl="windowed"):
         return process_batch(
@@ -398,7 +499,81 @@ def main() -> None:
           f"{check_detections(results, truths[:NUM_EXACT], 'exact')} | "
           f"golden: {golden_parity('exact')}")
 
-    # 7. the absorber MCMC head on an injected spectrum at full width
+    # 7. the unfused windowed configuration: the windowed unit tau parts
+    # once per spectrum, then one K6 launch per family: 2 per spectrum
+    results, launches = count_launches(
+        lambda: run_slice(batch=spectra[:NUM_UNFUSED], voigt_impl="windowed_unfused"))
+    path_launches["windowed_unfused"] = launches
+    need = {"absorption_windowed": 2 * NUM_UNFUSED, "logmvn_cap": 5 * NUM_UNFUSED,
+            "logmvn_chain": 5 * NUM_UNFUSED, "absorption_all": 0, "absorption_tail": 0}
+    for name, n in need.items():
+        check(launches.get(name, 0) == n,
+              f"unfused: {name} launched {launches.get(name, 0)} != {n}")
+    print(f"[7 unfused] {NUM_UNFUSED} spectra, voigt_impl=windowed_unfused | launches "
+          f"{launches} (absorption_windowed 2 per spectrum: one per family) | "
+          f"{check_detections(results, truths[:NUM_UNFUSED], 'unfused')} | "
+          f"golden: {golden_parity('windowed_unfused')}")
+
+    # 8. the LLS search: one K1 launch (with the break, F = 1) and max_lya
+    # likelihood levels per spectrum
+    def run_lls(batch=lls_spectra):
+        return lls_inference_many(
+            lls_learned, batch, lya_samples, torch.Generator(device=device).manual_seed(3),
+            MAX_LYA, lls_params)
+
+    def p_absorber(null_ev, evs):
+        return 1.0 - float(lls_model_posteriors(float(null_ev), np.asarray(evs, np.float64))[0])
+
+    outs, launches = count_launches(run_lls)
+    path_launches["lls"] = launches
+    need = {"absorption_all": NUM_LLS, "logmvn_cap": MAX_LYA * NUM_LLS,
+            "logmvn_chain": MAX_LYA * NUM_LLS, "absorption_tail": 0, "absorption_windowed": 0}
+    for name, n in need.items():
+        check(launches.get(name, 0) == n, f"lls: {name} launched {launches.get(name, 0)} != {n}")
+    dzs, p_clean, p_inj = [], [0.0], [1.0]
+    for (null_ev, res), truth in zip(outs, lls_truths):
+        check(np.isfinite(null_ev) and np.isfinite(res.log_evidences).all(),
+              "lls: non-finite evidence")
+        p = p_absorber(null_ev, res.log_evidences)
+        if truth is None:
+            check(p < 0.1, f"lls: clean spectrum P(k >= 1) {p:.4f} >= 0.1")
+            p_clean.append(p)
+        else:
+            dz = abs(float(res.map_z_dlas[0][0]) - truth[0])
+            check(p > 0.9, f"lls: injected LLS missed: P(k >= 1) {p:.4f}")
+            check(dz < 0.01, f"lls: injected LLS MAP z off by {dz:.4f}")
+            dzs.append(dz)
+            p_inj.append(p)
+
+    gl = np.load(GOLDEN_LLS)
+    worst_rel, worst_dp = 0.0, 0.0
+    for i, (z, seed, inj, lz, ln) in enumerate(zip(
+            gl["z_qso"], gl["obs_seed"], gl["injected"], gl["lls_z"], gl["lls_log_nhi"])):
+        gspec = synthetic_spectrum(lls_params, lls_arrays, float(z), seed=int(seed),
+                                   dlas=[(float(lz), float(ln))] if inj else None,
+                                   with_lls_break=True)
+        null_ev, res = lls_log_evidences(
+            lls_learned, gspec, lya_samples, torch.Generator(device=device).manual_seed(4),
+            MAX_LYA, lls_params, base_inds_override=gl["base_inds"][i].astype(np.int64))
+        got = np.concatenate([[float(null_ev)], res.log_evidences.cpu().numpy()]).astype(np.float64)
+        want = np.concatenate([[gl["log_evidence_null"][i]], gl["log_evidences_lls"][i]])
+        rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+        post = lls_model_posteriors(got[0], got[1:])
+        dp = abs((1.0 - post[0]) - (1.0 - float(gl["model_posteriors"][i][0])))
+        worst_rel, worst_dp = max(worst_rel, rel), max(worst_dp, dp)
+        check(rel <= REL_GOLDEN_EVIDENCE, f"golden lls {i}: log evidence rel {rel:.3e}")
+        check(dp <= ABS_GOLDEN_P_DLA, f"golden lls {i}: |dP(k >= 1)| {dp:.3e}")
+        check(np.argmax(post) == np.argmax(gl["model_posteriors"][i]),
+              f"golden lls {i}: argmax model differs")
+    print(f"[8 lls] {NUM_LLS} spectra at S={lls_params.num_dla_samples} N="
+          f"{lls_params.num_pixels_padded} k={lls_params.k} max_lya={MAX_LYA}, BOSS mean flux | "
+          f"launches {launches} | clean max P(k>=1) {max(p_clean):.3e} | injected min P(k>=1) "
+          f"{min(p_inj):.6f}, max |MAP z - truth| {max(dzs):.2e} | golden: {len(gl['z_qso'])} "
+          f"spectra vs JAX float64 at full width, same indices | log evidence max rel "
+          f"{worst_rel:.3e} (tol {REL_GOLDEN_EVIDENCE}) | max |dP(k>=1)| {worst_dp:.3e} "
+          f"(tol {ABS_GOLDEN_P_DLA}) | argmax models equal")
+
+    # 9. the absorber MCMC head on an injected spectrum at full width
     z_dla, log_nhi = 2.82, 21.0
     mspec = synthetic_spectrum(params, arrays, 3.05, seed=11, dlas=[(z_dla, log_nhi)],
                                noise_level=0.05)
@@ -437,17 +612,24 @@ def main() -> None:
           f"civ mcmc: absorption_tail launched {launches_c.get('absorption_tail', 0)}")
     check(bool(torch.isfinite(lps_c[-1]).all()), "civ mcmc: non-finite log posterior")
     civ_rate = Wc * steps_c / civ_s
-    print(f"[7 mcmc] {card} | DLA {W} walkers x {steps} steps at full width: {dla_s:.2f} s, "
+    print(f"[9 mcmc] {card} | DLA {W} walkers x {steps} steps at full width: {dla_s:.2f} s, "
           f"{dla_rate:.1f} posterior evals/s, acceptance {acc:.3f}, tail median z {med_z:.5f} "
           f"(truth {z_dla}), logNHI {med_n:.3f} (truth {log_nhi}), launches {launches} | "
           f"CIV {Wc} walkers x {steps_c} steps: {civ_s:.2f} s, {civ_rate:.1f} posterior "
           f"evals/s, acceptance {float(acc_c):.3f}, launches {launches_c}")
 
-    # 8. timings on the card (kernel vs twin, within this call)
+    # 10. timings on the card (kernel vs twin, within this call)
     ms = {
         "absorption_all": (timed_median(lambda: absorption_all(wl, z_s, nhis)),
                            timed_median(lambda: absorption_all_reference(wl, z_s, nhis))),
+        "absorption_all_lls": (
+            timed_median(lambda: absorption_all(wl_lls, z_lls, nhi_lls, lls_break=True)),
+            timed_median(lambda: absorption_all_reference(wl_lls, z_lls, nhi_lls, lls_break=True))),
+        "absorption_windowed": (
+            timed_median(lambda: absorption_windowed(parts, nhis[0])),
+            timed_median(lambda: absorption_windowed_reference(parts, nhis[0]))),
     }
+    parts_ms = timed_median(lambda: windowed_tau_parts(wl, z_s, params.num_lines))
     for rows_n, (tau_r, nhi_r) in k5_rows.items():
         ms[f"absorption_tail_{rows_n}"] = (
             timed_median(lambda: absorption_tail(tau_r, nhi_r)),
@@ -461,31 +643,49 @@ def main() -> None:
                           timed_median(lambda: logmvn_chain_reference(*cap0)))
     ms[f"logmvn_chain_k{ODD_K}"] = (timed_median(lambda: logmvn_chain(*cap_odd)),
                                     timed_median(lambda: logmvn_chain_reference(*cap_odd)))
-    def slice_rate(batch, voigt_impl):
+    ms["logmvn_cap_N1664"] = (
+        timed_median(lambda: logmvn_cap(rows_lls, lls_model.M, Mp_lls, A_lls)),
+        timed_median(lambda: logmvn_cap_reference(rows_lls, lls_model.M, Mp_lls, A_lls)))
+    ms["logmvn_chain_N1664"] = (timed_median(lambda: logmvn_chain(*cap_lls)),
+                                timed_median(lambda: logmvn_chain_reference(*cap_lls)))
+    def rate_of(run, n):
         runs = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            run_slice(batch=batch, voigt_impl=voigt_impl)
+            run()
             runs.append(time.perf_counter() - t0)
-        return len(batch) / statistics.median(runs)
+        return n / statistics.median(runs)
+
+    def slice_rate(batch, voigt_impl):
+        return rate_of(lambda: run_slice(batch=batch, voigt_impl=voigt_impl), len(batch))
 
     rate = slice_rate(spectra, "windowed")
     exact_rate = slice_rate(spectra[:NUM_EXACT], "exact")
+    unfused_rate = slice_rate(spectra[:NUM_UNFUSED], "windowed_unfused")
+    lls_rate = rate_of(run_lls, NUM_LLS)
 
     consts, _ = _kernel_constants(params.num_lines)
     work = {
         "absorption_all": k1_work(wl, z_s, 2, consts, min(params.num_lines, FAR_FIELD_LINES)),
         "absorption_tail": k5_work(*unit_tau.shape),
+        "absorption_windowed": k6_work(S, parts.far.shape[1], wl.shape[0], parts.c0.shape[1]),
+        "absorption_all_lls": k1_work(wl_lls, z_lls, 1, consts,
+                                      min(params.num_lines, FAR_FIELD_LINES), lls_break=True),
         "logmvn_cap": k2_work(S, A.shape[1], model.M.shape[1], 0),
         "logmvn_chain": k3_work(S, model.M.shape[1]),
+        "logmvn_cap_N1664": k2_work(S, A_lls.shape[1], lls_model.M.shape[1], 0),
+        "logmvn_chain_N1664": k3_work(S, lls_model.M.shape[1]),
     }
     bounds = {name: bound(*w) for name, w in work.items()}
     timing = " | ".join(f"{n} {k:.3f} ms vs twin {p:.3f} ms" for n, (k, p) in ms.items())
-    print(f"[8 timing] {card} | median of 10 synchronised calls: {timing} | bounds "
+    print(f"[10 timing] {card} | median of 10 synchronised calls: {timing} | windowed unit "
+          f"tau parts (plain PyTorch) {parts_ms:.3f} ms | bounds "
           + ", ".join(f"{n} {b:.4f} ms ({by})" for n, (b, by) in bounds.items())
           + f" | slice {rate:.2f} spectra/s (median of 3 runs of {NUM_SPECTRA}, after warm-up), "
-          f"exact configuration {exact_rate:.2f} spectra/s (median of 3 runs of {NUM_EXACT})")
+          f"exact configuration {exact_rate:.2f} spectra/s (median of 3 runs of {NUM_EXACT}), "
+          f"unfused configuration {unfused_rate:.2f} spectra/s (median of 3 runs of "
+          f"{NUM_UNFUSED}), LLS search {lls_rate:.2f} spectra/s (median of 3 runs of {NUM_LLS})")
 
     total = {name: sum(p.get(name, 0) for p in path_launches.values()) for name in KERNELS}
     print(json.dumps({"kernels": [

@@ -7,8 +7,12 @@
 // sums over Lyman lines l the far-field Lorentzian where |z|^2 > 256^2
 // (lines < far_lines) or, inside that radius, the per-line polynomial
 // Faddeeva  Re w = exp(-u) + y_l * R_l(u)  (disk fit for u <= 9, wing fit
-// beyond; coefficients from ops/voigt_kernels._window_poly_coeffs).  Then,
-// per family f:  out = conv7(exp(-nhi_f[s] * tau)).
+// beyond; coefficients from ops/voigt_kernels._window_poly_coeffs).  With
+// lls_break (the LLS search's profile), tau starts from the Lyman-limit
+// break per unit column density, 10^-17.2 t^3 with
+// t = wl * (1 / (911.7641 (1 + z))) where t <= 1, in the reference kernel's
+// operation order; otherwise from 0.  Then, per family f:
+// out = conv7(exp(-nhi_f[s] * tau)).
 //
 // Bound on the card: transcendentals and FMAs per pixel (3 lines x ~25
 // flops + 1 exp per line + 1 exp per family); the only device-memory
@@ -19,8 +23,9 @@
 // branches on its own |z|^2, which gives the window's values wherever the
 // window covers the |z| <= 256 annulus (the reference guarantees that).
 // One block per sample row: the row's tau and exp(-nhi*tau) stay in
-// shared memory (2 x P floats, ~10 KB at P = 1286) for the 7-tap stencil,
-// so the raw profile never reaches device memory.
+// shared memory (2 x P floats, ~10 KB at P = 1,286 and ~13 KB at the LLS
+// search's P = 1,670) for the 7-tap stencil, so the raw profile never
+// reaches device memory.
 
 #include <cuda_runtime.h>
 
@@ -34,12 +39,16 @@ constexpr int kTaps = 7;
 constexpr int kThreads = 256;
 constexpr float kFarR2 = 256.0f * 256.0f;  // CF_FAR_RADIUS^2
 constexpr float kU0 = 9.0f;                // disk/wing split in u = x^2
+// float32 roundings of 911.7641 A (the Lyman limit) and 10^-17.2
+constexpr float kLymanLimit = 911.7641f;
+constexpr float kBreakScale = 6.3095732e-18f;
 
 __global__ void absorption_all_kernel(
     const float* __restrict__ wl, int P, const float* __restrict__ z, int S,
     const float* __restrict__ nhi, int F,
     const float* __restrict__ line_params, int num_lines, int far_lines,
-    float inv, float c_cgs, float sqrt_pi, float* __restrict__ out) {
+    int lls_break, float inv, float c_cgs, float sqrt_pi,
+    float* __restrict__ out) {
   extern __shared__ float smem[];
   const int n_lp = num_lines * kLineStride + kTaps;
   float* lp = smem;
@@ -52,9 +61,14 @@ __global__ void absorption_all_kernel(
   __syncthreads();
 
   const float one_plus_z = 1.0f + z[s];
+  const float inv_limit = 1.0f / (kLymanLimit * one_plus_z);
   for (int p = threadIdx.x; p < P; p += blockDim.x) {
     const float w = wl[p];
     float t = 0.0f;
+    if (lls_break) {
+      const float r = w * inv_limit;  // rest wavelength over the limit
+      t = r > 1.0f ? 0.0f : kBreakScale * r * r * r;
+    }
     for (int l = 0; l < num_lines; ++l) {
       const float* c = lp + l * kLineStride;
       const float lam_c = c[0] * one_plus_z;
@@ -108,8 +122,8 @@ __global__ void absorption_all_kernel(
 
 extern "C" int absorption_all_launch(
     const float* wl, int P, const float* z, int S, const float* nhi, int F,
-    const float* line_params, int num_lines, int far_lines, float inv,
-    float c_cgs, float sqrt_pi, float* out, void* stream) {
+    const float* line_params, int num_lines, int far_lines, int lls_break,
+    float inv, float c_cgs, float sqrt_pi, float* out, void* stream) {
   const size_t smem =
       (size_t)(num_lines * kLineStride + kTaps + 2 * P) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -119,7 +133,7 @@ extern "C" int absorption_all_launch(
     if (e != cudaSuccess) return (int)e;
   }
   absorption_all_kernel<<<S, kThreads, smem, (cudaStream_t)stream>>>(
-      wl, P, z, S, nhi, F, line_params, num_lines, far_lines, inv, c_cgs,
-      sqrt_pi, out);
+      wl, P, z, S, nhi, F, line_params, num_lines, far_lines, lls_break, inv,
+      c_cgs, sqrt_pi, out);
   return (int)cudaGetLastError();
 }

@@ -2,10 +2,11 @@
 
 Port of ``gpy_dla_detection_tpu/models/evidence.py``.  Each level's S
 per-sample likelihoods are one batched Woodbury evaluation (K2 then K3
-on the float32 path); the single-absorber profiles are computed once (K1,
-or in the exact configuration the exact unit optical depth and K5) and
-deeper levels gather rows of them by the importance-resampled parent
-indices.  The level-k evidence is
+on the float32 path); the single-absorber profiles are computed once (K1;
+in the exact configuration the exact unit optical depth and K5; in the
+unfused windowed configuration the windowed unit optical depth parts and
+K6) and deeper levels gather rows of them by the importance-resampled
+parent indices.  The level-k evidence is
 
     log P(D | k) = max_i ll_i + log(mean_{valid i} exp(ll_i - max)) - k log S
 
@@ -22,13 +23,21 @@ from typing import NamedTuple
 import torch
 
 from ..ops.logmvn import batched_log_mvnpdf, likelihood_pair_basis, log_mvnpdf_low_rank
-from ..ops.voigt import absorption_from_unit_tau, unit_lyman_optical_depth
-from ..ops.voigt_kernels import absorption_all
+from ..ops.voigt import (
+    absorption_from_unit_tau,
+    lyman_limit_unit_tau,
+    unit_lyman_optical_depth,
+    windowed_tau_parts,
+)
+from ..ops.voigt_kernels import absorption_all, absorption_windowed
 from ..params import Parameters
 from .learned import SpectrumModel
 
 
-VOIGT_IMPLS = ("windowed", "exact")
+VOIGT_IMPLS = ("windowed", "exact", "windowed_unfused")
+# absorption-profile families: "dla" = Lyman series only, "lls" = Lyman
+# series plus the Lyman-limit break
+PROFILES = ("dla", "lls")
 
 
 def single_absorber_profiles(
@@ -37,6 +46,7 @@ def single_absorber_profiles(
     nhis: Sequence[torch.Tensor],
     num_lines: int,
     voigt_impl: str = "windowed",
+    profile: str = "dla",
 ) -> tuple[torch.Tensor, ...]:
     """(S, N) broadened absorption of one absorber per sample for every
     column-density family sharing the redshift samples.
@@ -44,15 +54,36 @@ def single_absorber_profiles(
     :param voigt_impl: float32 evaluation: ``"windowed"`` runs K1 for all
         families in one launch; ``"exact"`` evaluates the exact unit
         optical depth once and runs K5 once per family (the reference's
-        ``GPY_DLA_FAST_VOIGT=0`` configuration).  On the CPU both run
-        the kernels' twins.  float64 is always exact (the CPU conformance
-        path), with one unit optical depth serving every family.
+        ``GPY_DLA_FAST_VOIGT=0`` configuration); ``"windowed_unfused"``
+        builds the windowed unit optical depth parts once and runs K6
+        once per family (the reference's ``GPY_DLA_FUSED_ABS=0``).  On
+        the CPU they run the kernels' twins.  float64 is always exact (the
+        CPU conformance path), with one unit optical depth serving every
+        family.
+    :param profile: ``"dla"`` or ``"lls"`` (the Lyman-limit break, linear
+        in nhi, rides the unit optical depth: K1 with ``lls_break``, or
+        added to the exact unit optical depth).
     """
     if voigt_impl not in VOIGT_IMPLS:
         raise ValueError(f"voigt_impl must be one of {VOIGT_IMPLS}, got {voigt_impl!r}")
+    if profile not in PROFILES:
+        raise ValueError(f"profile must be one of {PROFILES}, got {profile!r}")
+    lls = profile == "lls"
+    if lls and voigt_impl == "windowed_unfused":
+        raise ValueError(
+            "the LLS profile has no unfused windowed form: the reference "
+            "places its windows in XLA (ops/voigt.py:voigt_absorption_lls) "
+            "and never reaches K6, and that placement is not ported; use "
+            "voigt_impl='windowed' (K1 with the break) or 'exact'"
+        )
     if wavelengths.dtype == torch.float32 and voigt_impl == "windowed":
-        return absorption_all(wavelengths, z_samples, nhis, num_lines)
+        return absorption_all(wavelengths, z_samples, nhis, num_lines, lls_break=lls)
+    if wavelengths.dtype == torch.float32 and voigt_impl == "windowed_unfused":
+        parts = windowed_tau_parts(wavelengths, z_samples, num_lines)
+        return tuple(absorption_windowed(parts, nhi) for nhi in nhis)
     unit = unit_lyman_optical_depth(wavelengths, z_samples, num_lines)
+    if lls:
+        unit = unit + lyman_limit_unit_tau(wavelengths, z_samples)
     return tuple(absorption_from_unit_tau(unit, nhi) for nhi in nhis)
 
 
@@ -95,6 +126,7 @@ def qmc_log_evidences(
     base_inds_override: torch.Tensor | None = None,
     A_override: torch.Tensor | None = None,
     voigt_impl: str = "windowed",
+    profile: str = "dla",
 ) -> QMCEvidenceResult:
     """Marginalize the k-absorber models over the QMC sample set.
 
@@ -110,8 +142,8 @@ def qmc_log_evidences(
     :param A_override: optional precomputed (S, N) single-absorber
         profiles for these samples (the batch layer computes both families
         from one redshift evaluation).
-    :param voigt_impl: profile evaluation when ``A_override`` is None
-        (see :func:`single_absorber_profiles`).
+    :param voigt_impl, profile: profile evaluation when ``A_override``
+        is None (see :func:`single_absorber_profiles`).
     """
     S = offset_samples.shape[0]
     dtype, device = model.y.dtype, model.y.device
@@ -122,7 +154,7 @@ def qmc_log_evidences(
     if A_override is None:
         (A,) = single_absorber_profiles(
             model.padded_wavelengths, z_samples, (nhi_samples,), params.num_lines,
-            voigt_impl,
+            voigt_impl, profile,
         )
     else:
         A = A_override

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
-    "absorption_all.cu", "absorption_tail.cu", "logmvn_cap.cu", "logmvn_chain.cu",
+    "absorption_all.cu", "absorption_tail.cu", "absorption_windowed.cu",
+    "logmvn_cap.cu", "logmvn_chain.cu",
 )
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
@@ -49,12 +50,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # wl, P, z, S, nhi, F, line_params, num_lines, far_lines, inv,
-    # c_cgs, sqrt_pi, out, stream
-    "absorption_all_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _F,
-                              _F, _F, _P, _P],
+    # wl, P, z, S, nhi, F, line_params, num_lines, far_lines, lls_break,
+    # inv, c_cgs, sqrt_pi, out, stream
+    "absorption_all_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I,
+                              _F, _F, _F, _P, _P],
     # unit_tau, nhi, S, P, taps, out, stream
     "absorption_tail_launch": [_P, _P, _I, _I, _P, _P, _P],
+    # far, corr, c0, nhi, S, P_pad, P, L, taps, out, stream
+    "absorption_windowed_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # rows, N, M, k, Mp, kp, A, e0, e1, e2, n_extra, S, B, u, misc, stream
     "logmvn_cap_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I,
                           _P, _P, _P, _P],

@@ -3,9 +3,10 @@
 Port of ``gpy_dla_detection_tpu/ops/faddeeva.py``: a Weideman (1994)
 rational approximation inside ``|z| <= RADIUS`` blended with a truncated
 continued fraction outside it, with dtype-tiered term counts (float64
-N=40 / K=14, float32 N=20 / K=5).  This is the float64 conformance path
-of the absorption profile; the float32 catalog path uses the per-line
-polynomial of ``ops/voigt_kernels.py`` instead.
+N=40 / K=14, float32 N=20 / K=5).  It serves the exact absorption
+profile and the windowed unit optical depth's window corrections; the
+default float32 catalog path uses the per-line polynomial of
+``ops/voigt_kernels.py`` instead.
 """
 
 from __future__ import annotations
@@ -68,12 +69,16 @@ def _wofz_weideman(x: torch.Tensor, y: torch.Tensor):
     return w_re, w_im
 
 
-def _wofz_cf(x: torch.Tensor, y: torch.Tensor):
+def _wofz_cf(x: torch.Tensor, y: torch.Tensor, terms: int | None = None):
     """Truncated continued fraction for w(x + iy), accurate for |z| > ~6;
-    guarded so that evaluating it inside the disk stays finite."""
-    terms = (
-        N_CONTINUED_FRACTION_F32 if x.dtype == torch.float32 else N_CONTINUED_FRACTION
-    )
+    guarded so that evaluating it inside the disk stays finite.
+
+    :param terms: override the dtype-tiered depth (the windowed unit
+        optical depth uses 2 terms in the far part of each window)."""
+    if terms is None:
+        terms = (
+            N_CONTINUED_FRACTION_F32 if x.dtype == torch.float32 else N_CONTINUED_FRACTION
+        )
     eps = 1e-30
     vr = x
     vi = y

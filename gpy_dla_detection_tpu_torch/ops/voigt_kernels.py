@@ -1,9 +1,12 @@
-"""K1 and K5: the broadened Voigt absorption kernels.
+"""K1, K5 and K6: the broadened Voigt absorption kernels.
 
 K1 is the fused absorption of every column-density family from the
-shared redshift samples (the default catalog path); K5 is the tail alone,
-``conv7(exp(-nhi * unit_tau))`` over a precomputed unit optical depth
-(the exact-Voigt catalog configuration and the MCMC head).
+shared redshift samples (the default catalog path; with ``lls_break`` the
+LLS search's profile); K5 is the tail alone, ``conv7(exp(-nhi *
+unit_tau))`` over a precomputed unit optical depth (the exact-Voigt
+catalog configuration and the MCMC head); K6 places the windowed unit
+optical depth's corrections and runs the same tail (the unfused windowed
+catalog configuration).
 
 ``absorption_all`` launches ``csrc/absorption_all.cu`` on float32 CUDA
 tensors and runs its plain twin ``absorption_all_reference`` on float32
@@ -13,7 +16,10 @@ Faddeeva inside it, with the float32 constants of
 ``gpy_dla_detection_tpu/ops/voigt_pallas.py:_abs_all_kernel`` (poly=True).
 ``absorption_tail`` launches ``csrc/absorption_tail.cu`` on float32 CUDA
 tensors and runs ``absorption_tail_reference`` on float32 CPU tensors; it
-replaces ``voigt_pallas.py:_abs_tail_kernel``.
+replaces ``voigt_pallas.py:_abs_tail_kernel``.  ``absorption_windowed``
+launches ``csrc/absorption_windowed.cu`` and runs
+``absorption_windowed_reference`` likewise; it replaces
+``voigt_pallas.py:_abs_windowed_kernel``.
 """
 
 from __future__ import annotations
@@ -36,7 +42,18 @@ from ._build import (
     stream_ptr,
     use_kernel,
 )
-from .voigt import CF_FAR_RADIUS, FAR_FIELD_LINES, instrumental_broadening
+from .voigt import (
+    CF_FAR_RADIUS,
+    CHUNK,
+    FAR_FIELD_LINES,
+    FAST_WINDOW,
+    LYMAN_LIMIT_A,
+    LYMAN_LIMIT_LOG_NHI,
+    WindowedTauParts,
+    instrumental_broadening,
+    lyman_line_constants,
+    place_windows,
+)
 
 WINDOW_U0 = 9.0  # disk/wing split of the polynomial Faddeeva, in u = x^2
 
@@ -88,30 +105,19 @@ def _kernel_constants(num_lines: int) -> tuple[dict, tuple[float, ...]]:
     exactly as the reference kernel rounds them, plus the flat parameter
     table the CUDA kernel reads (per line: lam, amp, y, y^2, disk and wing
     coefficients; then the 7 instrument taps)."""
-    f32 = np.float32
     sigma = float(C.THERMAL_SIGMA_CGS)
-    inv = f32(1.0) / (f32(np.sqrt(f32(2.0))) * f32(sigma))
-    sqrt_pi = f32(np.sqrt(np.pi))
+    inv, c_cgs, sqrt_pi, line_scalars = lyman_line_constants(num_lines, sigma)
     lines = []
     table = []
-    for l in range(num_lines):
-        amp = f32(C.LYMAN_LEADING_CONSTANTS[l]) * inv / sqrt_pi
-        y = f32(C.LYMAN_LORENTZIAN_WIDTHS[l]) * inv
+    for l, (lam, amp, y, y2) in enumerate(line_scalars):
         y_fit = float(C.LYMAN_LORENTZIAN_WIDTHS[l]) * (
             1.0 / (float(np.sqrt(2.0)) * sigma)
         )
         cd, cw = _window_poly_coeffs(y_fit, WINDOW_U0)
-        line = dict(
-            lam=_f32(C.LYMAN_WAVELENGTHS_A[l]), amp=float(amp), y=float(y),
-            y2=float(y * y), cd=cd, cw=cw,
-        )
-        lines.append(line)
-        table += [line["lam"], line["amp"], line["y"], line["y2"], *cd, *cw]
+        lines.append(dict(lam=lam, amp=amp, y=y, y2=y2, cd=cd, cw=cw))
+        table += [lam, amp, y, y2, *cd, *cw]
     table += [_f32(t) for t in C.INSTRUMENT_PROFILE]
-    consts = dict(
-        inv=float(inv), sqrt_pi=float(sqrt_pi),
-        c_cgs=_f32(C.SPEED_OF_LIGHT_CGS), lines=tuple(lines),
-    )
+    consts = dict(inv=inv, sqrt_pi=sqrt_pi, c_cgs=c_cgs, lines=tuple(lines))
     return consts, tuple(table)
 
 
@@ -126,12 +132,15 @@ def absorption_all_reference(
     z_absorber: torch.Tensor,
     nhis: Sequence[torch.Tensor],
     num_lines: int = 3,
+    lls_break: bool = False,
 ) -> tuple[torch.Tensor, ...]:
     """Plain PyTorch twin of K1 (dense per-pixel formula).
 
     :param wavelengths: (P,) padded observed wavelengths [A], float32.
     :param z_absorber: (S,) absorber redshifts.
     :param nhis: column densities, one (S,) tensor per family.
+    :param lls_break: start each row's optical depth from the Lyman-limit
+        break per unit column density (the LLS profile).
     :return: one (S, P - 6) broadened absorption per family.
     """
     consts, _ = _kernel_constants(num_lines)
@@ -140,10 +149,16 @@ def absorption_all_reference(
     u0 = WINDOW_U0
     wl = wavelengths[None, :]
     one_plus_z = (1.0 + z_absorber)[:, None]
-    tau = torch.zeros(
-        (z_absorber.shape[0], wavelengths.shape[0]),
-        dtype=wavelengths.dtype, device=wavelengths.device,
-    )
+    if lls_break:
+        # the reference kernel's order: t = wl * (1 / (limit (1 + z))),
+        # then ((10^-17.2 t) t) t below the limit
+        r = wl * (1.0 / (_f32(LYMAN_LIMIT_A) * one_plus_z))
+        tau = torch.where(r > 1.0, 0.0, _f32(10.0**-LYMAN_LIMIT_LOG_NHI) * r * r * r)
+    else:
+        tau = torch.zeros(
+            (z_absorber.shape[0], wavelengths.shape[0]),
+            dtype=wavelengths.dtype, device=wavelengths.device,
+        )
     for l, line in enumerate(consts["lines"]):
         amp, y = line["amp"], line["y"]
         lam_c = line["lam"] * one_plus_z
@@ -177,14 +192,18 @@ def absorption_all(
     z_absorber: torch.Tensor,
     nhis: Sequence[torch.Tensor],
     num_lines: int = 3,
+    lls_break: bool = False,
 ) -> tuple[torch.Tensor, ...]:
     """Broadened absorption profiles of every family in ``nhis`` from the
     shared redshift samples: K1 on CUDA, its twin on the CPU (float32).
 
+    :param lls_break: include the Lyman-limit break (the LLS profile).
     :return: one (S, P - 6) float32 profile per family.
     """
     if not use_kernel(wavelengths):
-        return absorption_all_reference(wavelengths, z_absorber, nhis, num_lines)
+        return absorption_all_reference(
+            wavelengths, z_absorber, nhis, num_lines, lls_break
+        )
     device = wavelengths.device
     nhi = torch.stack(tuple(nhis)).contiguous()  # (F, S)
     check_cuda_f32(device, wavelengths=wavelengths, z_absorber=z_absorber, nhi=nhi)
@@ -199,7 +218,13 @@ def absorption_all(
         )
     if S == 0 or P <= 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH:
         raise ValueError(f"empty problem: S={S}, P={P}")
-    consts, _ = _kernel_constants(num_lines)
+    consts, table_values = _kernel_constants(num_lines)
+    smem = 4 * (len(table_values) + 2 * P)
+    if smem > MAX_DYNAMIC_SHARED_BYTES:
+        raise ValueError(
+            f"absorption_all keeps two rows of P={P} floats and the line table "
+            f"in shared memory: {smem} bytes > {MAX_DYNAMIC_SHARED_BYTES}"
+        )
     table = _device_table(num_lines, device)
     out = torch.empty(
         (F, S, P - 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH),
@@ -209,13 +234,13 @@ def absorption_all(
     with torch.cuda.device(device):
         err = lib.absorption_all_launch(
             ptr(wavelengths), P, ptr(z_absorber), S, ptr(nhi), F, ptr(table),
-            num_lines, min(num_lines, FAR_FIELD_LINES), consts["inv"],
-            consts["c_cgs"], consts["sqrt_pi"], ptr(out), stream_ptr(device),
+            num_lines, min(num_lines, FAR_FIELD_LINES), int(lls_break),
+            consts["inv"], consts["c_cgs"], consts["sqrt_pi"], ptr(out),
+            stream_ptr(device),
         )
     check_launch("absorption_all", err)
     launch_counts["absorption_all"] += 1
     return tuple(out.unbind(0))
-
 
 
 @functools.lru_cache(maxsize=8)
@@ -272,4 +297,63 @@ def absorption_tail(unit_tau: torch.Tensor, nhi: torch.Tensor) -> torch.Tensor:
         )
     check_launch("absorption_tail", err)
     launch_counts["absorption_tail"] += 1
+    return out
+
+
+def absorption_windowed_reference(parts: WindowedTauParts, nhi: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of K6: place the window corrections
+    (``ops/voigt.place_windows``), then ``conv7(exp(-nhi * tau))``.
+
+    :param parts: the windowed unit optical depth of S samples.
+    :param nhi: (S,) column densities.
+    :return: (S, num_pixels - 6).
+    """
+    return absorption_tail_reference(place_windows(parts), nhi)
+
+
+def absorption_windowed(parts: WindowedTauParts, nhi: torch.Tensor) -> torch.Tensor:
+    """Broadened absorption from the unplaced windowed unit optical depth:
+    K6 on CUDA, its twin on the CPU (float32).  One block per row.
+
+    :param parts: far (S, P_pad) with P_pad a multiple of 128, corr
+        (S, L * 256), c0 (S, L) int32 in [0, P_pad / 128 - 2], num_pixels P.
+    :param nhi: (S,) column densities.
+    :return: (S, P - 6) float32.
+    """
+    far, corr, c0, P = parts
+    if not use_kernel(far):
+        return absorption_windowed_reference(parts, nhi)
+    device = far.device
+    check_cuda_f32(device, far=far, corr=corr, nhi=nhi)
+    if c0.dtype != torch.int32 or c0.device != device or not c0.is_contiguous():
+        raise ValueError(f"c0 must be contiguous int32 on {device}")
+    S, P_pad = far.shape[0], far.shape[-1]
+    L = c0.shape[-1]
+    if (
+        far.ndim != 2 or c0.ndim != 2 or P_pad % CHUNK or c0.shape[0] != S
+        or tuple(corr.shape) != (S, L * FAST_WINDOW) or tuple(nhi.shape) != (S,)
+    ):
+        raise ValueError(
+            f"expected far (S, P_pad) with P_pad % {CHUNK} == 0, corr (S, L*"
+            f"{FAST_WINDOW}), c0 (S, L), nhi (S,); got {tuple(far.shape)}, "
+            f"{tuple(corr.shape)}, {tuple(c0.shape)}, {tuple(nhi.shape)}"
+        )
+    if S == 0 or not 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH < P <= P_pad:
+        raise ValueError(f"empty problem or bad pixel count: S={S}, P={P}, P_pad={P_pad}")
+    if P_pad * 4 > MAX_DYNAMIC_SHARED_BYTES:
+        raise ValueError(
+            f"absorption_windowed keeps a row of P_pad={P_pad} floats in shared "
+            f"memory; at most {MAX_DYNAMIC_SHARED_BYTES // 4} fit"
+        )
+    out = torch.empty(
+        (S, P - 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH), dtype=torch.float32, device=device
+    )
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.absorption_windowed_launch(
+            ptr(far), ptr(corr), ptr(c0), ptr(nhi), S, P_pad, P, L,
+            ptr(_device_taps(device)), ptr(out), stream_ptr(device),
+        )
+    check_launch("absorption_windowed", err)
+    launch_counts["absorption_windowed"] += 1
     return out

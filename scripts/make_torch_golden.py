@@ -1,16 +1,25 @@
-"""Write the full-width golden fixture that the PyTorch port is held to on
-the card (``chip_smoke.py``, phase 5).
+"""Write the full-width golden fixtures that the PyTorch port is held to on
+the card (``chip_smoke.py``).
 
-The JAX package runs on the CPU in float64 at the full ``Parameters()``
-(S = 10,000 samples, N = 1,280 pixels, k = 20, max_dlas = 4): exact Voigt
-profiles and float64 profile storage.  Two synthetic spectra, one clean
-and one with an injected DLA, go through ``process_spectrum`` with
-resampling indices drawn by numpy, so the port can replay the identical
-chain without JAX.  Run from the repository root:
+``dla``: the JAX package runs the DLA catalog on the CPU in float64 at the
+full ``Parameters()`` (S = 10,000 samples, N = 1,280 pixels, k = 20,
+max_dlas = 4): exact Voigt profiles and float64 profile storage.  Two
+synthetic spectra, one clean and one with an injected DLA, go through
+``process_spectrum`` with resampling indices drawn by numpy, so the port
+can replay the identical chain without JAX.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py
+``lls``: the same for the LLS search at the width of ``run_find_lls.py``
+(S = 10,000, an 850 A model window with N = 1,664 pixels, k = 20,
+max_lya = 4, the BOSS mean flux): ``lls_log_evidences`` on one clean
+spectrum and one with an injected LLS whose Lyman-limit break lies inside
+the window.
 
-Output: tests/data/torch_golden_fullscale.npz
+Run from the repository root, naming the fixtures to write (both by
+default; each run rewrites the file, so name only the one that changes):
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [dla] [lls]
+
+Output: tests/data/torch_golden_fullscale.npz, tests/data/torch_golden_lls.npz
 """
 
 from __future__ import annotations
@@ -40,6 +49,12 @@ from gpy_dla_detection_tpu.data.synthetic import (  # noqa: E402
     synthetic_prior_catalog,
     synthetic_spectrum,
 )
+from gpy_dla_detection_tpu.models.lls import (  # noqa: E402
+    generate_lya_samples,
+    lls_log_evidences,
+    lls_model_posteriors,
+    with_boss_meanflux,
+)
 from gpy_dla_detection_tpu.models.pipeline import process_spectrum  # noqa: E402
 from gpy_dla_detection_tpu.params import Parameters  # noqa: E402
 
@@ -53,8 +68,21 @@ SPECTRA = (
     (2.6 + 0.8 / 15, 1, (2.6 + 0.8 / 15 - 0.3, 21.2)),
 )
 
+OUT_LLS = ROOT / "tests" / "data" / "torch_golden_lls.npz"
+MAX_LYA = 4
+LLS_INDEX_SEED = 2027
+# the LLS search's width (run_find_lls.py)
+LLS_PARAMS = dict(num_dla_samples=10000, min_lambda=850.0, num_pixels_padded=1664)
+# (z_qso, observation seed, injected (z_lls, logNHI) or None); the first two
+# of chip_smoke.py's LLS spectra: the injected break, at 911.76 A (1 + 3.0),
+# lies inside the 850 A window, which starts at 850 A (1 + 3.2) ~ 3,570 A
+LLS_SPECTRA = (
+    (3.0, 100, None),
+    (3.2, 101, (3.0, 18.5)),
+)
 
-def main() -> None:
+
+def write_dla() -> None:
     params = Parameters()
     learned = synthetic_learned_model(params)
     prior = synthetic_prior_catalog(params)
@@ -99,5 +127,63 @@ def main() -> None:
     print(f"wrote {OUT} ({OUT.stat().st_size} bytes)")
 
 
+def write_lls() -> None:
+    params = Parameters(**LLS_PARAMS)
+    # spectra are drawn from the synthetic model, the search runs with the
+    # BOSS mean flux (run_find_lls.py --boss-meanflux)
+    drawn_from = synthetic_learned_model(params)
+    learned = with_boss_meanflux(drawn_from)
+    samples = generate_lya_samples(params.num_dla_samples)
+    S = params.num_dla_samples
+    base_inds = np.random.default_rng(LLS_INDEX_SEED).integers(
+        0, S, size=(len(LLS_SPECTRA), MAX_LYA - 1, S)
+    )
+    fields = {k: [] for k in (
+        "log_evidence_null", "log_evidences_lls", "map_z_lls", "map_log_nhis",
+        "model_posteriors",
+    )}
+    for (z_qso, seed, lls), inds in zip(LLS_SPECTRA, base_inds):
+        spec = synthetic_spectrum(
+            params, drawn_from, z_qso, seed=seed,
+            dlas=None if lls is None else [lls], with_lls_break=True,
+        )
+        null_ev, res = lls_log_evidences(
+            learned, spec, samples, jax.random.PRNGKey(0), MAX_LYA, params,
+            base_inds_override=inds,
+        )
+        evs = np.asarray(res.log_evidences)
+        post = lls_model_posteriors(float(null_ev), evs)
+        fields["log_evidence_null"].append(float(null_ev))
+        fields["log_evidences_lls"].append(evs)
+        fields["map_z_lls"].append(np.asarray(res.map_z_dlas))
+        fields["map_log_nhis"].append(np.asarray(res.map_log_nhis))
+        fields["model_posteriors"].append(post)
+        print(f"z_qso={z_qso:.4f} injected={lls is not None} P(k>=1)={1.0 - post[0]:.6f} "
+              f"evidences={evs} MAP z={float(res.map_z_dlas[0][0]):.5f}")
+    OUT_LLS.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(
+        OUT_LLS,
+        z_qso=np.array([s[0] for s in LLS_SPECTRA], np.float64),
+        obs_seed=np.array([s[1] for s in LLS_SPECTRA], np.int64),
+        injected=np.array([s[2] is not None for s in LLS_SPECTRA]),
+        lls_z=np.array([np.nan if s[2] is None else s[2][0] for s in LLS_SPECTRA]),
+        lls_log_nhi=np.array([np.nan if s[2] is None else s[2][1] for s in LLS_SPECTRA]),
+        base_inds=base_inds.astype(np.int16),
+        **{k: np.asarray(v, np.float64) for k, v in fields.items()},
+    )
+    print(f"wrote {OUT_LLS} ({OUT_LLS.stat().st_size} bytes)")
+
+
+def main(argv: list[str]) -> None:
+    which = argv or ["dla", "lls"]
+    unknown = set(which) - {"dla", "lls"}
+    if unknown:
+        raise SystemExit(f"unknown fixture(s) {sorted(unknown)}; choose from dla, lls")
+    if "dla" in which:
+        write_dla()
+    if "lls" in which:
+        write_lls()
+
+
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -1,13 +1,18 @@
-"""Where the PyTorch port's catalog slice spends its device time.
+"""Where the PyTorch port's catalog paths spend their device time.
 
-Runs ``process_batch`` on the 16 synthetic spectra of ``chip_smoke.py``
-at ``Parameters()`` on one CUDA card: one warm-up run, then one run under
+Runs one path on one CUDA card: one warm-up run, then one run under
 ``torch.profiler`` (after one timed without it).  Prints the device time
 per kernel name (top 15), the device busy time against both wall times,
 and the card's name and power limit; with ``--trace PATH`` also writes
 the Chrome trace there.  Imports no JAX and nothing of the JAX package.
 
-    python3 scripts/profile_torch_slice.py [--trace PATH]
+Paths (``--path``): ``windowed`` (default), ``exact`` and
+``windowed_unfused`` run ``process_batch`` in that Voigt configuration on
+the 16 synthetic spectra of ``chip_smoke.py`` at ``Parameters()``;
+``lls`` runs ``lls_inference_many`` on the 8 LLS spectra of
+``chip_smoke.py`` at the LLS search's width.
+
+    python3 scripts/profile_torch_slice.py [--path PATH] [--trace FILE]
 """
 
 from __future__ import annotations
@@ -35,14 +40,22 @@ from gpy_dla_detection_tpu_torch.data.synthetic import (  # noqa: E402
     synthetic_spectrum,
 )
 from gpy_dla_detection_tpu_torch.models.learned import LearnedModel  # noqa: E402
+from gpy_dla_detection_tpu_torch.models.lls import (  # noqa: E402
+    generate_lya_samples,
+    lls_inference_many,
+    with_boss_meanflux,
+)
 from gpy_dla_detection_tpu_torch.params import Parameters  # noqa: E402
 from gpy_dla_detection_tpu_torch.parallel.batch import process_batch  # noqa: E402
 
 NUM_SPECTRA = 16
+NUM_LLS = 8
+PATHS = ("windowed", "exact", "windowed_unfused", "lls")
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=PATHS, default="windowed")
     parser.add_argument("--trace", type=Path, help="write the Chrome trace here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -52,21 +65,38 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    params = Parameters()
-    arrays = synthetic_learned_model(params)
-    learned = LearnedModel.from_numpy(arrays, device, torch.float32)
-    prior = synthetic_prior_catalog(params)
-    dla, sub = generate_dla_samples(params), generate_subdla_samples(params)
-    z_qsos = np.linspace(2.6, 3.4, NUM_SPECTRA)
-    spectra = [
-        synthetic_spectrum(params, arrays, z, seed=i,
-                           dlas=[(z - 0.3, 21.2)] if i % 2 else None)
-        for i, z in enumerate(z_qsos)
-    ]
+    if args.path == "lls":
+        params = Parameters(num_dla_samples=10000, min_lambda=850.0, num_pixels_padded=1664)
+        arrays = synthetic_learned_model(params)
+        learned = with_boss_meanflux(LearnedModel.from_numpy(arrays, device, torch.float32))
+        samples = generate_lya_samples(params.num_dla_samples)
+        z_qsos = [3.0 + 0.2 * (i % 2) + 0.05 * (i // 2) for i in range(NUM_LLS)]
+        spectra = [
+            synthetic_spectrum(params, arrays, z, seed=100 + i, with_lls_break=True,
+                               dlas=[(z - 0.2, 18.5)] if i % 2 else None)
+            for i, z in enumerate(z_qsos)
+        ]
 
-    def run():
-        return process_batch(learned, spectra, dla, sub, prior, params,
-                             torch.Generator(device=device).manual_seed(1))
+        def run():
+            return lls_inference_many(learned, spectra, samples,
+                                      torch.Generator(device=device).manual_seed(3), 4, params)
+    else:
+        params = Parameters()
+        arrays = synthetic_learned_model(params)
+        learned = LearnedModel.from_numpy(arrays, device, torch.float32)
+        prior = synthetic_prior_catalog(params)
+        dla, sub = generate_dla_samples(params), generate_subdla_samples(params)
+        z_qsos = np.linspace(2.6, 3.4, NUM_SPECTRA)
+        spectra = [
+            synthetic_spectrum(params, arrays, z, seed=i,
+                               dlas=[(z - 0.3, 21.2)] if i % 2 else None)
+            for i, z in enumerate(z_qsos)
+        ]
+
+        def run():
+            return process_batch(learned, spectra, dla, sub, prior, params,
+                                 torch.Generator(device=device).manual_seed(1),
+                                 voigt_impl=args.path)
 
     run()
     torch.cuda.synchronize()
@@ -87,7 +117,7 @@ def main() -> None:
         if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0
     ]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"card {card} | {NUM_SPECTRA} spectra, S={params.num_dla_samples}, "
+    print(f"card {card} | path {args.path} | {len(spectra)} spectra, S={params.num_dla_samples}, "
           f"N={params.num_pixels_padded}, k={params.k} | wall {plain_ms:.2f} ms "
           f"unprofiled, {wall_ms:.2f} ms profiled | device kernel time "
           f"{busy_ms:.2f} ms ({100 * busy_ms / plain_ms:.1f}% of the unprofiled "

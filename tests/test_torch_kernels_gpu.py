@@ -7,8 +7,9 @@ without the suite's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances, tightened from the ported kernels' budgets (1e-5; 2e-6 |ll|)
-to what the card measures (2.4e-7; 3.7e-7 |ll|): K1 <= 2e-6 absolute; K5
-<= 1e-6 absolute (measured 2.4e-7); K2 and K3 |dll| <= 1e-6 |ll|, with
+to what the card measures (2.4e-7; 3.7e-7 |ll|): K1 <= 2e-6 absolute, with
+and without the Lyman-limit break; K5 and K6 <= 1e-6 absolute (K5
+measured 2.4e-7); K2 and K3 |dll| <= 1e-6 |ll|, with
 |ll| the largest magnitude of the sample set, at the main path's even
 k = 20 and at odd k (the rank-1 chain variant's case).  K2 is isolated by passing both
 stage-A outputs through the same (twin) chain, K3 by passing the same
@@ -29,16 +30,22 @@ from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
     logmvn_chain_reference,
     packed_pair_basis,
 )
-from gpy_dla_detection_tpu_torch.ops.voigt import unit_lyman_optical_depth
+from gpy_dla_detection_tpu_torch.ops.voigt import (
+    unit_lyman_optical_depth,
+    windowed_tau_parts,
+)
 from gpy_dla_detection_tpu_torch.ops.voigt_kernels import (
     absorption_all,
     absorption_all_reference,
     absorption_tail,
     absorption_tail_reference,
+    absorption_windowed,
+    absorption_windowed_reference,
 )
 
 TOL_K1 = 2e-6
 TOL_K5 = 1e-6
+TOL_K6 = 1e-6
 REL_K23 = 1e-6
 
 pytestmark = pytest.mark.gpu
@@ -171,3 +178,38 @@ def test_chain_kernel_matches_twin_at_odd_k(cuda_device, k):
     assert _build.launch_counts["logmvn_chain"] == before + 1
     ll_twin = logmvn_chain_reference(B, u, misc)
     assert float((ll_kernel - ll_twin).abs().max()) <= REL_K23 * float(ll_twin.abs().max())
+
+
+@pytest.mark.parametrize("num_lines", [3, 8])  # 8: overlapping windows
+@pytest.mark.parametrize("grid_index", [0, 1])
+def test_absorption_windowed_kernel_matches_twin(cuda_device, grid_index, num_lines):
+    grids, z, nhis = _grids_and_samples(S=1001)
+    wl = torch.as_tensor(grids[grid_index].astype(np.float32), device=cuda_device)
+    parts = windowed_tau_parts(wl, torch.as_tensor(z, device=cuda_device), num_lines)
+    assert parts.far.shape[1] == 1408
+    before = _build.launch_counts["absorption_windowed"]
+    for nhi in nhis:
+        nt = torch.as_tensor(nhi, device=cuda_device)
+        got = absorption_windowed(parts, nt)
+        torch.cuda.synchronize()
+        assert got.shape == (z.shape[0], wl.shape[0] - 6)
+        assert float((got - absorption_windowed_reference(parts, nt)).abs().max()) <= TOL_K6
+    assert _build.launch_counts["absorption_windowed"] == before + len(nhis)
+
+
+def test_absorption_kernel_with_lyman_limit_break_matches_twin(cuda_device):
+    # the LLS search's width: P = 1,670 padded pixels from 850 A rest
+    rng = np.random.default_rng(5)
+    wl = torch.as_tensor((850.0 * 4.2 * 10 ** (1e-4 * np.arange(1670))).astype(np.float32),
+                         device=cuda_device)
+    z = torch.as_tensor(rng.uniform(3.0, 3.6, 1000).astype(np.float32), device=cuda_device)
+    nhi = torch.as_tensor((10 ** rng.uniform(17.2, 23.0, 1000)).astype(np.float32),
+                          device=cuda_device)
+    before = _build.launch_counts["absorption_all"]
+    (got,) = absorption_all(wl, z, (nhi,), lls_break=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["absorption_all"] == before + 1
+    (want,) = absorption_all_reference(wl, z, (nhi,), lls_break=True)
+    assert float((got - want).abs().max()) <= TOL_K1
+    (plain,) = absorption_all(wl, z, (nhi,))
+    assert float((plain - got).max()) > 0.5  # the break is in

@@ -176,8 +176,9 @@ def test_resampler_chi_square():
 def test_port_runs_without_jax():
     """With ``jax`` and the JAX package blocked (the card's machine has
     neither; the port keeps its own copies of the numpy modules), the
-    port imports and runs its float32 slice in both Voigt configurations
-    and a short DLA chain on the CPU (the kernels' twins)."""
+    port imports and runs its float32 slice in its three Voigt
+    configurations, the LLS search and a short DLA chain on the CPU (the
+    kernels' twins)."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -192,12 +193,13 @@ from gpy_dla_detection_tpu_torch.data.synthetic import (
     synthetic_learned_model, synthetic_prior_catalog, synthetic_spectrum)
 from gpy_dla_detection_tpu_torch.models.absorber_mcmc import run_dla_mcmc
 from gpy_dla_detection_tpu_torch.models.learned import LearnedModel, build_spectrum_model
+from gpy_dla_detection_tpu_torch.models.lls import generate_lya_samples, lls_inference_many
 from gpy_dla_detection_tpu_torch.parallel.batch import process_batch
 params = Parameters(num_dla_samples=64, k=6)
 learned = synthetic_learned_model(params)
 spectra = [synthetic_spectrum(params, learned, 3.0, seed=2, dlas=[(2.7, 21.0)])]
 module = LearnedModel.from_numpy(learned, "cpu", torch.float32)
-for impl in ("windowed", "exact"):
+for impl in ("windowed", "exact", "windowed_unfused"):
     res = process_batch(module, spectra, generate_dla_samples(params),
         generate_subdla_samples(params), synthetic_prior_catalog(params), params,
         torch.Generator().manual_seed(0), max_dlas=2, voigt_impl=impl)
@@ -206,6 +208,13 @@ model = build_spectrum_model(module, to_torch(spectra[0], "cpu", torch.float32),
 chain, lps, acc = run_dla_mcmc(model, params, torch.Generator().manual_seed(1),
     nwalkers=8, nsamples=20)
 assert chain.shape == (20, 8, 2) and torch.isfinite(lps[-1]).all() and 0 < float(acc) < 1
+lls_params = Parameters(num_dla_samples=64, k=6, min_lambda=850.0, num_pixels_padded=1664)
+lls_arrays = synthetic_learned_model(lls_params)
+lls_spectra = [synthetic_spectrum(lls_params, lls_arrays, 3.0, seed=2)]
+(null_ev, lls_res), = lls_inference_many(
+    LearnedModel.from_numpy(lls_arrays, "cpu", torch.float32), lls_spectra,
+    generate_lya_samples(64), torch.Generator().manual_seed(2), 2, lls_params)
+assert np.isfinite(null_ev) and np.isfinite(lls_res.log_evidences).all()
 loaded = [m for m, v in sys.modules.items() if v is not None and (
     m.split(".")[0] in ("jax", "gpy_dla_detection_tpu"))]
 assert loaded == [], loaded

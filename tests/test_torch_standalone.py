@@ -19,6 +19,7 @@ from gpy_dla_detection_tpu import params as JP
 from gpy_dla_detection_tpu.data import catalog as JCat
 from gpy_dla_detection_tpu.data import samples as JS
 from gpy_dla_detection_tpu.data import spectrum as JSpec
+from gpy_dla_detection_tpu.models import lls as JL
 from gpy_dla_detection_tpu.models import selection as JSel
 from gpy_dla_detection_tpu_torch import constants as TC
 from gpy_dla_detection_tpu_torch import params as TP
@@ -29,6 +30,7 @@ from gpy_dla_detection_tpu_torch.data.synthetic import (
     synthetic_learned_model,
     synthetic_observation,
 )
+from gpy_dla_detection_tpu_torch.models import lls as TL
 from gpy_dla_detection_tpu_torch.models import selection as TSel
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -116,6 +118,27 @@ def test_prior_catalog_and_model_selection_equal():
         assert got._fields == want._fields
         for f, a, b in zip(got._fields, got, want):
             assert _equal(np.asarray(a), np.asarray(b)), f
+
+
+@pytest.mark.parametrize("num_samples", [64, 10000])
+def test_lls_copies_bit_for_bit(num_samples):
+    """The LLS search's numpy parts: its samples (at the search's full
+    10,000), prior density, constants and posteriors."""
+    for prior in ("garnett", "uniform"):
+        js, ts = JL.generate_lya_samples(num_samples, prior=prior), TL.generate_lya_samples(
+            num_samples, prior=prior)
+        assert js._fields == ts._fields and TL.LyaSamples._fields == JL.LyaSamples._fields
+        for f, a, b in zip(js._fields, js, ts):
+            assert _equal(a, b), (prior, f)
+    x = np.linspace(17.0, 23.5, 131)
+    assert np.array_equal(JL.lya_log_nhi_pdf(x, 17.5, 22.0), TL.lya_log_nhi_pdf(x, 17.5, 22.0))
+    assert (JL.BOSS_TAU_0, JL.BOSS_BETA, JL.LYA_FLAT_BELOW) == (
+        TL.BOSS_TAU_0, TL.BOSS_BETA, TL.LYA_FLAT_BELOW)
+    assert JL.FumagalliTable._fields == TL.FumagalliTable._fields
+    evs = np.random.default_rng(num_samples).normal(-500, 3, 4)
+    for kw in ({}, {"num_dlas": 300, "num_quasars": 4000}, {"p_lls": 0.2}):
+        assert np.array_equal(JL.lls_model_posteriors(-501.0, evs, **kw),
+                              TL.lls_model_posteriors(-501.0, evs, **kw))
 
 
 def _imports_of(path: Path):
