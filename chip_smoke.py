@@ -28,13 +28,28 @@ Phases, one line each; any failure exits non-zero before the result:
      spectra through lls_inference_many (odd ones carry an LLS of logNHI
      18.5 at z_qso - 0.2, its break inside the window), with launch counts
      and detections, and its golden parity with the JAX float64 run
-     (tests/data/torch_golden_lls.npz)
+     (tests/data/torch_golden_lls.npz); then the same search once more in
+     the unfused windowed configuration (voigt_impl="windowed_unfused":
+     the placed windowed unit tau plus the break, K5; no K1 or K6) with its
+     launch counts, detections and golden parity
   9. the absorber MCMC head: a DLA chain (32 walkers x 5,000 steps) on an
      injected spectrum at full width, checked against the truth, and a
      CIV chain (40 walkers x 1,000 steps); posterior evaluations per second
  10. timings: each kernel vs its twin and its bound, and the spectra/s of
-     the default slice, the exact and unfused configurations and the LLS
-     search
+     the default slice, the exact and unfused configurations, the LLS
+     search and the CIV head
+ 11. the likelihood ablation (K7) through scripts/kernel_ablate_torch.py at
+     its full width (S = 10,000, N = 1,280, k = 20): every stage of the
+     stage kernel, K2 with the flat basis and the flat chain (decoupled),
+     every chain variant (the flat chain in the row and the transposed
+     layout, K3 on the packed one), each launch counted and held against
+     its twin; the float64 accuracy of full, decoupled and K2 + K3; the
+     stage kernel's and the flat chain's times vs twins and bounds, with
+     the SGEMM yardstick beside the matmul stage
+ 12. the CIV QMC head at CIVParameters() (S = 10,000, N = 768) on 8
+     synthetic spectra through civ_inference_many (odd ones carry a CIV
+     doublet), with launch counts, detections and golden parity with the
+     JAX float64 run (tests/data/torch_golden_civ.npz)
 Then a JSON line of the kernels, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package: both are
@@ -61,6 +76,8 @@ import torch  # noqa: E402
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_fullscale.npz"
 GOLDEN_LLS = ROOT / "tests" / "data" / "torch_golden_lls.npz"
+GOLDEN_CIV = ROOT / "tests" / "data" / "torch_golden_civ.npz"
+ABLATE_SCRIPT = ROOT / "scripts" / "kernel_ablate_torch.py"
 NUM_SPECTRA = 16
 NUM_EXACT = 4
 NUM_UNFUSED = 4
@@ -77,6 +94,7 @@ TOL_K1 = 2e-6  # absolute, kernel vs twin (measured 2.4e-7)
 TOL_K5 = 1e-6  # absolute, kernel vs twin; profiles lie in [0, 1] (measured 1.8e-7)
 TOL_K6 = 1e-6  # absolute, kernel vs twin; the same exp and 7-tap sum as K5
 REL_K23 = 1e-6  # |dll| <= REL_K23 * max|ll|, kernel vs twin (measured 3.7e-7)
+REL_K7 = 2e-6  # |d| <= REL_K7 * max|value|, the ablation's kernels vs twins
 REL_GOLDEN_EVIDENCE = 1e-4  # of the largest |log evidence|, float32 vs float64 JAX
 ABS_GOLDEN_P_DLA = 1e-3
 
@@ -108,8 +126,17 @@ KERNELS = {
         f"{LOGMVN}:497",
     ),
 }
-# the chain variants K3 stands for: rank-1 packed (odd k), flat rank-2, flat rank-1
-ALSO_REPLACES = {"logmvn_chain": [f"{LOGMVN}:422", f"{LOGMVN}:319", f"{LOGMVN}:258"]}
+ABLATE = "scripts/kernel_ablate.py"
+# the chain variants K3 stands for: rank-1 packed (odd k), flat rank-2, flat
+# rank-1, the ablation's packed chain; K2 with a flat basis is the
+# ablation's decoupled stage A
+ALSO_REPLACES = {
+    "logmvn_chain": [f"{LOGMVN}:422", f"{LOGMVN}:319", f"{LOGMVN}:258", f"{ABLATE}:478"],
+    "logmvn_cap": [f"{ABLATE}:208"],
+}
+ABLATE_SOURCE = "gpy_dla_detection_tpu_torch/csrc/logmvn_ablate.cu"
+# the stage kernel's functions (each the function of one or more stage names)
+ABLATION_FUNCTIONS = ("elementwise", "elementwise_nolog", "matmul", "full", "chain_nodot")
 
 
 def fail(msg: str) -> None:
@@ -199,6 +226,52 @@ def k6_work(S, P_pad, P, L) -> tuple[float, float]:
     return n_bytes, S * (256.0 * L + 2.0 * P + 14.0 * (P - 6))
 
 
+def ablation_work(stage: str, S, N, k) -> tuple[float, float]:
+    """Bytes and float32 operations that one stage's function needs: it
+    reads the absorption and the rows and writes ll, with ~12 operations
+    per sample and pixel in the assembly (a logf counting one).  matmul's
+    output needs no product: sum B + sum u = sum_n w_n (sum_i M_ni)^2 + r_n
+    sum_i M_ni, two FMAs per sample and pixel after reading M and the basis
+    once.  full and chain_nodot read only the triangle of the symmetric
+    pair basis, so their products are K2's 2 S N (k(k+1)/2 + k), then the
+    chain's ~k^3/3 + 2 k^2 per sample."""
+    kp = k * (k + 1) // 2
+    n_bytes = 4.0 * (S * N + 5 * N + S)
+    ops = 12.0 * S * N
+    if stage == "matmul":
+        n_bytes += 4.0 * (N * k + N * k * k)
+        ops += 4.0 * S * N + N * (k + 2.0)
+    elif stage in ("full", "chain_nodot"):
+        n_bytes += 4.0 * (N * k + N * kp)
+        ops += 2.0 * S * N * (kp + k) + S * (k**3 / 3.0 + 2.0 * k * k)
+    return n_bytes, ops
+
+
+def flat_product_work(S, N, k) -> float:
+    """The flat product w [Mp | M] that the stage kernel computes from
+    matmul on, 2 S N (k^2 + k) operations: the instrument's own work, which
+    the functions do not need."""
+    return 2.0 * S * N * (k * k + k)
+
+
+def flat_chain_work(S, k) -> tuple[float, float]:
+    """Reads the upper triangle of the flat B (the chain reads no other
+    entry), u and misc, writes ll; the Cholesky, the substitution and the
+    logs per sample."""
+    return 4.0 * S * (k * (k + 1) // 2 + k + 2 + 1), S * (k**3 / 3.0 + 2.0 * k * k)
+
+
+def load_ablation_script():
+    """scripts/kernel_ablate_torch.py as a module: the ablation's entry
+    point, driven by phase 11."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("kernel_ablate_torch", ABLATE_SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
@@ -209,11 +282,17 @@ def main() -> None:
     )
     from gpy_dla_detection_tpu_torch.data.spectrum import to_torch
     from gpy_dla_detection_tpu_torch.data.synthetic import (
+        synthetic_civ_spectrum,
         synthetic_learned_model,
         synthetic_prior_catalog,
         synthetic_spectrum,
     )
     from gpy_dla_detection_tpu_torch.models.absorber_mcmc import run_civ_mcmc, run_dla_mcmc
+    from gpy_dla_detection_tpu_torch.models.civ import (
+        civ_inference_many,
+        civ_model_posterior,
+        generate_civ_samples,
+    )
     from gpy_dla_detection_tpu_torch.models.learned import (
         LearnedModel,
         build_spectrum_model,
@@ -226,6 +305,12 @@ def main() -> None:
         with_boss_meanflux,
     )
     from gpy_dla_detection_tpu_torch.ops import _build
+    from gpy_dla_detection_tpu_torch.ops.logmvn_ablate import (
+        logmvn_ablate,
+        logmvn_ablate_reference,
+        logmvn_flat_chain,
+        logmvn_flat_chain_reference,
+    )
     from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
         logmvn_cap,
         logmvn_cap_reference,
@@ -247,7 +332,7 @@ def main() -> None:
         absorption_windowed,
         absorption_windowed_reference,
     )
-    from gpy_dla_detection_tpu_torch.params import Parameters
+    from gpy_dla_detection_tpu_torch.params import CIVParameters, Parameters
     from gpy_dla_detection_tpu_torch.parallel.batch import process_batch
 
     device = torch.device("cuda", 0)
@@ -298,6 +383,21 @@ def main() -> None:
                            dlas=None if t is None else [t], with_lls_break=True)
         for i, (z, t) in enumerate(zip(lls_z_qsos, lls_truths))
     ]
+
+    # the CIV head: the golden fixture's 8 spectra (odd ones with a doublet)
+    gc = np.load(GOLDEN_CIV)
+    civ_params = CIVParameters()
+    civ_arrays = synthetic_learned_model(civ_params)
+    civ_learned = LearnedModel.from_numpy(civ_arrays, device, torch.float32)
+    civ_samples = generate_civ_samples(civ_params)
+    civ_injected = [bool(i) for i in gc["injected"]]
+    civ_spectra = [
+        synthetic_civ_spectrum(civ_params, civ_arrays, float(z), seed=int(seed),
+                               civ=(float(cz), float(cn), float(cs)) if inj else None)
+        for z, seed, inj, cz, cn, cs in zip(gc["z_qso"], gc["obs_seed"], civ_injected,
+                                            gc["civ_z"], gc["civ_log_n"], gc["civ_sigma"])
+    ]
+    run_civ = lambda: civ_inference_many(civ_learned, civ_spectra, civ_samples, civ_params)
 
     # 3. kernels vs twins at main-path shapes
     model = build_spectrum_model(learned, to_torch(spectra[1], device, torch.float32), params)
@@ -515,14 +615,62 @@ def main() -> None:
           f"golden: {golden_parity('windowed_unfused')}")
 
     # 8. the LLS search: one K1 launch (with the break, F = 1) and max_lya
-    # likelihood levels per spectrum
-    def run_lls(batch=lls_spectra):
+    # likelihood levels per spectrum; then the unfused windowed
+    # configuration: the placed windowed unit tau plus the break and one K5
+    # launch per spectrum (the reference places the LLS windows outside K6)
+    def run_lls(batch=lls_spectra, voigt_impl="windowed"):
         return lls_inference_many(
             lls_learned, batch, lya_samples, torch.Generator(device=device).manual_seed(3),
-            MAX_LYA, lls_params)
+            MAX_LYA, lls_params, voigt_impl=voigt_impl)
 
     def p_absorber(null_ev, evs):
         return 1.0 - float(lls_model_posteriors(float(null_ev), np.asarray(evs, np.float64))[0])
+
+    def check_lls(outs, label):
+        dzs, p_clean, p_inj = [], [0.0], [1.0]
+        for (null_ev, res), truth in zip(outs, lls_truths):
+            check(np.isfinite(null_ev) and np.isfinite(res.log_evidences).all(),
+                  f"{label}: non-finite evidence")
+            p = p_absorber(null_ev, res.log_evidences)
+            if truth is None:
+                check(p < 0.1, f"{label}: clean spectrum P(k >= 1) {p:.4f} >= 0.1")
+                p_clean.append(p)
+            else:
+                dz = abs(float(res.map_z_dlas[0][0]) - truth[0])
+                check(p > 0.9, f"{label}: injected LLS missed: P(k >= 1) {p:.4f}")
+                check(dz < 0.01, f"{label}: injected LLS MAP z off by {dz:.4f}")
+                dzs.append(dz)
+                p_inj.append(p)
+        return (f"clean max P(k>=1) {max(p_clean):.3e} | injected min P(k>=1) "
+                f"{min(p_inj):.6f}, max |MAP z - truth| {max(dzs):.2e}")
+
+    gl = np.load(GOLDEN_LLS)
+
+    def golden_lls(voigt_impl):
+        worst_rel, worst_dp = 0.0, 0.0
+        for i, (z, seed, inj, lz, ln) in enumerate(zip(
+                gl["z_qso"], gl["obs_seed"], gl["injected"], gl["lls_z"], gl["lls_log_nhi"])):
+            gspec = synthetic_spectrum(lls_params, lls_arrays, float(z), seed=int(seed),
+                                       dlas=[(float(lz), float(ln))] if inj else None,
+                                       with_lls_break=True)
+            null_ev, res = lls_log_evidences(
+                lls_learned, gspec, lya_samples, torch.Generator(device=device).manual_seed(4),
+                MAX_LYA, lls_params, base_inds_override=gl["base_inds"][i].astype(np.int64),
+                voigt_impl=voigt_impl)
+            got = np.concatenate([[float(null_ev)], res.log_evidences.cpu().numpy()]).astype(
+                np.float64)
+            want = np.concatenate([[gl["log_evidence_null"][i]], gl["log_evidences_lls"][i]])
+            rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+            post = lls_model_posteriors(got[0], got[1:])
+            dp = abs((1.0 - post[0]) - (1.0 - float(gl["model_posteriors"][i][0])))
+            worst_rel, worst_dp = max(worst_rel, rel), max(worst_dp, dp)
+            check(rel <= REL_GOLDEN_EVIDENCE, f"golden lls {voigt_impl} {i}: log evidence rel {rel:.3e}")
+            check(dp <= ABS_GOLDEN_P_DLA, f"golden lls {voigt_impl} {i}: |dP(k >= 1)| {dp:.3e}")
+            check(np.argmax(post) == np.argmax(gl["model_posteriors"][i]),
+                  f"golden lls {voigt_impl} {i}: argmax model differs")
+        return (f"{len(gl['z_qso'])} spectra vs JAX float64 at full width, same indices | log "
+                f"evidence max rel {worst_rel:.3e} (tol {REL_GOLDEN_EVIDENCE}) | max |dP(k>=1)| "
+                f"{worst_dp:.3e} (tol {ABS_GOLDEN_P_DLA}) | argmax models equal")
 
     outs, launches = count_launches(run_lls)
     path_launches["lls"] = launches
@@ -530,48 +678,20 @@ def main() -> None:
             "logmvn_chain": MAX_LYA * NUM_LLS, "absorption_tail": 0, "absorption_windowed": 0}
     for name, n in need.items():
         check(launches.get(name, 0) == n, f"lls: {name} launched {launches.get(name, 0)} != {n}")
-    dzs, p_clean, p_inj = [], [0.0], [1.0]
-    for (null_ev, res), truth in zip(outs, lls_truths):
-        check(np.isfinite(null_ev) and np.isfinite(res.log_evidences).all(),
-              "lls: non-finite evidence")
-        p = p_absorber(null_ev, res.log_evidences)
-        if truth is None:
-            check(p < 0.1, f"lls: clean spectrum P(k >= 1) {p:.4f} >= 0.1")
-            p_clean.append(p)
-        else:
-            dz = abs(float(res.map_z_dlas[0][0]) - truth[0])
-            check(p > 0.9, f"lls: injected LLS missed: P(k >= 1) {p:.4f}")
-            check(dz < 0.01, f"lls: injected LLS MAP z off by {dz:.4f}")
-            dzs.append(dz)
-            p_inj.append(p)
-
-    gl = np.load(GOLDEN_LLS)
-    worst_rel, worst_dp = 0.0, 0.0
-    for i, (z, seed, inj, lz, ln) in enumerate(zip(
-            gl["z_qso"], gl["obs_seed"], gl["injected"], gl["lls_z"], gl["lls_log_nhi"])):
-        gspec = synthetic_spectrum(lls_params, lls_arrays, float(z), seed=int(seed),
-                                   dlas=[(float(lz), float(ln))] if inj else None,
-                                   with_lls_break=True)
-        null_ev, res = lls_log_evidences(
-            lls_learned, gspec, lya_samples, torch.Generator(device=device).manual_seed(4),
-            MAX_LYA, lls_params, base_inds_override=gl["base_inds"][i].astype(np.int64))
-        got = np.concatenate([[float(null_ev)], res.log_evidences.cpu().numpy()]).astype(np.float64)
-        want = np.concatenate([[gl["log_evidence_null"][i]], gl["log_evidences_lls"][i]])
-        rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
-        post = lls_model_posteriors(got[0], got[1:])
-        dp = abs((1.0 - post[0]) - (1.0 - float(gl["model_posteriors"][i][0])))
-        worst_rel, worst_dp = max(worst_rel, rel), max(worst_dp, dp)
-        check(rel <= REL_GOLDEN_EVIDENCE, f"golden lls {i}: log evidence rel {rel:.3e}")
-        check(dp <= ABS_GOLDEN_P_DLA, f"golden lls {i}: |dP(k >= 1)| {dp:.3e}")
-        check(np.argmax(post) == np.argmax(gl["model_posteriors"][i]),
-              f"golden lls {i}: argmax model differs")
-    print(f"[8 lls] {NUM_LLS} spectra at S={lls_params.num_dla_samples} N="
-          f"{lls_params.num_pixels_padded} k={lls_params.k} max_lya={MAX_LYA}, BOSS mean flux | "
-          f"launches {launches} | clean max P(k>=1) {max(p_clean):.3e} | injected min P(k>=1) "
-          f"{min(p_inj):.6f}, max |MAP z - truth| {max(dzs):.2e} | golden: {len(gl['z_qso'])} "
-          f"spectra vs JAX float64 at full width, same indices | log evidence max rel "
-          f"{worst_rel:.3e} (tol {REL_GOLDEN_EVIDENCE}) | max |dP(k>=1)| {worst_dp:.3e} "
-          f"(tol {ABS_GOLDEN_P_DLA}) | argmax models equal")
+    lls_line = (f"{NUM_LLS} spectra at S={lls_params.num_dla_samples} N="
+                f"{lls_params.num_pixels_padded} k={lls_params.k} max_lya={MAX_LYA}, BOSS mean "
+                f"flux | launches {launches} | {check_lls(outs, 'lls')} | golden: "
+                f"{golden_lls('windowed')}")
+    outs, launches = count_launches(lambda: run_lls(voigt_impl="windowed_unfused"))
+    path_launches["lls_unfused"] = launches
+    need = {"absorption_tail": NUM_LLS, "logmvn_cap": MAX_LYA * NUM_LLS,
+            "logmvn_chain": MAX_LYA * NUM_LLS, "absorption_all": 0, "absorption_windowed": 0}
+    for name, n in need.items():
+        check(launches.get(name, 0) == n,
+              f"lls unfused: {name} launched {launches.get(name, 0)} != {n}")
+    print(f"[8 lls] {lls_line} || voigt_impl=windowed_unfused: launches {launches} "
+          f"(absorption_tail 1 per spectrum) | {check_lls(outs, 'lls unfused')} | golden: "
+          f"{golden_lls('windowed_unfused')}")
 
     # 9. the absorber MCMC head on an injected spectrum at full width
     z_dla, log_nhi = 2.82, 21.0
@@ -664,6 +784,7 @@ def main() -> None:
     exact_rate = slice_rate(spectra[:NUM_EXACT], "exact")
     unfused_rate = slice_rate(spectra[:NUM_UNFUSED], "windowed_unfused")
     lls_rate = rate_of(run_lls, NUM_LLS)
+    civ_rate = rate_of(run_civ, len(civ_spectra))
 
     consts, _ = _kernel_constants(params.num_lines)
     work = {
@@ -685,9 +806,126 @@ def main() -> None:
           + f" | slice {rate:.2f} spectra/s (median of 3 runs of {NUM_SPECTRA}, after warm-up), "
           f"exact configuration {exact_rate:.2f} spectra/s (median of 3 runs of {NUM_EXACT}), "
           f"unfused configuration {unfused_rate:.2f} spectra/s (median of 3 runs of "
-          f"{NUM_UNFUSED}), LLS search {lls_rate:.2f} spectra/s (median of 3 runs of {NUM_LLS})")
+          f"{NUM_UNFUSED}), LLS search {lls_rate:.2f} spectra/s (median of 3 runs of {NUM_LLS}), "
+          f"CIV head {civ_rate:.2f} spectra/s (median of 3 runs of {len(civ_spectra)})")
+
+    # 11. the likelihood ablation (K7) through its entry point, at full
+    # width: each stage name once, the launches of each counted around it
+    ablate = load_ablation_script()
+    stage_names = (sorted(ablate.STAGES) + ["decoupled_200", "decoupled_tri_200"]
+                   + [f"chain_{v}_2000" for v in sorted(ablate.CHAIN_LAYOUTS)])
+    ablation, stage_launches = {}, {}
+    for stage in stage_names:
+        fn, twin, ins = ablate.stage_runner(stage, device)
+        out, stage_launches[stage] = count_launches(lambda: fn(*ins[0]))
+        ablation[stage] = (out, twin, ins[0])
+    launches = {}
+    for counts in stage_launches.values():
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    path_launches["ablation"] = launches
+    n_stage = len(ablate.STAGES)
+    n_flat = sum(ablate.CHAIN_LAYOUTS[v] != "packed" for v in ablate.CHAIN_LAYOUTS) + 2
+    need = {"logmvn_ablate": n_stage, "logmvn_flat_chain": n_flat, "logmvn_cap": 2,
+            "logmvn_chain": sum(v == "packed" for v in ablate.CHAIN_LAYOUTS.values())}
+    for name, n in need.items():
+        check(launches.get(name, 0) == n, f"ablation: {name} launched {launches.get(name, 0)} != {n}")
+    rel_errs, abs_errs = {}, {}
+    for stage, (out, twin, ins) in ablation.items():
+        want = twin(*ins)
+        out, want = out[:ablate.S], want[:ablate.S]  # the transposed layout's padding
+        rel_errs[stage] = ablate.max_rel_diff(out, want)
+        nan = torch.isnan(want)
+        abs_errs[stage] = float((out - want)[~nan].abs().max())
+        check(rel_errs[stage] <= REL_K7,
+              f"ablation {stage}: kernel vs twin {rel_errs[stage]:.3e} of max|value| > {REL_K7}")
+    acc, acc_scale = ablate.accuracy(device)
+    rows_a, M_a, Mp_a, a_list = ablate.likelihood_inputs(device)
+    a0 = a_list[0]
+    kernel_rows = []  # (name, ms, plain_ms, (bound, by), launches, library_ms, replaces, err)
+    yard = ablate.library_yardsticks(device)
+    for func in ABLATION_FUNCTIONS:
+        ms_k = timed_median(lambda: logmvn_ablate(func, rows_a, M_a, Mp_a, a0))
+        ms_t = timed_median(lambda: logmvn_ablate_reference(func, rows_a, M_a, Mp_a, a0))
+        names = [st for st in ablate.STAGES if ablate.STAGES[st] == ablate.STAGES[func]]
+        kernel_rows.append((
+            f"logmvn_ablate[{func}]", ms_k, ms_t,
+            bound(*ablation_work(func, ablate.S, ablate.N, ablate.K)),
+            sum(stage_launches[st].get("logmvn_ablate", 0) for st in names),
+            next(iter(yard.values())) if func == "matmul" else None,
+            f"{ABLATE}:27", max(abs_errs[st] for st in names)))
+    for layout, variant in (("row", "row"), ("transposed", "T_full")):
+        B_c, u_c, m_c = ablate.chain_inputs(layout, 0, device)
+        tr = layout == "transposed"
+        names = [f"chain_{v}_2000" for v, lay in ablate.CHAIN_LAYOUTS.items() if lay == layout]
+        if layout == "row":
+            names += ["decoupled_200", "decoupled_tri_200"]
+        kernel_rows.append((
+            f"logmvn_flat_chain[{layout}]",
+            timed_median(lambda: logmvn_flat_chain(B_c, u_c, m_c, transposed=tr)),
+            timed_median(lambda: logmvn_flat_chain_reference(B_c, u_c, m_c, transposed=tr)),
+            bound(*flat_chain_work(u_c.shape[1] if tr else u_c.shape[0], ablate.K)),
+            sum(stage_launches[st].get("logmvn_flat_chain", 0) for st in names), None,
+            f"{ABLATE}:400" if tr else f"{ABLATE}:235",
+            max(abs_errs[st] for st in names)))
+    # the stage kernel's flat product, beside the rows that compute it
+    product_ms = bound(0.0, flat_product_work(ablate.S, ablate.N, ablate.K))[0]
+    row_extra = {f"logmvn_ablate[{func}]": {"flat_product_bound_ms": product_ms}
+                 for func in ("matmul", "full", "chain_nodot")}
+    ms_stage = " | ".join(
+        f"{name} {k:.3f} ms vs twin {t:.3f} ms, bound {b:.4f} ms ({by}), launches {n}"
+        + (f", SGEMM yardstick {lib:.3f} ms" if lib is not None else "")
+        for name, k, t, (b, by), n, lib, _, _ in kernel_rows)
+    ms_stage += (f" | the flat product w [Mp | M] that the stage kernel computes from matmul "
+                 f"on (its own work, not the functions'): bound {product_ms:.4f} ms (operations)")
+    print(f"[11 ablation] {card} | S={ablate.S} N={ablate.N} k={ablate.K} via "
+          f"{ABLATE_SCRIPT.relative_to(ROOT)} | {len(stage_names)} stages, launches {launches} | "
+          f"kernel vs twin max |d|/max|value| "
+          + ", ".join(f"{st} {e:.2e}" for st, e in rel_errs.items())
+          + f" (tol {REL_K7}) | float64 accuracy (max|ll| {acc_scale:.4g}): "
+          + ", ".join(f"{n} median {m:.3e} max {x:.3e}" for n, (m, x) in acc.items())
+          + f" (reference budget median {ablate.BUDGET_MEDIAN} max {ablate.BUDGET_MAX}) | "
+          f"{ms_stage} | library yardsticks (on no path): "
+          + ", ".join(f"{n} {v:.3f} ms" for n, v in yard.items()))
+
+    # 12. the CIV QMC head: per spectrum one K5 (the doublet's tail), one K2
+    # and one K3 launch
+    outs, launches = count_launches(run_civ)
+    path_launches["civ"] = launches
+    n_civ = len(civ_spectra)
+    need = {"absorption_tail": n_civ, "logmvn_cap": n_civ, "logmvn_chain": n_civ,
+            "absorption_all": 0, "absorption_windowed": 0}
+    for name, n in need.items():
+        check(launches.get(name, 0) == n, f"civ: {name} launched {launches.get(name, 0)} != {n}")
+    worst_rel, worst_dp, p_clean, p_inj = 0.0, 0.0, [0.0], [1.0]
+    for i, ((p, null_ev, civ_ev), inj) in enumerate(zip(outs, civ_injected)):
+        check(np.isfinite(null_ev) and np.isfinite(civ_ev), "civ: non-finite evidence")
+        if inj:
+            check(p > 0.9, f"civ: injected doublet missed: p_civ {p:.4f}")
+            p_inj.append(p)
+        else:
+            check(p < 0.1, f"civ: clean spectrum p_civ {p:.4f} >= 0.1")
+            p_clean.append(p)
+        want = np.array([gc["log_evidence_null"][i], gc["log_evidence_civ"][i]])
+        rel = float(np.max(np.abs(np.array([null_ev, civ_ev]) - want)) / np.max(np.abs(want)))
+        dp = abs(p - float(gc["p_civ"][i]))
+        worst_rel, worst_dp = max(worst_rel, rel), max(worst_dp, dp)
+        check(rel <= REL_GOLDEN_EVIDENCE, f"golden civ {i}: log evidence rel {rel:.3e}")
+        check(dp <= ABS_GOLDEN_P_DLA, f"golden civ {i}: |dp_civ| {dp:.3e}")
+        check((p > 0.5) == (float(gc["p_civ"][i]) > 0.5), f"golden civ {i}: argmax model differs")
+        check(civ_model_posterior(null_ev, civ_ev) == p, f"civ {i}: posterior mismatch")
+    print(f"[12 civ] {n_civ} spectra at S={civ_params.num_civ_samples} N="
+          f"{civ_params.num_pixels_padded} k={civ_params.k} | launches {launches} | clean max "
+          f"p_civ {max(p_clean):.3e} | injected min p_civ {min(p_inj):.6f} | golden: {n_civ} "
+          f"spectra vs JAX float64 at full width | log evidence max rel {worst_rel:.3e} (tol "
+          f"{REL_GOLDEN_EVIDENCE}) | max |dp_civ| {worst_dp:.3e} (tol {ABS_GOLDEN_P_DLA}) | "
+          f"argmax models equal")
 
     total = {name: sum(p.get(name, 0) for p in path_launches.values()) for name in KERNELS}
+    also_ablate = {
+        "logmvn_flat_chain[row]": [f"{ABLATE}:367", f"{ABLATE}:459", f"{ABLATE}:468"],
+        "logmvn_ablate[full]": [f"{ABLATE}:86", f"{ABLATE}:118"],
+    }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
@@ -695,6 +933,12 @@ def main() -> None:
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, rep) in KERNELS.items()
+    ] + [
+        {"name": name, "route": "cuda", "source": ABLATE_SOURCE, "replaces": rep,
+         **({"also_replaces": also_ablate[name]} if name in also_ablate else {}),
+         "launches": n, "max_abs_err": e, "ms": k, "plain_ms": t, "bound_ms": b,
+         "bound_by": by, "library_ms": lib, **row_extra.get(name, {})}
+        for name, k, t, (b, by), n, lib, rep, e in kernel_rows
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

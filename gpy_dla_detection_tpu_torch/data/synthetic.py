@@ -244,3 +244,51 @@ def synthetic_spectrum(
 ) -> Spectrum:
     wl, flux, nv, mask = synthetic_observation(params, learned, z_qso, seed, **kw)
     return preprocess(wl, flux, nv, mask, z_qso, params)
+
+
+def civ_doublet_transmission(
+    wavelengths: np.ndarray, z_civ: float, log_nciv: float, sigma: float
+) -> np.ndarray:
+    """exp(-tau) of one CIV doublet on an observed grid, unbroadened: the
+    injection of the JAX package's CIV accuracy gate
+    (tests/test_accuracy_gates.py), exact Faddeeva from scipy.
+
+    :param sigma: broadening velocity [cm/s].
+    """
+    from scipy.special import wofz
+
+    from ..constants import (
+        CIV_LEADING_CONSTANTS,
+        CIV_LORENTZIAN_WIDTHS,
+        CIV_WAVELENGTHS_CM,
+        SPEED_OF_LIGHT_CGS,
+    )
+
+    tau = np.zeros_like(wavelengths, dtype=np.float64)
+    for l in range(2):
+        lam_c = CIV_WAVELENGTHS_CM[l] * 1e8 * (1 + z_civ)
+        vel = (wavelengths - lam_c) * (SPEED_OF_LIGHT_CGS / lam_c)
+        zz = (vel + 1j * CIV_LORENTZIAN_WIDTHS[l]) / (np.sqrt(2) * sigma)
+        tau += (
+            10.0**log_nciv
+            * CIV_LEADING_CONSTANTS[l]
+            * np.real(wofz(zz))
+            / (np.sqrt(2 * np.pi) * sigma)
+        )
+    return np.exp(-tau)
+
+
+def synthetic_civ_spectrum(
+    params: Parameters,
+    learned: LearnedArrays,
+    z_qso: float,
+    seed: int = 0,
+    civ: tuple[float, float, float] | None = None,
+) -> Spectrum:
+    """A synthetic spectrum (:func:`synthetic_observation`) with an
+    optional CIV doublet ``civ = (z_civ, logN_CIV, sigma)`` multiplied into
+    its flux, preprocessed for the CIV search."""
+    wl, flux, nv, mask = synthetic_observation(params, learned, z_qso, seed)
+    if civ is not None:
+        flux = flux * civ_doublet_transmission(wl, *civ)
+    return preprocess(wl, flux, nv, mask, z_qso, params)

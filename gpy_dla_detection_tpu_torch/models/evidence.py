@@ -26,6 +26,7 @@ from ..ops.logmvn import batched_log_mvnpdf, likelihood_pair_basis, log_mvnpdf_l
 from ..ops.voigt import (
     absorption_from_unit_tau,
     lyman_limit_unit_tau,
+    place_windows,
     unit_lyman_optical_depth,
     windowed_tau_parts,
 )
@@ -61,26 +62,24 @@ def single_absorber_profiles(
         CPU conformance path), with one unit optical depth serving every
         family.
     :param profile: ``"dla"`` or ``"lls"`` (the Lyman-limit break, linear
-        in nhi, rides the unit optical depth: K1 with ``lls_break``, or
-        added to the exact unit optical depth).
+        in nhi, rides the unit optical depth: K1 with ``lls_break``; added
+        to the exact unit optical depth; or, unfused, added to the placed
+        windowed unit optical depth before K5, as the reference places
+        the LLS windows outside K6 (its ``voigt_absorption_lls``)).
     """
     if voigt_impl not in VOIGT_IMPLS:
         raise ValueError(f"voigt_impl must be one of {VOIGT_IMPLS}, got {voigt_impl!r}")
     if profile not in PROFILES:
         raise ValueError(f"profile must be one of {PROFILES}, got {profile!r}")
     lls = profile == "lls"
-    if lls and voigt_impl == "windowed_unfused":
-        raise ValueError(
-            "the LLS profile has no unfused windowed form: the reference "
-            "places its windows in XLA (ops/voigt.py:voigt_absorption_lls) "
-            "and never reaches K6, and that placement is not ported; use "
-            "voigt_impl='windowed' (K1 with the break) or 'exact'"
-        )
     if wavelengths.dtype == torch.float32 and voigt_impl == "windowed":
         return absorption_all(wavelengths, z_samples, nhis, num_lines, lls_break=lls)
     if wavelengths.dtype == torch.float32 and voigt_impl == "windowed_unfused":
         parts = windowed_tau_parts(wavelengths, z_samples, num_lines)
-        return tuple(absorption_windowed(parts, nhi) for nhi in nhis)
+        if not lls:
+            return tuple(absorption_windowed(parts, nhi) for nhi in nhis)
+        unit = place_windows(parts) + lyman_limit_unit_tau(wavelengths, z_samples)
+        return tuple(absorption_from_unit_tau(unit, nhi) for nhi in nhis)
     unit = unit_lyman_optical_depth(wavelengths, z_samples, num_lines)
     if lls:
         unit = unit + lyman_limit_unit_tau(wavelengths, z_samples)

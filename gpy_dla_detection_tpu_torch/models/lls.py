@@ -6,7 +6,8 @@ QMC machinery with
 * the Lyman-limit-break absorption profile (``profile="lls"`` of
   ``models.evidence``: K1 with ``lls_break`` on the float32 default path,
   the exact unit optical depth plus the break and K5 in the exact
-  configuration),
+  configuration, the placed windowed unit optical depth plus the break
+  and K5 in the unfused windowed one),
 * a data-driven column-density prior on logNHI in [17.2, 23]: the
   Garnett (2017) quadratic-fit density above 20.03 with a flat extension
   below it, sampled by analytic inverse CDF at Halton points,
@@ -144,7 +145,8 @@ def lls_log_evidences(
     :param generator: drives the importance resampling; on that device.
     :param base_inds_override: optional (max_lya - 1, S) resampling indices
         replacing the draws.
-    :param voigt_impl: ``"windowed"`` (K1 with the break) or ``"exact"``.
+    :param voigt_impl: ``"windowed"`` (K1 with the break), ``"exact"`` or
+        ``"windowed_unfused"`` (see ``models.evidence.single_absorber_profiles``).
     """
     device, dtype = learned.mu.device, learned.mu.dtype
     model = build_spectrum_model(learned, to_torch(spec, device, dtype), params)
@@ -256,6 +258,7 @@ def lls_inference_many(
     with the same generator.
 
     :param specs: any iterable of preprocessed spectra.
+    :param voigt_impl: as for :func:`lls_log_evidences`.
     :return: per spectrum (null evidence, QMC result as numpy arrays).
     """
     device, dtype = learned.mu.device, learned.mu.dtype

@@ -29,14 +29,16 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "absorption_all.cu", "absorption_tail.cu", "absorption_windowed.cu",
-    "logmvn_cap.cu", "logmvn_chain.cu",
+    "logmvn_ablate.cu", "logmvn_cap.cu", "logmvn_chain.cu",
 )
 BUILD_DIR = CSRC / "build"
+# each source compiles to an object on its own (all at once), then one link
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # dynamic shared memory one block may use on Hopper (227 KB)
 MAX_DYNAMIC_SHARED_BYTES = 232448
@@ -49,6 +51,7 @@ _lib: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # wl, P, z, S, nhi, F, line_params, num_lines, far_lines, lls_break,
     # inv, c_cgs, sqrt_pi, out, stream
@@ -63,6 +66,12 @@ _SIGNATURES = {
                           _P, _P, _P, _P],
     # B, u, misc, S, k, ll, stream
     "logmvn_chain_launch": [_P, _P, _P, _I, _I, _P, _P],
+    # stage, rows, N, M, k, Mp, A, S, ll, stream
+    "logmvn_ablate_launch": [_I, _P, _I, _P, _I, _P, _P, _I, _P, _P],
+    # B, its sample and entry strides, u, its strides, misc, its strides,
+    # S, k, ll, stream
+    "logmvn_flat_chain_launch": [_P, _L, _L, _P, _L, _L, _P, _L, _L, _I, _I,
+                                 _P, _P],
 }
 
 
@@ -123,29 +132,51 @@ def library_path() -> Path:
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libgpydla_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the
-    library path.  The compiler's output (``-Xptxas=-v``: registers and
-    shared memory per kernel) is kept beside it as ``.log``."""
+    library path.  One ``nvcc`` per source runs at the same time, then
+    one link.  The compilers' output (``-Xptxas=-v``: registers and shared
+    memory per kernel) is kept beside the library as ``.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        objs = [work / f"{Path(name).stem}.o" for name in SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for name, obj in zip(SOURCES, objs)
+        ]
+        logs, failed = [], []
+        for name, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if not failed:
+            tmp = work / so.name
+            link = subprocess.run(
+                [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            logs.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append("link")
+        so.with_suffix(".log").write_text("".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n" + "".join(logs))
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return so
 
 

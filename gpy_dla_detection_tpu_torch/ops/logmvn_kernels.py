@@ -66,6 +66,34 @@ def unpack_capacitance(B: torch.Tensor, k: int) -> torch.Tensor:
     return full + torch.eye(k, dtype=B.dtype, device=B.device)
 
 
+def assemble_reference(
+    rows: torch.Tensor, absorption: torch.Tensor, extra: Sequence[torch.Tensor] = ()
+):
+    """K2's elementwise noise assembly, plain, with K2's masking.
+
+    :param rows: (5, N) rows y, mu, omega2, v, mask (1.0 = valid pixel).
+    :param absorption: (S, N).
+    :param extra: chained streams, each (S, N), multiplied into ``a``.
+    :return: d_inv, w = a^2 d_inv, r = a delta d_inv (each (S, N)), quad0
+        = sum delta^2 d_inv and logdet0 = -sum log d_inv (each (S,)), and
+        n, the count of valid pixels.
+    """
+    y, mu, omega2, v, mask = rows
+    a_raw = absorption
+    for e in extra:
+        a_raw = a_raw * e
+    valid = mask > 0
+    a = torch.where(valid, a_raw, 1.0)
+    d = omega2 * a * a + v
+    d_inv = mask / torch.where(valid, d, 1.0)
+    delta = torch.where(valid, y - mu * a, 0.0)
+    w = a * a * d_inv
+    r = a * delta * d_inv
+    quad0 = torch.sum(delta * delta * d_inv, dim=1)
+    logdet0 = -torch.sum(torch.log(d_inv + (~valid).to(d_inv.dtype)), dim=1)
+    return d_inv, w, r, quad0, logdet0, torch.sum(mask)
+
+
 def logmvn_cap_reference(
     rows: torch.Tensor,
     M: torch.Tensor,
@@ -79,28 +107,16 @@ def logmvn_cap_reference(
 
     :param rows: (5, N) rows y, mu, omega2, v, mask (1.0 = valid pixel).
     :param M: (N, k).
-    :param M_pair: (N, k(k+1)/2) packed pair basis.
+    :param M_pair: (N, k(k+1)/2) packed pair basis, or the flat (N, k^2)
+        one of the ablation's decoupled split.
     :param absorption: (S, N).
     :param extra: chained streams, each (S, N), multiplied into ``a``.
-    :return: B (S, k(k+1)/2) without the +I, u (S, k), misc (S, 2) =
-        (quad0, logdet0 + n log 2 pi).
+    :return: B (S, M_pair's width) without the +I, u (S, k), misc (S, 2)
+        = (quad0, logdet0 + n log 2 pi).
     """
-    y, mu, omega2, v, mask = rows
-    a_raw = absorption
-    for e in extra:
-        a_raw = a_raw * e
-    valid = mask > 0
-    a = torch.where(valid, a_raw, 1.0)
-    d = omega2 * a * a + v
-    d_inv = mask / torch.where(valid, d, 1.0)
-    delta = torch.where(valid, y - mu * a, 0.0)
-    w = a * a * d_inv
-    r = a * delta * d_inv
+    _, w, r, quad0, logdet0, n = assemble_reference(rows, absorption, extra)
     B = torch.matmul(w, M_pair)
     u = torch.matmul(r, M)
-    quad0 = torch.sum(delta * delta * d_inv, dim=1)
-    logdet0 = -torch.sum(torch.log(d_inv + (~valid).to(d_inv.dtype)), dim=1)
-    n = torch.sum(mask)
     return B, u, torch.stack([quad0, logdet0 + n * LOG_2PI], dim=1)
 
 
@@ -122,7 +138,9 @@ def logmvn_cap(
     extra: Sequence[torch.Tensor] = (),
 ):
     """Stage A of the Woodbury likelihood: K2 on CUDA, its twin on the
-    CPU (float32).  Same contract as :func:`logmvn_cap_reference`."""
+    CPU (float32).  Same contract as :func:`logmvn_cap_reference`: the
+    kernel takes a basis of any width, the packed one on the catalog
+    paths and the flat k^2 one in the ablation's decoupled split."""
     extra = tuple(extra)
     if not use_kernel(absorption):
         return logmvn_cap_reference(rows, M, M_pair, absorption, extra)
@@ -136,11 +154,12 @@ def logmvn_cap(
         check_cuda_f32(device, **{f"extra[{i}]": e})
     S, N = absorption.shape
     k = M.shape[1]
-    kp = k * (k + 1) // 2
+    kp = M_pair.shape[1]
     if (
         rows.shape != (5, N)
         or M.shape != (N, k)
-        or M_pair.shape != (N, kp)
+        or M_pair.shape[0] != N
+        or kp not in (k * (k + 1) // 2, k * k)
         or any(e.shape != (S, N) for e in extra)
     ):
         raise ValueError(
@@ -150,6 +169,10 @@ def logmvn_cap(
         )
     if S == 0 or N == 0:
         raise ValueError(f"empty problem: S={S}, N={N}")
+    if 8 * (-(-kp // 8) + -(-k // 8)) < 32:
+        # the kernel's block has 8 threads per 8-column group and sums
+        # quad0 and logdet0 with one thread per sample of its 32
+        raise ValueError(f"K2 needs at least 32 threads a block: k={k}, basis width {kp}")
     B = torch.empty((S, kp), dtype=torch.float32, device=device)
     u = torch.empty((S, k), dtype=torch.float32, device=device)
     misc = torch.empty((S, 2), dtype=torch.float32, device=device)

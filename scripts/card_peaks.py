@@ -73,7 +73,7 @@ def build_fma() -> ctypes.CDLL:
     src = out_dir / "fma_loop.cu"
     src.write_text(FMA_SRC)
     so = out_dir / "libfma_loop.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:-1], "-o", str(so), str(src)],
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:-1], "-shared", "-o", str(so), str(src)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     lib.fma_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -14,12 +14,18 @@ max_lya = 4, the BOSS mean flux): ``lls_log_evidences`` on one clean
 spectrum and one with an injected LLS whose Lyman-limit break lies inside
 the window.
 
-Run from the repository root, naming the fixtures to write (both by
+``civ``: the CIV QMC head at ``CIVParameters()`` (S = 10,000 samples,
+N = 768 pixels, k = 20): null and CIV log evidences of the 8 spectra of
+``chip_smoke.py``'s CIV phase, every odd one with a CIV doublet multiplied
+into its flux (the injection of tests/test_accuracy_gates.py).
+
+Run from the repository root, naming the fixtures to write (all by
 default; each run rewrites the file, so name only the one that changes):
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [dla] [lls]
+    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [dla] [lls] [civ]
 
-Output: tests/data/torch_golden_fullscale.npz, tests/data/torch_golden_lls.npz
+Output: tests/data/torch_golden_fullscale.npz, tests/data/torch_golden_lls.npz,
+tests/data/torch_golden_civ.npz
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ from gpy_dla_detection_tpu.models.lls import (  # noqa: E402
     with_boss_meanflux,
 )
 from gpy_dla_detection_tpu.models.pipeline import process_spectrum  # noqa: E402
-from gpy_dla_detection_tpu.params import Parameters  # noqa: E402
+from gpy_dla_detection_tpu.params import CIVParameters, Parameters  # noqa: E402
 
 OUT = ROOT / "tests" / "data" / "torch_golden_fullscale.npz"
 MAX_DLAS = 4
@@ -174,15 +180,86 @@ def write_lls() -> None:
     print(f"wrote {OUT_LLS} ({OUT_LLS.stat().st_size} bytes)")
 
 
+OUT_CIV = ROOT / "tests" / "data" / "torch_golden_civ.npz"
+# (z_qso, observation seed, injected (z_civ, logN_CIV, sigma [cm/s]) or
+# None): chip_smoke.py's CIV spectra, in the strong regime of the CIV
+# accuracy gate (logN 14.2-14.5, sigma 1.5e6-4e6, z_civ 0.05-0.2 below z_qso)
+CIV_SPECTRA = tuple(
+    (2.0 + 0.04 * i, 300 + i,
+     (2.0 + 0.04 * i - 0.06 - 0.02 * i, 14.3 + 0.025 * i, 1.5e6 + 3.5e5 * i) if i % 2 else None)
+    for i in range(8)
+)
+
+
+def civ_doublet_transmission(wl, z_civ, log_n, sigma):
+    """exp(-tau) of one unbroadened CIV doublet: the injection of
+    tests/test_accuracy_gates.py, on the JAX package's constants."""
+    from scipy.special import wofz
+
+    from gpy_dla_detection_tpu import constants as C
+
+    tau = np.zeros_like(wl, dtype=np.float64)
+    for l in range(2):
+        lam_c = C.CIV_WAVELENGTHS_CM[l] * 1e8 * (1 + z_civ)
+        vel = (wl - lam_c) * (C.SPEED_OF_LIGHT_CGS / lam_c)
+        zz = (vel + 1j * C.CIV_LORENTZIAN_WIDTHS[l]) / (np.sqrt(2) * sigma)
+        tau += (
+            10.0**log_n
+            * C.CIV_LEADING_CONSTANTS[l]
+            * np.real(wofz(zz))
+            / (np.sqrt(2 * np.pi) * sigma)
+        )
+    return np.exp(-tau)
+
+
+def write_civ() -> None:
+    from gpy_dla_detection_tpu.data.spectrum import preprocess
+    from gpy_dla_detection_tpu.data.synthetic import synthetic_observation
+    from gpy_dla_detection_tpu.models.civ import (
+        _civ_step,
+        civ_model_posterior,
+        generate_civ_samples,
+    )
+
+    params = CIVParameters()
+    learned = synthetic_learned_model(params)
+    samples = generate_civ_samples(params)
+    null_evs, civ_evs, p_civ = [], [], []
+    for z_qso, seed, civ in CIV_SPECTRA:
+        wl, flux, nv, mask = synthetic_observation(params, learned, z_qso, seed=seed)
+        if civ is not None:
+            flux = flux * civ_doublet_transmission(wl, *civ)
+        spec = preprocess(wl, flux, nv, mask, z_qso, params)
+        null_ev, civ_ev = (float(x) for x in _civ_step(learned, spec, samples, params))
+        null_evs.append(null_ev)
+        civ_evs.append(civ_ev)
+        p_civ.append(civ_model_posterior(null_ev, civ_ev))
+        print(f"z_qso={z_qso:.4f} injected={civ is not None} p_civ={p_civ[-1]:.6f} "
+              f"null={null_ev:.6f} civ={civ_ev:.6f}")
+    nan3 = (np.nan, np.nan, np.nan)
+    injected = np.array([c if c is not None else nan3 for _, _, c in CIV_SPECTRA], np.float64)
+    OUT_CIV.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(
+        OUT_CIV,
+        z_qso=np.array([s[0] for s in CIV_SPECTRA], np.float64),
+        obs_seed=np.array([s[1] for s in CIV_SPECTRA], np.int64),
+        injected=np.array([s[2] is not None for s in CIV_SPECTRA]),
+        civ_z=injected[:, 0], civ_log_n=injected[:, 1], civ_sigma=injected[:, 2],
+        log_evidence_null=np.asarray(null_evs, np.float64),
+        log_evidence_civ=np.asarray(civ_evs, np.float64),
+        p_civ=np.asarray(p_civ, np.float64),
+    )
+    print(f"wrote {OUT_CIV} ({OUT_CIV.stat().st_size} bytes)")
+
+
 def main(argv: list[str]) -> None:
-    which = argv or ["dla", "lls"]
-    unknown = set(which) - {"dla", "lls"}
+    writers = {"dla": write_dla, "lls": write_lls, "civ": write_civ}
+    which = argv or list(writers)
+    unknown = set(which) - set(writers)
     if unknown:
-        raise SystemExit(f"unknown fixture(s) {sorted(unknown)}; choose from dla, lls")
-    if "dla" in which:
-        write_dla()
-    if "lls" in which:
-        write_lls()
+        raise SystemExit(f"unknown fixture(s) {sorted(unknown)}; choose from {', '.join(writers)}")
+    for name in which:
+        writers[name]()
 
 
 if __name__ == "__main__":

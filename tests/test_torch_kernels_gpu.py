@@ -13,7 +13,11 @@ measured 2.4e-7); K2 and K3 |dll| <= 1e-6 |ll|, with
 |ll| the largest magnitude of the sample set, at the main path's even
 k = 20 and at odd k (the rank-1 chain variant's case).  K2 is isolated by passing both
 stage-A outputs through the same (twin) chain, K3 by passing the same
-stage-A outputs through kernel and twin.
+stage-A outputs through kernel and twin.  K7's kernels (the ablation's
+stage kernel and flat chain, K2 with the flat basis) are held to the same
+1e-6 |ll| where the value is a likelihood, and to 2e-6 of the largest
+|value| for the stages that stop early; ``chain_nodot`` (wrong on purpose)
+must give NaN where its twin does.
 """
 
 import numpy as np
@@ -23,6 +27,13 @@ import torch
 from gpy_dla_detection_tpu_torch.models.evidence import single_absorber_profiles
 from gpy_dla_detection_tpu_torch.ops import _build
 from gpy_dla_detection_tpu_torch.ops import logmvn as T
+from gpy_dla_detection_tpu_torch.ops.logmvn_ablate import (
+    flat_chain_reference,
+    logmvn_ablate,
+    logmvn_ablate_reference,
+    logmvn_decoupled,
+    logmvn_flat_chain,
+)
 from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
     logmvn_cap,
     logmvn_cap_reference,
@@ -47,6 +58,7 @@ TOL_K1 = 2e-6
 TOL_K5 = 1e-6
 TOL_K6 = 1e-6
 REL_K23 = 1e-6
+REL_K7_STAGE = 2e-6
 
 pytestmark = pytest.mark.gpu
 
@@ -213,3 +225,51 @@ def test_absorption_kernel_with_lyman_limit_break_matches_twin(cuda_device):
     assert float((got - want).abs().max()) <= TOL_K1
     (plain,) = absorption_all(wl, z, (nhi,))
     assert float((plain - got).max()) > 0.5  # the break is in
+
+
+def _rel_err_nan_equal(got, want):
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    return float((got - want)[~nan].abs().max() / want[~nan].abs().max())
+
+
+@pytest.mark.parametrize("k", [5, 20])
+@pytest.mark.parametrize("stage", ["elementwise", "elementwise_nolog", "matmul", "full",
+                                   "chain_nodot"])
+def test_ablation_stage_kernel_matches_twin(cuda_device, stage, k):
+    (y, mu, M, omega2, v, mask), A, _ = _problem(cuda_device, k=k, S=1001)
+    rows = torch.stack([y, mu, omega2, v, mask.float()])
+    Mp = T.pair_basis(M)
+    before = _build.launch_counts["logmvn_ablate"]
+    got = logmvn_ablate(stage, rows, M, Mp, A)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["logmvn_ablate"] == before + 1
+    assert got.shape == (1001,)
+    tol = REL_K23 if stage == "full" else REL_K7_STAGE
+    assert _rel_err_nan_equal(got, logmvn_ablate_reference(stage, rows, M, Mp, A)) <= tol
+
+
+@pytest.mark.parametrize("k", [5, 20])
+def test_flat_basis_cap_and_flat_chain_kernels_match_twins(cuda_device, k):
+    """K2 with the flat k^2 basis (the decoupled split's ka), and the flat
+    chain in the row layout and, in place, the transposed one."""
+    (y, mu, M, omega2, v, mask), A, _ = _problem(cuda_device, k=k, S=1001)
+    rows = torch.stack([y, mu, omega2, v, mask.float()])
+    Mp = T.pair_basis(M)
+    B, u, misc = logmvn_cap(rows, M, Mp, A)
+    assert B.shape == (1001, k * k)
+    Br, ur, miscr = logmvn_cap_reference(rows, M, Mp, A)
+    ll_twin = flat_chain_reference(Br, ur, miscr)
+    scale = float(ll_twin.abs().max())
+    assert float((flat_chain_reference(B, u, misc) - ll_twin).abs().max()) <= REL_K23 * scale
+    before = _build.launch_counts["logmvn_flat_chain"]
+    row = logmvn_flat_chain(Br, ur, miscr)
+    BT, uT, mT = (torch.cat([x, x[:23]]).T.contiguous() for x in (Br, ur, miscr))
+    transposed = logmvn_flat_chain(BT, uT, mT, transposed=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["logmvn_flat_chain"] == before + 2
+    assert float((row - ll_twin).abs().max()) <= REL_K23 * scale
+    assert transposed.shape == (1024,)
+    assert float((transposed[:1001] - ll_twin).abs().max()) <= REL_K23 * scale
+    dec = logmvn_decoupled(rows, M, Mp, A)
+    assert float((dec - ll_twin).abs().max()) <= REL_K23 * scale

@@ -33,7 +33,9 @@ import jax.numpy as jnp
 
 from gpy_dla_detection_tpu.data.spectrum import preprocess as J_preprocess
 from gpy_dla_detection_tpu.data.synthetic import synthetic_learned_model as J_learned
+from gpy_dla_detection_tpu import constants as JC
 from gpy_dla_detection_tpu.models import lls as JL
+from gpy_dla_detection_tpu.ops import voigt as JV
 from gpy_dla_detection_tpu.ops.voigt import voigt_absorption_lls as J_voigt_lls
 from gpy_dla_detection_tpu.ops.voigt_pallas import absorption_all_pallas
 from gpy_dla_detection_tpu.params import Parameters as JParameters
@@ -44,6 +46,9 @@ from gpy_dla_detection_tpu_torch.data.synthetic import (
     synthetic_prior_catalog,
 )
 from gpy_dla_detection_tpu_torch.models import lls as TL
+from gpy_dla_detection_tpu_torch.models.evidence import single_absorber_profiles
+from gpy_dla_detection_tpu_torch.ops import _build
+from gpy_dla_detection_tpu_torch.ops import voigt as TV
 from gpy_dla_detection_tpu_torch.models.learned import LearnedModel
 from gpy_dla_detection_tpu_torch.ops.voigt import voigt_absorption_lls
 from gpy_dla_detection_tpu_torch.ops.voigt_kernels import absorption_all_reference
@@ -52,6 +57,7 @@ from gpy_dla_detection_tpu_torch.params import Parameters
 torch.set_num_threads(2)
 
 TOL_JAX_KERNEL = 1e-6
+TOL_UNFUSED_PROFILE = 1e-3
 TOL_TRUTH_P99 = 5e-5
 TOL_F64_PROFILE = 1e-10
 REL_F64 = 1e-9
@@ -118,6 +124,38 @@ def test_k1_twin_with_break_matches_pallas_and_truth():
     assert float((plain - got).max()) > 0.5
 
 
+def test_lls_unfused_profile_matches_jax_windowed():
+    """The unfused LLS profile against the JAX package's windowed one,
+    ``nhi * _unit_lyman_series_optical_depth_windowed(...)`` plus the break
+    (off the TPU JAX resolves "windowed" to exact, so the function is called
+    directly): the placed unit tau within 2e-6 of its peak, as
+    tests/test_torch_windowed_parts.py holds it; the profile's 99th
+    percentile of |d| below TOL_TRUTH_P99 and its max below
+    TOL_UNFUSED_PROFILE.  The max sits at unsaturated Lyman cores (logNHI
+    17.5), where the two packages' float32 Weideman rationals round a
+    tau of order 1 differently (measured 5.9e-4; the K1 test above sees
+    9.1e-4 there against float64)."""
+    wl, z, nhi = _lls_grid()
+    unit_j = np.asarray(JV._unit_lyman_series_optical_depth_windowed(
+        jnp.asarray(wl), jnp.asarray(z), 3, JC.THERMAL_SIGMA_CGS))
+    rest = wl[None, :] / (1.0 + z[:, None])
+    tau_j = nhi[:, None] * unit_j + np.where(
+        rest > 911.7641, 0.0, nhi[:, None] / 10**17.2 * (rest / 911.7641) ** 3
+    ).astype(np.float32)
+    want = np.asarray(JV.instrumental_broadening(jnp.exp(-jnp.asarray(tau_j))))
+    wl_t, z_t = torch.as_tensor(wl), torch.as_tensor(z)
+    unit_t = TV.place_windows(TV.windowed_tau_parts(wl_t, z_t, 3))
+    assert np.abs(unit_t.numpy() - unit_j).max() <= 2e-6 * np.abs(unit_j).max()
+    _build.reset_launch_counts()
+    (got,) = single_absorber_profiles(wl_t, z_t, (torch.as_tensor(nhi),), 3,
+                                      "windowed_unfused", "lls")
+    assert not any(_build.launch_counts.values())
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = np.abs(got.numpy().astype(np.float64) - want)
+    assert err.max() <= TOL_UNFUSED_PROFILE and np.quantile(err, 0.99) < TOL_TRUTH_P99, (
+        err.max(), np.quantile(err, 0.99))
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_voigt_absorption_lls_matches_jax_exact(dtype):
     wl, z, nhi = _lls_grid(S=12)
@@ -175,9 +213,9 @@ def _p_absorber(null_ev, evs):
     return 1.0 - TL.lls_model_posteriors(float(null_ev), np.asarray(evs, np.float64))[0]
 
 
-@pytest.mark.parametrize("voigt_impl", ["windowed", "exact"])
+@pytest.mark.parametrize("voigt_impl", ["windowed", "exact", "windowed_unfused"])
 def test_lls_float64_matches_jax(lls_inputs, voigt_impl):
-    """float64 is the exact path in both configurations."""
+    """float64 is the exact path in every configuration."""
     for (null_ev, got), (j_null, want) in zip(_run_single(lls_inputs, torch.float64, voigt_impl),
                                               lls_inputs[-1]):
         np.testing.assert_allclose(float(null_ev), float(j_null), rtol=REL_F64)
@@ -190,10 +228,12 @@ def test_lls_float64_matches_jax(lls_inputs, voigt_impl):
         np.testing.assert_array_equal(got.base_sample_inds.numpy(), np.asarray(want.base_sample_inds))
 
 
-@pytest.mark.parametrize("voigt_impl", ["windowed", "exact"])
+@pytest.mark.parametrize("voigt_impl", ["windowed", "exact", "windowed_unfused"])
 def test_lls_float32_matches_jax_float64(lls_inputs, voigt_impl):
-    """float32: K1's twin with the break (windowed), or the exact unit tau
-    plus the break and K5's twin (exact), against the JAX float64 run."""
+    """float32: K1's twin with the break (windowed), the exact unit tau
+    plus the break and K5's twin (exact), or the placed windowed unit tau
+    plus the break and K5's twin (windowed_unfused), against the JAX
+    float64 run."""
     results = _run_single(lls_inputs, torch.float32, voigt_impl)
     p_inj = []
     for (null_ev, got), (j_null, want) in zip(results, lls_inputs[-1]):

@@ -164,10 +164,13 @@ def test_k6_wrapper_dispatch_on_the_cpu():
                                   parts.num_pixels)
     with pytest.raises(TypeError):
         absorption_windowed(parts64, nhi32.double())
-    # the LLS profile has no unfused windowed form
-    with pytest.raises(ValueError, match="LLS"):
-        single_absorber_profiles(wl, torch.full((8,), 2.5), (nhi32,), 3,
-                                 "windowed_unfused", "lls")
+    # the LLS profile, unfused: the placed parts plus the break, then K5's
+    # twin (the reference places the LLS windows outside K6)
+    z_lls = torch.full((8,), 2.5)
+    (got,) = single_absorber_profiles(wl, z_lls, (nhi32,), 3, "windowed_unfused", "lls")
+    unit = TV.place_windows(TV.windowed_tau_parts(wl, z_lls, 3)) + TV.lyman_limit_unit_tau(wl, z_lls)
+    assert torch.equal(got, TV.absorption_from_unit_tau(unit, nhi32))
+    assert _build.launch_counts["absorption_windowed"] == 0
 
 
 @pytest.fixture(scope="module")
