@@ -12,7 +12,7 @@ Phases, one line each; any failure exits non-zero before the result:
      16 and 20 x 1,286; K3 also at the odd k = 21 of the rank-1 chain
      variant; K6 at 10,000 x 1,408 for both families; K1 with the
      Lyman-limit break at the LLS search's P = 1,670, and K2 and K3 at its
-     N = 1,664)
+     N = 1,664; K2 also on a narrow basis, k = 5)
   4. the default catalog path at Parameters(): process_batch on 16
      synthetic spectra (odd ones carry a DLA at z_qso - 0.3, logNHI 21.2),
      with the kernels' launch counts over that run and the detections
@@ -35,7 +35,9 @@ Phases, one line each; any failure exits non-zero before the result:
   9. the absorber MCMC head: a DLA chain (32 walkers x 5,000 steps) on an
      injected spectrum at full width, checked against the truth, and a
      CIV chain (40 walkers x 1,000 steps); posterior evaluations per second
- 10. timings: each kernel vs its twin and its bound, and the spectra/s of
+ 10. timings: each kernel vs its twin and its bound (K2 also beside its
+     library yardstick, the two float32 matmuls on the twin's w and r,
+     with its achieved TFLOP/s and share of the bound), and the spectra/s of
      the default slice, the exact and unfused configurations, the LLS
      search and the CIV head
  11. the likelihood ablation (K7) through scripts/kernel_ablate_torch.py at
@@ -89,6 +91,7 @@ LLS_LOG_NHI = 18.5
 DLA_CHAIN = (32, 5000)  # walkers, steps (the reference's)
 CIV_CHAIN = (40, 1000)
 ODD_K = 21
+NARROW_K = 5  # a GP basis narrower than the old K2 block took
 
 TOL_K1 = 2e-6  # absolute, kernel vs twin (measured 2.4e-7)
 TOL_K5 = 1e-6  # absolute, kernel vs twin; profiles lie in [0, 1] (measured 1.8e-7)
@@ -312,6 +315,7 @@ def main() -> None:
         logmvn_flat_chain_reference,
     )
     from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
+        assemble_reference,
         logmvn_cap,
         logmvn_cap_reference,
         logmvn_chain,
@@ -481,6 +485,17 @@ def main() -> None:
     check(k3_lls <= REL_K23 * scale_lls, f"K3 (N=1664) |dll| {k3_lls:.3e} > {REL_K23} x {scale_lls:.4g}")
     k2_err.append(k2_lls)
     k3_err.append(k3_lls)
+    # K2 on a narrow GP basis (k = NARROW_K: the first columns of the
+    # model's), which its block takes since it is made of whole warps
+    M_narrow = model.M[:, :NARROW_K].contiguous()
+    Mp_narrow = packed_pair_basis(M_narrow)
+    ll_narrow_ref = logmvn_chain_reference(*logmvn_cap_reference(rows, M_narrow, Mp_narrow, A))
+    scale_narrow = float(ll_narrow_ref.abs().max())
+    k2_narrow = float((logmvn_chain_reference(*logmvn_cap(rows, M_narrow, Mp_narrow, A))
+                       - ll_narrow_ref).abs().max())
+    check(k2_narrow <= REL_K23 * scale_narrow,
+          f"K2 (k={NARROW_K}) |dll| {k2_narrow:.3e} > {REL_K23} x {scale_narrow:.4g}")
+    k2_err.append(k2_narrow)
     err["logmvn_cap"] = max(k2_err)
     err["logmvn_chain"] = max(k3_err)
 
@@ -504,7 +519,8 @@ def main() -> None:
           f"K6 max|d| {err['absorption_windowed']:.3e} at {S}x{parts.far.shape[1]}, L="
           f"{parts.c0.shape[1]}, both families (tol {TOL_K6}) | K1 with the break max|d| "
           f"{err_k1_lls:.3e} at {S}x{wl_lls.shape[0]} (tol {TOL_K1}) | at N={A_lls.shape[1]}: "
-          f"K2 max|dll| {k2_lls:.3e}, K3 {k3_lls:.3e} (tol {REL_K23} x {scale_lls:.4g})")
+          f"K2 max|dll| {k2_lls:.3e}, K3 {k3_lls:.3e} (tol {REL_K23} x {scale_lls:.4g}) | "
+          f"K2 at k={NARROW_K} max|dll| {k2_narrow:.3e} (tol {REL_K23} x {scale_narrow:.4g})")
 
     def run_slice(base_inds=None, batch=spectra, voigt_impl="windowed"):
         return process_batch(
@@ -768,6 +784,13 @@ def main() -> None:
         timed_median(lambda: logmvn_cap_reference(rows_lls, lls_model.M, Mp_lls, A_lls)))
     ms["logmvn_chain_N1664"] = (timed_median(lambda: logmvn_chain(*cap_lls)),
                                 timed_median(lambda: logmvn_chain_reference(*cap_lls)))
+    # K2's library yardstick (on no path): the two float32 products on the
+    # twin's w and r, TF32 off (checked in phase 1)
+    library = {}
+    for name, (r_, M_, Mp_, A_) in (("logmvn_cap", (rows, model.M, Mp, A)),
+                                    ("logmvn_cap_N1664", (rows_lls, lls_model.M, Mp_lls, A_lls))):
+        _, w_, rr_, *_ = assemble_reference(r_, A_)
+        library[name] = timed_median(lambda: (torch.matmul(w_, Mp_), torch.matmul(rr_, M_)))
     def rate_of(run, n):
         runs = []
         for _ in range(3):
@@ -800,6 +823,10 @@ def main() -> None:
     }
     bounds = {name: bound(*w) for name, w in work.items()}
     timing = " | ".join(f"{n} {k:.3f} ms vs twin {p:.3f} ms" for n, (k, p) in ms.items())
+    timing += "".join(
+        f" | {n}: library yardstick {lib:.3f} ms, K2 {work[n][1] / ms[n][0] * 1e-9:.2f} "
+        f"TFLOP/s, {bounds[n][0] / ms[n][0]:.1%} of its bound"
+        for n, lib in library.items())
     print(f"[10 timing] {card} | median of 10 synchronised calls: {timing} | windowed unit "
           f"tau parts (plain PyTorch) {parts_ms:.3f} ms | bounds "
           + ", ".join(f"{n} {b:.4f} ms ({by})" for n, (b, by) in bounds.items())
@@ -931,7 +958,8 @@ def main() -> None:
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
          "launches": total[name], "max_abs_err": err[name],
          "ms": ms[name][0], "plain_ms": ms[name][1],
-         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library.get(name)}
         for name, (src, rep) in KERNELS.items()
     ] + [
         {"name": name, "route": "cuda", "source": ABLATE_SOURCE, "replaces": rep,

@@ -9,189 +9,371 @@
 //   delta = mask ? y - mu a : 0
 //   w = a^2 d_inv,   r = a delta d_inv
 // Outputs  B[s, :] = w @ M_pair   (k(k+1)/2 packed lower-triangle columns,
-// without the +I),  u[s, :] = r @ M,  misc[s] = (sum delta^2 d_inv,
-// -sum log d_inv + n log 2 pi).
+// or the flat k^2 basis; without the +I),  u[s, :] = r @ M,  misc[s] =
+// (sum delta^2 d_inv, -sum log d_inv + n log 2 pi).
 //
 // Bound on the card: the (S x N) . (N x (k(k+1)/2 + k)) product, 2 S N 230
 // ~ 5.9 GFLOP per call at S = 10,000, N = 1,280, k = 20, in IEEE float32
 // FMA (no TF32: it keeps ~10 mantissa bits, and the per-sample ll
 // tolerance does not survive that).
 //
-// Design: a block owns 32 samples and all 230 output columns, padded to
-// whole groups of 8 (216 pair + 24 projection columns).  It walks the
-// pixels in chunks of 32: the elementwise prologue forms w and r for the
-// 32 x 32 tile in shared memory, the chunk of M_pair and M is staged in
-// shared memory, and each thread accumulates a 4-sample x 8-column
-// register tile.  The extra streams multiply into a in registers; their
-// product is never written.  The packed M_pair is read precomputed: it is
-// formed once per spectrum and shared by all five likelihood calls
-// (forming the pairs in the kernel would cut each block's 1.2 MB L2 read
-// of it, a later optimisation).  quad0 and logdet0 are summed in double
-// by one thread per sample, in pixel order.
+// Design.  A thread owns an 8-sample x 8-column register tile (64
+// accumulators); a warp is 2 sample groups x 16 column groups, and a block
+// TS samples x all columns, padded to whole warps (ncp columns).  The
+// launch geometry (TS, the pixel chunk TN, threads, shared bytes, grid) is
+// chosen in Python (ops/logmvn_kernels.py: cap_geometry) and checked here.
+// At S = 10,000, N = 1,280, k = 20 packed it is TS = 80, TN = 32, 320
+// threads (10 warps, 2 x 16 padded column groups = 256 columns), 125
+// blocks: one wave on 132 SMs, one block per SM; 134,144 shared bytes with
+// no extra stream, 210,944 with three.
+//
+// The pixels are walked in chunks of TN with one barrier a chunk.  The raw
+// sample tile (A and the extra streams) is staged by cp.async two chunks
+// ahead and the M_pair | M chunk one chunk ahead (a column a thread, down
+// the chunk), each double-buffered.  In iteration c every thread assembles
+// w and r of chunk c + 1 (into the other half of a double-buffered w | r
+// tile), then runs chunk c's FMAs, loading the next pixel's operands before
+// the current pixel's FMAs (the 384-thread bound leaves it the registers).
+//
+// The assembly maps a warp onto 4 samples x 8 pixels and walks a fixed set
+// of sample quads (at most 4), so each thread keeps quad0 and logdet0 of
+// its samples in double registers; the 8 pixel lanes of a sample are summed
+// with warp shuffles at the end.  Within a quad it is branch-free: a pixel
+// past N reads as masked (m = 0), which makes its w, r and both terms
+// exactly 0.  The valid-pixel count is counted once per block.  Shared
+// layouts: the staged tile rows are TN + 8 floats long and the w | r rows
+// TS + 4, so the assembly's reads and writes fall in 32 distinct banks; the
+// M chunk keeps columns 0-3 and 4-7 of every group in two halves, so the
+// FMA loop's LDS.128 reads of a warp's 16 column groups are 256 contiguous
+// bytes, and its w or r reads 2 distinct 16-byte words.  Threads past the
+// last column group (padding) load, assemble and sum like the others and
+// store nothing.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kTS = 32;   // samples per block
-constexpr int kTN = 32;   // pixels per chunk
-constexpr int kSPT = 4;   // samples per thread
-constexpr int kCPT = 8;   // columns per thread
-constexpr int kSampleGroups = kTS / kSPT;
+constexpr int kTile = 8;          // samples and columns of a thread's tile
+constexpr int kWarpSG = 2;        // sample groups of a warp
+constexpr int kWarpCG = 16;       // column groups of a warp
+constexpr int kMaxThreads = 384;  // 168 registers a thread
+constexpr int kMaxQuads = 4;      // sample quads one warp assembles
 constexpr float kLog2Pi = 1.8378770664093453f;
 
-__host__ __device__ inline int col_groups(int n) { return (n + kCPT - 1) / kCPT; }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+// padded columns: whole warps of column groups over the two products
+__host__ __device__ inline int padded_columns(int k, int kp) {
+  return kTile * kWarpCG * cdiv(cdiv(kp, kTile) + cdiv(k, kTile), kWarpCG);
+}
 
-__global__ void logmvn_cap_kernel(
+inline size_t shared_bytes(int ts, int tn, int ncp, int n_extra) {
+  return sizeof(float) * ((size_t)2 * (1 + n_extra) * ts * (tn + 8) +
+                          (size_t)2 * tn * ncp + (size_t)4 * tn * (ts + 4));
+}
+
+__device__ inline void cp_async16(float* dst, const float* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ inline void cp_async4(float* dst, const float* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// VEC: the sample streams are staged 16 bytes a thread (N % 4 == 0 and
+// aligned rows), else 4 bytes a thread
+template <int TN, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads, 1) logmvn_cap_kernel(
     const float* __restrict__ rows, int N, const float* __restrict__ M, int k,
     const float* __restrict__ Mp, int kp, const float* __restrict__ A,
     const float* __restrict__ e0, const float* __restrict__ e1,
-    const float* __restrict__ e2, int n_extra, int S, float* __restrict__ B,
-    float* __restrict__ u, float* __restrict__ misc) {
-  const int gp = col_groups(kp);
-  const int ng = gp + col_groups(k);
-  const int NC = ng * kCPT;
+    const float* __restrict__ e2, int n_extra, int S, int TS,
+    float* __restrict__ B, float* __restrict__ u, float* __restrict__ misc) {
+  constexpr int TNP = TN + 8;  // staged row length (bank spread)
+  const int TSP = TS + 4;      // w | r row length (4 x odd: bank spread)
+  const int gp = cdiv(kp, kTile);
+  const int ncp = padded_columns(k, kp);
+  const int half = ncp / 2;
+  const int n_streams = 1 + n_extra;
+  const int n_chunks = cdiv(N, TN);
+  const int n_quads = TS / 4;
+  const int stream_stride = TS * TNP;
+
   extern __shared__ float4 smem4[];
-  float* W = reinterpret_cast<float*>(smem4);  // [kTN][kTS] w
-  float* R = W + kTN * kTS;                   // [kTN][kTS] r
-  float* Q = R + kTN * kTS;                   // [kTS][kTN + 1] delta^2 d_inv
-  float* LD = Q + kTS * (kTN + 1);            // [kTS][kTN + 1] log d_inv
-  float* Mc = LD + align4(kTS * (kTN + 1));   // [kTN][NC] M_pair | M chunk
+  float* As = reinterpret_cast<float*>(smem4);     // [2][streams][TS][TNP]
+  float* Mc = As + 2 * n_streams * stream_stride;  // [2][TN][ncp] (halves)
+  float* WR = Mc + 2 * TN * ncp;                   // [2][w | r][TN][TSP]
 
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;  // kSampleGroups * ng
-  const int cg = tid % ng;
-  const int sg = tid / ng;
-  const int s0 = blockIdx.x * kTS;
-  const float* L = (cg < gp) ? W : R;  // pair columns take w, M columns r
-  const float* y = rows;
-  const float* mu = rows + N;
-  const float* omega2 = rows + 2 * N;
-  const float* v = rows + 3 * N;
-  const float* mask = rows + 4 * N;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthreads >> 5;
+  const int wc = ncp / (kTile * kWarpCG);  // warps across the columns
+  const int cg = (warp % wc) * kWarpCG + lane % kWarpCG;
+  const int sg = (warp / wc) * kWarpSG + lane / kWarpCG;
+  const int s0 = blockIdx.x * TS;
+  const int nl_lo = lane & 7;  // the assembly's 4 samples x 8 pixels
+  const int sl_lo = lane >> 3;
 
-  float acc[kSPT][kCPT];
-#pragma unroll
-  for (int i = 0; i < kSPT; ++i)
-#pragma unroll
-    for (int j = 0; j < kCPT; ++j) acc[i][j] = 0.0f;
-  double q_acc = 0.0, ld_acc = 0.0;
-  int n_valid = 0;
-
-  for (int n0 = 0; n0 < N; n0 += kTN) {
-    for (int e = tid; e < kTS * kTN; e += nthreads) {
-      const int sl = e / kTN;
-      const int nl = e % kTN;
-      const int s = s0 + sl;
-      const int n = n0 + nl;
-      float w = 0.0f, r = 0.0f, q = 0.0f, ld = 0.0f;
-      if (s < S && n < N) {
-        const size_t idx = (size_t)s * N + n;
-        float a_raw = A[idx];
-        if (n_extra > 0) a_raw = a_raw * e0[idx];
-        if (n_extra > 1) a_raw = a_raw * e1[idx];
-        if (n_extra > 2) a_raw = a_raw * e2[idx];
-        const float m = mask[n];
-        const bool valid = m > 0.0f;
-        const float a = valid ? a_raw : 1.0f;
-        const float d = omega2[n] * a * a + v[n];
-        const float d_inv = m / (valid ? d : 1.0f);
-        const float delta = valid ? y[n] - mu[n] * a : 0.0f;
-        w = a * a * d_inv;
-        r = a * delta * d_inv;
-        q = delta * delta * d_inv;
-        ld = logf(d_inv + (valid ? 0.0f : 1.0f));
-      }
-      W[nl * kTS + sl] = w;
-      R[nl * kTS + sl] = r;
-      Q[sl * (kTN + 1) + nl] = q;
-      LD[sl * (kTN + 1) + nl] = ld;
-    }
-    for (int e = tid; e < kTN * NC; e += nthreads) {
-      const int nl = e / NC;
-      const int c = e % NC;
-      const int n = n0 + nl;
-      float val = 0.0f;
-      if (n < N) {
-        if (c < gp * kCPT) {
-          if (c < kp) val = Mp[(size_t)n * kp + c];
-        } else {
-          const int j = c - gp * kCPT;
-          if (j < k) val = M[(size_t)n * k + j];
+  auto stage_samples = [&](int c, int buf) {
+    const int n0 = c * TN;
+    for (int st = 0; st < n_streams; ++st) {
+      const float* src = st == 0 ? A : st == 1 ? e0 : st == 2 ? e1 : e2;
+      float* dst = As + (buf * n_streams + st) * stream_stride;
+      if (VEC) {
+        for (int e = tid; e < TS * (TN / 4); e += nthreads) {
+          const int sl = e / (TN / 4);
+          const int j = e % (TN / 4);
+          const int s = s0 + sl;
+          const int n = n0 + 4 * j;
+          const bool ok = s < S && n < N;
+          cp_async16(dst + sl * TNP + 4 * j, ok ? src + (size_t)s * N + n : src,
+                     ok ? 16 : 0);
+        }
+      } else {
+        for (int e = tid; e < TS * TN; e += nthreads) {
+          const int sl = e / TN;
+          const int nl = e % TN;
+          const int s = s0 + sl;
+          const int n = n0 + nl;
+          const bool ok = s < S && n < N;
+          cp_async4(dst + sl * TNP + nl, ok ? src + (size_t)s * N + n : src,
+                    ok ? 4 : 0);
         }
       }
-      Mc[e] = val;
     }
-    __syncthreads();
+  };
 
-    const int nmax = min(kTN, N - n0);
-    if (tid < kTS) {
-      for (int nl = 0; nl < nmax; ++nl) {
-        q_acc += (double)Q[tid * (kTN + 1) + nl];
-        ld_acc += (double)LD[tid * (kTN + 1) + nl];
-        n_valid += mask[n0 + nl] > 0.0f;
+  // a padded column a thread, down the chunk's pixels; a warp's lanes
+  // read neighbouring columns of a row
+  auto stage_basis = [&](int c, int buf) {
+    const int n0 = c * TN;
+    float* dst = Mc + buf * TN * ncp;
+    for (int col = tid; col < ncp; col += nthreads) {
+      const int g = col / kTile;
+      const int j = col % kTile;
+      const float* src = nullptr;
+      int stride = 0;
+      if (g < gp) {
+        if (col < kp) {
+          src = Mp + col;
+          stride = kp;
+        }
+      } else if (col - gp * kTile < k) {
+        src = M + (col - gp * kTile);
+        stride = k;
+      }
+      float* d = dst + (j >> 2) * half + g * 4 + (j & 3);
+#pragma unroll 4
+      for (int nl = 0; nl < TN; ++nl) {
+        const int n = n0 + nl;
+        const bool ok = src != nullptr && n < N;
+        cp_async4(d + nl * ncp, ok ? src + (size_t)n * stride : M, ok ? 4 : 0);
       }
     }
-    for (int nl = 0; nl < nmax; ++nl) {
-      const float4 lv = *reinterpret_cast<const float4*>(L + nl * kTS + sg * kSPT);
-      const float4 c0 = *reinterpret_cast<const float4*>(Mc + nl * NC + cg * kCPT);
-      const float4 c1 = *reinterpret_cast<const float4*>(Mc + nl * NC + cg * kCPT + 4);
-      const float ls[kSPT] = {lv.x, lv.y, lv.z, lv.w};
-      const float cs[kCPT] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  };
+
+  double q_acc[kMaxQuads], ld_acc[kMaxQuads];
 #pragma unroll
-      for (int i = 0; i < kSPT; ++i)
+  for (int qi = 0; qi < kMaxQuads; ++qi) q_acc[qi] = ld_acc[qi] = 0.0;
+  float acc[kTile][kTile];
 #pragma unroll
-        for (int j = 0; j < kCPT; ++j) acc[i][j] = fmaf(ls[i], cs[j], acc[i][j]);
-    }
+  for (int i = 0; i < kTile; ++i)
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) acc[i][j] = 0.0f;
+
+  // chunk 0's tile and basis, chunk 1's tile
+  stage_samples(0, 0);
+  stage_basis(0, 0);
+  if (n_chunks > 1) stage_samples(1, 1);
+  cp_async_commit();
+  cp_async_wait_all();
+
+  // iteration c: stage chunk c + 2's tile and chunk c + 1's basis,
+  // assemble chunk c + 1's w | r, run chunk c's FMAs (c = -1: assemble only)
+  for (int c = -1; c < n_chunks; ++c) {
+    const int buf = c & 1;
+    const int next = (c + 1) & 1;
+    // chunk c's w | r and basis and chunk c + 1's tile are in; chunk
+    // c - 1's readers are done
     __syncthreads();
+    if (c >= 0) {
+      if (c + 2 < n_chunks) stage_samples(c + 2, buf);
+      if (c + 1 < n_chunks) stage_basis(c + 1, next);
+      cp_async_commit();
+    }
+
+    if (c + 1 < n_chunks) {
+      const int n0 = (c + 1) * TN;
+      const float* as = As + next * n_streams * stream_stride;
+      float* W = WR + next * 2 * TN * TSP;
+      float* R = W + TN * TSP;
+#pragma unroll
+      for (int qi = 0; qi < kMaxQuads; ++qi) {
+        const int quad = warp + qi * nwarps;
+        if (quad < n_quads) {
+          const int sl = 4 * quad + sl_lo;
+          double qs = 0.0, lds = 0.0;
+#pragma unroll
+          for (int oc = 0; oc < TN / 8; ++oc) {
+            const int nl = oc * 8 + nl_lo;
+            const int n = n0 + nl;
+            const bool in = n < N;
+            const int nc = in ? n : N - 1;
+            const float yv = __ldg(rows + nc);
+            const float muv = __ldg(rows + N + nc);
+            const float om = __ldg(rows + 2 * N + nc);
+            const float vv = __ldg(rows + 3 * N + nc);
+            const float m = in ? __ldg(rows + 4 * N + nc) : 0.0f;
+            const bool valid = m > 0.0f;
+            const float* ap = as + sl * TNP + nl;
+            float a_raw = ap[0];
+            if (n_extra > 0) a_raw = a_raw * ap[stream_stride];
+            if (n_extra > 1) a_raw = a_raw * ap[2 * stream_stride];
+            if (n_extra > 2) a_raw = a_raw * ap[3 * stream_stride];
+            const float a = valid ? a_raw : 1.0f;
+            const float d = om * a * a + vv;
+            const float d_inv = m / (valid ? d : 1.0f);
+            const float delta = valid ? yv - muv * a : 0.0f;
+            W[nl * TSP + sl] = a * a * d_inv;
+            R[nl * TSP + sl] = a * delta * d_inv;
+            qs += (double)(delta * delta * d_inv);
+            lds += (double)logf(d_inv + (valid ? 0.0f : 1.0f));
+          }
+          q_acc[qi] += qs;
+          ld_acc[qi] += lds;
+        }
+      }
+    }
+    if (c >= 0) {
+      const float* Wc = WR + buf * 2 * TN * TSP;
+      const float* L = (cg < gp ? Wc : Wc + TN * TSP) + sg * kTile;
+      const float* Mb = Mc + buf * TN * ncp + cg * 4;
+      float4 l0 = *reinterpret_cast<const float4*>(L);
+      float4 l1 = *reinterpret_cast<const float4*>(L + 4);
+      float4 c0 = *reinterpret_cast<const float4*>(Mb);
+      float4 c1 = *reinterpret_cast<const float4*>(Mb + half);
+#pragma unroll
+      for (int nl = 0; nl < TN; ++nl) {
+        float4 p0 = l0, p1 = l1, q0 = c0, q1 = c1;
+        if (nl + 1 < TN) {
+          p0 = *reinterpret_cast<const float4*>(L + (nl + 1) * TSP);
+          p1 = *reinterpret_cast<const float4*>(L + (nl + 1) * TSP + 4);
+          q0 = *reinterpret_cast<const float4*>(Mb + (nl + 1) * ncp);
+          q1 = *reinterpret_cast<const float4*>(Mb + (nl + 1) * ncp + half);
+        }
+        const float ls[kTile] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+        const float cs[kTile] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+        for (int i = 0; i < kTile; ++i)
+#pragma unroll
+          for (int j = 0; j < kTile; ++j) acc[i][j] = fmaf(ls[i], cs[j], acc[i][j]);
+        l0 = p0;
+        l1 = p1;
+        c0 = q0;
+        c1 = q1;
+      }
+    }
+    if (c >= 0) cp_async_wait_all();
+  }
+
+  // quad0 and logdet0: the 8 pixel lanes of each sample
+#pragma unroll
+  for (int qi = 0; qi < kMaxQuads; ++qi) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      q_acc[qi] += __shfl_xor_sync(0xffffffffu, q_acc[qi], off);
+      ld_acc[qi] += __shfl_xor_sync(0xffffffffu, ld_acc[qi], off);
+    }
+  }
+  int n_valid = 0;
+  for (int n0 = 0; n0 < N; n0 += nthreads) {
+    const int n = n0 + tid;
+    n_valid += __syncthreads_count(n < N && rows[4 * N + n] > 0.0f);
+  }
+  if (nl_lo == 0) {
+#pragma unroll
+    for (int qi = 0; qi < kMaxQuads; ++qi) {
+      const int quad = warp + qi * nwarps;
+      const int s = s0 + 4 * quad + sl_lo;
+      if (quad < n_quads && s < S) {
+        misc[2 * (size_t)s] = (float)q_acc[qi];
+        misc[2 * (size_t)s + 1] = (float)(-ld_acc[qi]) + (float)n_valid * kLog2Pi;
+      }
+    }
   }
 
 #pragma unroll
-  for (int i = 0; i < kSPT; ++i) {
-    const int s = s0 + sg * kSPT + i;
+  for (int i = 0; i < kTile; ++i) {
+    const int s = s0 + sg * kTile + i;
     if (s >= S) continue;
 #pragma unroll
-    for (int j = 0; j < kCPT; ++j) {
-      const int c = cg * kCPT + j;
+    for (int j = 0; j < kTile; ++j) {
+      const int c = cg * kTile + j;
       if (cg < gp) {
         if (c < kp) B[(size_t)s * kp + c] = acc[i][j];
       } else {
-        const int jj = c - gp * kCPT;
+        const int jj = c - gp * kTile;  // >= k on the padding groups
         if (jj < k) u[(size_t)s * k + jj] = acc[i][j];
       }
     }
   }
-  if (tid < kTS && s0 + tid < S) {
-    const size_t s = (size_t)(s0 + tid);
-    misc[2 * s] = (float)q_acc;
-    misc[2 * s + 1] = (float)(-ld_acc) + (float)n_valid * kLog2Pi;
-  }
+}
+
+template <int TN>
+void* pick_kernel(bool vec) {
+  return vec ? reinterpret_cast<void*>(logmvn_cap_kernel<TN, true>)
+             : reinterpret_cast<void*>(logmvn_cap_kernel<TN, false>);
+}
+
+inline bool aligned16(const float* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
+// The geometry (ts samples a block, tn pixels a chunk, threads, shared
+// bytes, grid) comes from the caller and must be the one cap_geometry
+// gives for (S, N, k, kp, n_extra); anything else is refused.
 extern "C" int logmvn_cap_launch(
     const float* rows, int N, const float* M, int k, const float* Mp, int kp,
     const float* A, const float* e0, const float* e1, const float* e2,
-    int n_extra, int S, float* B, float* u, float* misc, void* stream) {
-  const int ng = col_groups(kp) + col_groups(k);
-  const int threads = kSampleGroups * ng;
-  if (threads > 1024 || n_extra < 0 || n_extra > 3)
+    int n_extra, int S, int ts, int tn, int threads, int smem, int grid,
+    float* B, float* u, float* misc, void* stream) {
+  if (k < 1 || kp < 1 || N < 1 || S < 1 || n_extra < 0 || n_extra > 3)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)(2 * kTN * kTS + kTS * (kTN + 1) + align4(kTS * (kTN + 1)) +
-               kTN * ng * kCPT) *
-      sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        logmvn_cap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (S + kTS - 1) / kTS;
-  logmvn_cap_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      rows, N, M, k, Mp, kp, A, e0, e1, e2, n_extra, S, B, u, misc);
+  const int ncp = padded_columns(k, kp);
+  const int warps = (ts / (kTile * kWarpSG)) * (ncp / (kTile * kWarpCG));
+  if (ts < kTile * kWarpSG || ts % (kTile * kWarpSG) != 0 || (tn != 16 && tn != 32) ||
+      threads != 32 * warps || threads > kMaxThreads ||
+      (size_t)smem != shared_bytes(ts, tn, ncp, n_extra) || grid != cdiv(S, ts))
+    return (int)cudaErrorInvalidValue;
+  bool vec = N % 4 == 0 && aligned16(A);
+  const float* es[3] = {e0, e1, e2};
+  for (int i = 0; i < n_extra; ++i) vec = vec && aligned16(es[i]);
+  void* kern = tn == 32 ? pick_kernel<32>(vec) : pick_kernel<16>(vec);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&rows, &N, &M, &k, &Mp, &kp, &A, &e0, &e1, &e2,
+                  &n_extra, &S, &ts, &B, &u, &misc};
+  e = cudaLaunchKernel(kern, dim3(grid), dim3(threads), args, (size_t)smem,
+                       (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

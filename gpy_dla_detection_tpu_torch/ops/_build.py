@@ -61,9 +61,11 @@ _SIGNATURES = {
     "absorption_tail_launch": [_P, _P, _I, _I, _P, _P, _P],
     # far, corr, c0, nhi, S, P_pad, P, L, taps, out, stream
     "absorption_windowed_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    # rows, N, M, k, Mp, kp, A, e0, e1, e2, n_extra, S, B, u, misc, stream
+    # rows, N, M, k, Mp, kp, A, e0, e1, e2, n_extra, S, then the geometry
+    # (samples a block, pixels a chunk, threads, shared bytes, grid), B, u,
+    # misc, stream
     "logmvn_cap_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I,
-                          _P, _P, _P, _P],
+                          _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # B, u, misc, S, k, ll, stream
     "logmvn_chain_launch": [_P, _P, _P, _I, _I, _P, _P],
     # stage, rows, N, M, k, Mp, A, S, ll, stream

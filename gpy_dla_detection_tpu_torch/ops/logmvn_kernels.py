@@ -15,11 +15,13 @@ from __future__ import annotations
 
 import functools
 from collections.abc import Sequence
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ._build import (
+    MAX_DYNAMIC_SHARED_BYTES,
     check_cuda_f32,
     check_launch,
     launch_counts,
@@ -31,6 +33,73 @@ from ._build import (
 from .logmvn import LOG_2PI, batched_quad_logdet
 
 MAX_EXTRA_STREAMS = 3  # streams K2 multiplies in; more are folded first
+
+# K2's block (csrc/logmvn_cap.cu): a thread owns an 8-sample x 8-column
+# register tile, a warp 2 sample groups x 16 column groups
+CAP_TILE = 8
+CAP_WARP_SAMPLES = 2 * CAP_TILE
+CAP_WARP_COLUMNS = 16 * CAP_TILE
+CAP_MAX_THREADS = 384  # 168 registers a thread
+H100_SMS = 132
+
+
+class CapGeometry(NamedTuple):
+    """K2's launch: ``samples`` a block, ``pixels`` a chunk, ``threads``
+    a block (whole warps), ``columns`` (both products, padded to whole
+    warps), ``shared_bytes`` a block and ``grid`` blocks."""
+
+    samples: int
+    pixels: int
+    threads: int
+    columns: int
+    shared_bytes: int
+    grid: int
+
+
+def _cap_shared_bytes(ts: int, tn: int, ncp: int, n_extra: int) -> int:
+    """Double-buffered sample streams (rows of tn + 8 floats), M_pair | M
+    chunk, and w | r tile (rows of ts + 4 floats)."""
+    return 4 * (2 * (1 + n_extra) * ts * (tn + 8) + 2 * tn * ncp + 4 * tn * (ts + 4))
+
+
+def cap_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
+                 sms: int = H100_SMS) -> CapGeometry:
+    """K2's launch geometry for S samples, N pixels, a GP basis of k
+    columns and a pair basis of kp: the fewest waves over ``sms`` blocks
+    at once, each wave as even as the block allows.  Pixel chunks are 32
+    wide, 16 where N <= 16 or 32 does not fit in shared memory."""
+    groups = -(-kp // CAP_TILE) + -(-k // CAP_TILE)
+    ncp = CAP_WARP_COLUMNS * -(-groups * CAP_TILE // CAP_WARP_COLUMNS)
+    warps_across = ncp // CAP_WARP_COLUMNS
+
+    def threads_of(ts):
+        return 32 * warps_across * ts // CAP_WARP_SAMPLES
+
+    def fits(ts, tn):
+        return (threads_of(ts) <= CAP_MAX_THREADS
+                and _cap_shared_bytes(ts, tn, ncp, n_extra) <= MAX_DYNAMIC_SHARED_BYTES)
+
+    for tn in ((16,) if N <= 16 else (32, 16)):
+        if fits(CAP_WARP_SAMPLES, tn):
+            break
+    else:
+        raise ValueError(f"K2's block cannot hold k={k}, basis width {kp}")
+    waves = 1
+    while True:
+        per_block = -(-S // (sms * waves))
+        ts = CAP_WARP_SAMPLES * -(-per_block // CAP_WARP_SAMPLES)
+        if fits(ts, tn):
+            break
+        waves += 1
+    return CapGeometry(
+        samples=ts, pixels=tn, threads=threads_of(ts), columns=ncp,
+        shared_bytes=_cap_shared_bytes(ts, tn, ncp, n_extra), grid=-(-S // ts),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=16)
@@ -167,12 +236,9 @@ def logmvn_cap(
             f"M_pair {tuple(M_pair.shape)}, absorption {(S, N)}, extra "
             f"{[tuple(e.shape) for e in extra]}"
         )
-    if S == 0 or N == 0:
-        raise ValueError(f"empty problem: S={S}, N={N}")
-    if 8 * (-(-kp // 8) + -(-k // 8)) < 32:
-        # the kernel's block has 8 threads per 8-column group and sums
-        # quad0 and logdet0 with one thread per sample of its 32
-        raise ValueError(f"K2 needs at least 32 threads a block: k={k}, basis width {kp}")
+    if S == 0 or N == 0 or k == 0:
+        raise ValueError(f"empty problem: S={S}, N={N}, k={k}")
+    g = cap_geometry(S, N, k, kp, len(extra), _sm_count(device))
     B = torch.empty((S, kp), dtype=torch.float32, device=device)
     u = torch.empty((S, k), dtype=torch.float32, device=device)
     misc = torch.empty((S, 2), dtype=torch.float32, device=device)
@@ -182,6 +248,7 @@ def logmvn_cap(
         err = lib.logmvn_cap_launch(
             ptr(rows), N, ptr(M), k, ptr(M_pair), kp, ptr(absorption),
             ptr(e[0]), ptr(e[1]), ptr(e[2]), len(extra), S,
+            g.samples, g.pixels, g.threads, g.shared_bytes, g.grid,
             ptr(B), ptr(u), ptr(misc), stream_ptr(device),
         )
     check_launch("logmvn_cap", err)

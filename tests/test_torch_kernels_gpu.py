@@ -11,7 +11,9 @@ to what the card measures (2.4e-7; 3.7e-7 |ll|): K1 <= 2e-6 absolute, with
 and without the Lyman-limit break; K5 and K6 <= 1e-6 absolute (K5
 measured 2.4e-7); K2 and K3 |dll| <= 1e-6 |ll|, with
 |ll| the largest magnitude of the sample set, at the main path's even
-k = 20 and at odd k (the rank-1 chain variant's case).  K2 is isolated by passing both
+k = 20 and at odd k (the rank-1 chain variant's case); K2 also at the
+narrow bases k = 1, 4, 5 (packed) and 4 (flat), at S = 1, 79, 81 and
+10,000 and at N = 768 and 1,664.  K2 is isolated by passing both
 stage-A outputs through the same (twin) chain, K3 by passing the same
 stage-A outputs through kernel and twin.  K7's kernels (the ablation's
 stage kernel and flat chain, K2 with the flat basis) are held to the same
@@ -131,6 +133,49 @@ def test_likelihood_kernels_match_twins(cuda_device, n_extra, S):
     k3 = float((ll_kernel - logmvn_chain_reference(B, u, misc)).abs().max())
     assert k3 <= REL_K23 * scale
     assert float((ll_kernel - ll_twin).abs().max()) <= REL_K23 * scale
+
+
+def _k2_ll_error(device, k, basis, S, N, n_extra, seed=7):
+    """K2 against its twin through the same (twin) chain: max |dll| and
+    the largest |ll|; also checks the launch count."""
+    (y, mu, M, omega2, v, mask), A, extra = _problem(device, N=N, k=k, S=S,
+                                                     n_extra=n_extra, seed=seed)
+    rows = torch.stack([y, mu, omega2, v, mask.float()])
+    Mp = packed_pair_basis(M) if basis == "packed" else T.pair_basis(M)
+    before = _build.launch_counts["logmvn_cap"]
+    got = logmvn_cap(rows, M, Mp, A, extra)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["logmvn_cap"] == before + 1
+    want = logmvn_cap_reference(rows, M, Mp, A, extra)
+    chain = logmvn_chain_reference if basis == "packed" else flat_chain_reference
+    ll_twin = chain(*want)
+    assert torch.isfinite(ll_twin).all()
+    return float((chain(*got) - ll_twin).abs().max()), float(ll_twin.abs().max())
+
+
+# the narrow bases the old block refused (fewer than 32 threads)
+@pytest.mark.parametrize("k,basis", [(1, "packed"), (4, "packed"), (5, "packed"), (4, "flat")])
+@pytest.mark.parametrize("n_extra", [0, 3])
+def test_cap_kernel_takes_a_narrow_basis(cuda_device, k, basis, n_extra):
+    err, scale = _k2_ll_error(cuda_device, k, basis, 1001, 1280, n_extra)
+    assert err <= REL_K23 * scale
+
+
+# k = 24 packed: 3 warps across the columns, so the warps of a block
+# assemble unequal numbers of sample quads
+def test_cap_kernel_with_uneven_assembly_quads(cuda_device):
+    err, scale = _k2_ll_error(cuda_device, 24, "packed", 1001, 1280, 3)
+    assert err <= REL_K23 * scale
+
+
+# S: a lone sample, either side of the main path's 80-sample block, the
+# main path's 10,000; N: the CIV head's 768 and the LLS search's 1,664
+@pytest.mark.parametrize("S", [1, 79, 81, 10_000])
+@pytest.mark.parametrize("n_extra", [0, 3])
+@pytest.mark.parametrize("N", [768, 1664])
+def test_cap_kernel_over_sample_and_pixel_counts(cuda_device, S, n_extra, N):
+    err, scale = _k2_ll_error(cuda_device, 20, "packed", S, N, n_extra)
+    assert err <= REL_K23 * scale
 
 
 def test_masked_pixels_with_zero_or_nan_variance_stay_finite(cuda_device):

@@ -120,7 +120,8 @@ def _assert_twins_held_to_f64(got, jax_kernel, f64):
     assert np.median(np.abs(got - jax_kernel)) <= REL_VS_JAX_KERNEL * scale
 
 
-@pytest.mark.parametrize("k,n_extra", [(4, 0), (4, 3), (8, 3)])
+# k = 1 and 5: the narrow bases K2 takes since its block is whole warps
+@pytest.mark.parametrize("k,n_extra", [(1, 0), (4, 0), (4, 3), (5, 3), (8, 3)])
 def test_twins_match_jax_kernel_interpret(k, n_extra):
     base, A, extra = _problem(k=k, n_extra=n_extra)
     want = _jax_kernel(base, A, extra, k)
