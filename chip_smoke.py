@@ -12,7 +12,9 @@ Phases, one line each; any failure exits non-zero before the result:
      16 and 20 x 1,286; K3 also at the odd k = 21 of the rank-1 chain
      variant; K6 at 10,000 x 1,408 for both families; K1 with the
      Lyman-limit break at the LLS search's P = 1,670, and K2 and K3 at its
-     N = 1,664; K2 also on a narrow basis, k = 5)
+     N = 1,664; K2 also on a narrow basis, k = 5; K3 also on both sides of
+     its row bound 32 and of a half warp, k = 1, 2, 8, 16, 17, 31, 32, 33,
+     41, on full-rank bases)
   4. the default catalog path at Parameters(): process_batch on 16
      synthetic spectra (odd ones carry a DLA at z_qso - 0.3, logNHI 21.2),
      with the kernels' launch counts over that run and the detections
@@ -37,7 +39,9 @@ Phases, one line each; any failure exits non-zero before the result:
      CIV chain (40 walkers x 1,000 steps); posterior evaluations per second
  10. timings: each kernel vs its twin and its bound (K2 also beside its
      library yardstick, the two float32 matmuls on the twin's w and r,
-     with its achieved TFLOP/s and share of the bound), and the spectra/s of
+     with its achieved TFLOP/s and share of the bound; K3 also by its device
+     time over 50 launches, and beside its library yardstick, the batched
+     cholesky_ex of the unpacked I + B and solve_triangular), and the spectra/s of
      the default slice, the exact and unfused configurations, the LLS
      search and the CIV head
  11. the likelihood ablation (K7) through scripts/kernel_ablate_torch.py at
@@ -92,6 +96,7 @@ DLA_CHAIN = (32, 5000)  # walkers, steps (the reference's)
 CIV_CHAIN = (40, 1000)
 ODD_K = 21
 NARROW_K = 5  # a GP basis narrower than the old K2 block took
+CHAIN_KS = (1, 2, 8, 16, 17, 31, 32, 33, 41)  # K3 on both sides of its row bound 32
 
 TOL_K1 = 2e-6  # absolute, kernel vs twin (measured 2.4e-7)
 TOL_K5 = 1e-6  # absolute, kernel vs twin; profiles lie in [0, 1] (measured 1.8e-7)
@@ -164,6 +169,28 @@ def timed_median(fn, reps: int = 10, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 50) -> tuple[float, float]:
+    """Milliseconds a call of ``fn()`` over ``reps`` back-to-back calls,
+    after a warm-up: the profiler's kernel time, and the CUDA events' span
+    of the calls.  Where the kernel is shorter than its wrapper's host
+    time, the span measures the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    kernel_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type != torch.autograd.DeviceType.CPU)
+    return kernel_us / 1e3 / reps, start.elapsed_time(end) / reps
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -321,6 +348,7 @@ def main() -> None:
         logmvn_chain,
         logmvn_chain_reference,
         packed_pair_basis,
+        unpack_capacitance,
     )
     from gpy_dla_detection_tpu_torch.ops.voigt import (
         FAR_FIELD_LINES,
@@ -509,6 +537,23 @@ def main() -> None:
     check(k3_odd <= REL_K23 * scale_odd,
           f"K3 (k={ODD_K}) |dll| {k3_odd:.3e} > {REL_K23} x {scale_odd:.4g}")
     err["logmvn_chain"] = max(err["logmvn_chain"], k3_odd)
+    # K3 on both sides of its row bound 32 (64 gives a lane two rows) and
+    # of a half warp, through K2's twin: GP bases of the model's first k
+    # columns, and beyond its width independent seeded columns of its
+    # scale, so every basis has full rank
+    k3_widths = {}
+    for kw in CHAIN_KS:
+        gen_k = torch.Generator(device=device).manual_seed(kw)
+        wider = torch.randn(model.M.shape[0], max(0, kw - model.M.shape[1]), generator=gen_k,
+                            device=device) * model.M.std()
+        M_k = torch.cat([model.M[:, :kw], wider], dim=1).contiguous()
+        cap_k = logmvn_cap_reference(rows, M_k, packed_pair_basis(M_k), A)
+        ll_k_ref = logmvn_chain_reference(*cap_k)
+        scale_k = float(ll_k_ref.abs().max())
+        k3_widths[kw] = float((logmvn_chain(*cap_k) - ll_k_ref).abs().max()) / scale_k
+        check(k3_widths[kw] <= REL_K23, f"K3 (k={kw}) |dll| {k3_widths[kw]:.3e} of max|ll| "
+                                        f"> {REL_K23}")
+        err["logmvn_chain"] = max(err["logmvn_chain"], k3_widths[kw] * scale_k)
     torch.cuda.synchronize()
     print(f"[3 parity] S={S} N={A.shape[1]} k={model.M.shape[1]} F=2 | K1 max|d| "
           f"{err_k1:.3e} (tol {TOL_K1}) | K5 max|d| {err['absorption_tail']:.3e} "
@@ -520,7 +565,9 @@ def main() -> None:
           f"{parts.c0.shape[1]}, both families (tol {TOL_K6}) | K1 with the break max|d| "
           f"{err_k1_lls:.3e} at {S}x{wl_lls.shape[0]} (tol {TOL_K1}) | at N={A_lls.shape[1]}: "
           f"K2 max|dll| {k2_lls:.3e}, K3 {k3_lls:.3e} (tol {REL_K23} x {scale_lls:.4g}) | "
-          f"K2 at k={NARROW_K} max|dll| {k2_narrow:.3e} (tol {REL_K23} x {scale_narrow:.4g})")
+          f"K2 at k={NARROW_K} max|dll| {k2_narrow:.3e} (tol {REL_K23} x {scale_narrow:.4g}) | "
+          f"K3 |dll|/max|ll| at k=" + ", ".join(f"{kw}: {e:.2e}" for kw, e in k3_widths.items())
+          + f" (tol {REL_K23})")
 
     def run_slice(base_inds=None, batch=spectra, voigt_impl="windowed"):
         return process_batch(
@@ -791,6 +838,17 @@ def main() -> None:
                                     ("logmvn_cap_N1664", (rows_lls, lls_model.M, Mp_lls, A_lls))):
         _, w_, rr_, *_ = assemble_reference(r_, A_)
         library[name] = timed_median(lambda: (torch.matmul(w_, Mp_), torch.matmul(rr_, M_)))
+    # K3's device time (50 back-to-back launches) and its library yardstick
+    # (on no path; no single call computes K3's function): the batched
+    # Cholesky of the unpacked I + B, then the triangular solve of u
+    k3_caps = {"logmvn_chain": cap0, f"logmvn_chain_k{ODD_K}": cap_odd,
+               "logmvn_chain_N1664": cap_lls}
+    k3_device = {name: device_ms(lambda: logmvn_chain(*c)) for name, c in k3_caps.items()}
+    for name in ("logmvn_chain", "logmvn_chain_N1664"):
+        B_, u_, _ = k3_caps[name]
+        full_, rhs_ = unpack_capacitance(B_, u_.shape[1]), u_[:, :, None].contiguous()
+        library[name] = timed_median(lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky_ex(full_)[0], rhs_, upper=False))
     def rate_of(run, n):
         runs = []
         for _ in range(3):
@@ -818,6 +876,7 @@ def main() -> None:
                                       min(params.num_lines, FAR_FIELD_LINES), lls_break=True),
         "logmvn_cap": k2_work(S, A.shape[1], model.M.shape[1], 0),
         "logmvn_chain": k3_work(S, model.M.shape[1]),
+        f"logmvn_chain_k{ODD_K}": k3_work(S, ODD_K),
         "logmvn_cap_N1664": k2_work(S, A_lls.shape[1], lls_model.M.shape[1], 0),
         "logmvn_chain_N1664": k3_work(S, lls_model.M.shape[1]),
     }
@@ -826,7 +885,13 @@ def main() -> None:
     timing += "".join(
         f" | {n}: library yardstick {lib:.3f} ms, K2 {work[n][1] / ms[n][0] * 1e-9:.2f} "
         f"TFLOP/s, {bounds[n][0] / ms[n][0]:.1%} of its bound"
-        for n, lib in library.items())
+        for n, lib in library.items() if n.startswith("logmvn_cap"))
+    timing += "".join(
+        f" | {n}: device {dev:.4f} ms (profiler, 50 launches), {bounds[n][0] / dev:.1%} of its "
+        f"bound; CUDA events' span {span:.4f} ms a launch"
+        + (f"; library yardstick (cholesky_ex + solve_triangular) {library[n]:.3f} ms"
+           if n in library else "")
+        for n, (dev, span) in k3_device.items())
     print(f"[10 timing] {card} | median of 10 synchronised calls: {timing} | windowed unit "
           f"tau parts (plain PyTorch) {parts_ms:.3f} ms | bounds "
           + ", ".join(f"{n} {b:.4f} ms ({by})" for n, (b, by) in bounds.items())
@@ -959,7 +1024,8 @@ def main() -> None:
          "launches": total[name], "max_abs_err": err[name],
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": library.get(name)}
+         "library_ms": library.get(name),
+         **({"device_ms": k3_device[name][0]} if name in k3_device else {})}
         for name, (src, rep) in KERNELS.items()
     ] + [
         {"name": name, "route": "cuda", "source": ABLATE_SOURCE, "replaces": rep,

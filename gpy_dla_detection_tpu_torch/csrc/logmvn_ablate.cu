@@ -70,6 +70,17 @@ __host__ __device__ inline int col_groups(int n) { return (n + kCPT - 1) / kCPT;
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
+// A read-only load the compiler may not sink into a branch: the prologue
+// issues all six of a pixel's loads at once, so the per-pixel rows' latency
+// overlaps the absorption's.  Plain loads let the compiler move y and mu
+// into the valid-pixel branch behind the division in some instantiations
+// (elementwise_nolog), a second round trip behind A's for every element.
+__device__ __forceinline__ float load_now(const float* p) {
+  float x;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(x) : "l"(p));
+  return x;
+}
+
 // One sample's chain on I + B: flat entry p = j k + a at t[p * stride], u's
 // entry a at uu[a * stride]; both are overwritten.
 __device__ void flat_chain(float* t, float* uu, int stride, int k, float& quad,
@@ -169,13 +180,17 @@ __global__ void logmvn_ablate_kernel(const float* __restrict__ rows, int N,
       const int n = n0 + nl;
       float w = 0.0f, r = 0.0f, q = 0.0f, ld = 0.0f;
       if (s < S && n < N) {
-        const float a_raw = A[(size_t)s * N + n];
-        const float m = mask[n];
+        const float a_raw = load_now(A + (size_t)s * N + n);
+        const float m = load_now(mask + n);
+        const float om = load_now(omega2 + n);
+        const float vn = load_now(v + n);
+        const float yn = load_now(y + n);
+        const float mun = load_now(mu + n);
         const bool valid = m > 0.0f;
         const float a = valid ? a_raw : 1.0f;
-        const float d = omega2[n] * a * a + v[n];
+        const float d = om * a * a + vn;
         const float d_inv = m / (valid ? d : 1.0f);
-        const float delta = valid ? y[n] - mu[n] * a : 0.0f;
+        const float delta = valid ? yn - mun * a : 0.0f;
         w = a * a * d_inv;
         r = a * delta * d_inv;
         q = delta * delta * d_inv;

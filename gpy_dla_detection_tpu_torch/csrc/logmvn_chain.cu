@@ -2,7 +2,8 @@
 //
 // Replaces: gpy_dla_detection_tpu/ops/logmvn_pallas.py :
 // _make_chain_kernel_tp2c, the second pallas_call of
-// batched_log_mvnpdf_pallas (packed rank-2 steps, the default for even k).
+// batched_log_mvnpdf_pallas (packed rank-2 steps, the default for even k),
+// and _make_chain_kernel_tp, its rank-1 form for odd k (the same function).
 //
 // Per sample: the Cholesky factor of I + B, with B the packed lower
 // triangle (column-major: column j holds rows j..k-1 contiguously) that K2
@@ -10,89 +11,203 @@
 //   quad = sum_j t_j^2,  logdet = sum_j log d_j,
 //   ll = -1/2 (quad0 - quad + logdet0 + logdet).
 //
-// Bound on the card: latency of the serial chain.  The work is ~k^3/6
-// FMAs (~1.3k at k = 20) per sample and reads 210 + 20 + 2 floats; the
-// whole call is a few MFLOP and ~9 MB at S = 10,000.
+// Bound on the card: the bytes, (k(k+1)/2 + k + 3) floats a sample (9.3 MB,
+// 0.0028 ms at S = 10,000, k = 20).  The work, ~k^3/6 FMAs a sample, is one
+// serial chain per sample, so the design runs many chains at once and keeps
+// shared memory off each chain's critical path.
 //
-// Design: one thread per sample, the sample's triangle and u in shared
-// memory laid out sample-fastest (element r of sample i at r * 64 + i), so
-// every step's reads and writes are conflict-free across the warp.
-// 64 samples per block use (210 + 20) x 64 x 4 = 58,880 bytes of dynamic
-// shared memory and give 157 blocks at S = 10,000, more than the 132 SMs.
-// Rank-1 steps: the TPU's rank-2 pairing and 0/1 selection dots existed to
-// feed its matrix unit and are not needed here.
+// Design: a warp per sample, the triangle in registers.  Lane a owns row a,
+// entries (a, 0..a), and u_a, in arrays indexed only at compile time: the
+// loops are unrolled over a row bound KMAX (32, or 64 with lane a also
+// owning row a + 32), and k <= KMAX is taken at run time by one
+// warp-uniform guard a step.  Step j is left-looking:
+//   - lane j adds the 1 of I to its diagonal; each lane subtracts
+//     l_ac l_jc from its entry (a, j), c = 0..j-1, with l_jc broadcast from
+//     lane j by __shfl_sync; lane j's own entry becomes the pivot d_j;
+//   - d_j is broadcast, lane j keeps it, and every lane scales its entry
+//     (a, j) by rsqrt(d_j);
+//   - t_j = u_j rsqrt(d_j) is broadcast, quad += t_j^2, u_a -= t_j l_aj.
+// After the last step each lane takes logf of its own pivot, and logdet
+// sums them j = 0..k-1 through shuffles (one logf a lane, not one a step).
+// Every entry meets the same FMAs in the same order (c ascending) as in the
+// right-looking rank-1 chain of the one-thread-per-sample kernel this
+// replaces, and quad and logdet are summed j = 0..k-1 as there.  A lane's
+// entries above its diagonal, and the rows past k - 1, hold values that
+// nothing reads.  k(k-1)/2 + 3k shuffles a sample (250 at k = 20), no
+// shared memory in the chain.
+//
+// Loads: a warp stages its sample's packed triangle in its own shared
+// buffer with 16-byte loads and stores, the buffer placed at the source's
+// offset modulo 16 bytes; a lane then reads its row column by column, the
+// lanes on consecutive floats (no bank conflicts).  u and misc are read
+// straight from global memory.
+//
+// Launch geometry: ops/logmvn_kernels.py (chain_geometry) decides it; the
+// launcher checks only what the kernel's safety needs.  At S = 10,000,
+// k = 20: KMAX = 32, 8 warps a block, 4 blocks on each of 132 SMs (528
+// blocks, 32 warps an SM, one wave), 2 or 3 samples a warp, 7,936 shared
+// bytes a block.  ptxas (sm_90a): 64 and 128 registers a thread at KMAX =
+// 32 and 64 (the launch bounds' limits), 20 and 28 bytes of spills.  The
+// chain is latency-bound: more warps an SM beat fewer registers
+// (ops/chain_geometry_sweep.py; PERF.md, PR 7).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+// Warps a block and blocks an SM (the launch bound, which caps a thread's
+// registers) at row bounds 32 and 64, as ops/logmvn_kernels.py's
+// CHAIN_WARPS and CHAIN_BLOCKS_PER_SM give them.  ops/chain_geometry_sweep.py
+// rebuilds this file with other values.
+#ifndef K3_GEOMETRY
+#define K3_GEOMETRY 8, 4, 8, 2
+#endif
+
 namespace {
 
-constexpr int kThreads = 64;  // samples per block
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void logmvn_chain_kernel(const float* __restrict__ B,
-                                    const float* __restrict__ u,
-                                    const float* __restrict__ misc, int S,
-                                    int k, float* __restrict__ ll) {
-  extern __shared__ float smem[];
+template <int W32, int B32, int W64, int B64>
+struct GeometryOf {
+  __host__ __device__ static constexpr int warps(int kmax) { return kmax == 32 ? W32 : W64; }
+  __host__ __device__ static constexpr int blocks(int kmax) { return kmax == 32 ? B32 : B64; }
+};
+using Geometry = GeometryOf<K3_GEOMETRY>;
+
+template <int KMAX>
+__global__ void __launch_bounds__(32 * Geometry::warps(KMAX), Geometry::blocks(KMAX))
+logmvn_chain_kernel(const float* __restrict__ B, const float* __restrict__ u,
+                    const float* __restrict__ misc, int S, int k, int buf,
+                    float* __restrict__ ll) {
+  constexpr int Q = KMAX / 32;  // rows a lane: slot q holds row q * 32 + lane
+  constexpr int kWarps = Geometry::warps(KMAX);
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  const int a = threadIdx.x & 31;
+  float* const T = reinterpret_cast<float*>(smem4) + warp * buf;
   const int kp = k * (k + 1) / 2;
-  float* T = smem;                 // [kp][kThreads]
-  float* U = smem + kp * kThreads;  // [k][kThreads]
-  const int tid = threadIdx.x;
-  const int s0 = blockIdx.x * kThreads;
-  const int ns = min(kThreads, S - s0);
+  // warp w of the grid's T takes samples w S / T up to (w + 1) S / T
+  const long long nwarps = (long long)gridDim.x * kWarps;
+  const long long w = (long long)blockIdx.x * kWarps + warp;
+  const int first = (int)(w * S / nwarps);
+  const int last = (int)((w + 1) * S / nwarps);
 
-  // coalesced loads of the block's contiguous rows, transposed into smem
-  for (int e = tid; e < ns * kp; e += kThreads)
-    T[(e % kp) * kThreads + e / kp] = B[(size_t)s0 * kp + e];
-  for (int e = tid; e < ns * k; e += kThreads)
-    U[(e % k) * kThreads + e / k] = u[(size_t)s0 * k + e];
-  __syncthreads();
-  if (tid >= ns) return;
+  for (int s = first; s < last; ++s) {
+    // stage the triangle: dst[e] = src[e], dst and src equal modulo 16
+    // bytes, so the body moves as float4
+    const float* src = B + (size_t)s * kp;
+    const int shift = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+    float* const dst = T + shift;
+    const int head = min(kp, (4 - shift) & 3);
+    const int nv = (kp - head) >> 2;
+    const int tail = head + 4 * nv;
+    if (a < head) dst[a] = __ldg(src + a);
+    const float4* src4 = reinterpret_cast<const float4*>(src + head);
+    float4* dst4 = reinterpret_cast<float4*>(dst + head);
+    for (int v = a; v < nv; v += 32) dst4[v] = __ldg(src4 + v);
+    if (tail + a < kp) dst[tail + a] = __ldg(src + tail + a);
 
-  float* t = T + tid;
-  float* uu = U + tid;
-  for (int j = 0, off = 0; j < k; off += k - j, ++j)
-    t[off * kThreads] += 1.0f;  // + I on the diagonal
-  float quad = 0.0f;
-  float logdet = 0.0f;
-  int off_j = 0;  // packed row of (j, j)
-  for (int j = 0; j < k; ++j) {
-    const int seg = k - j;
-    const float dj = t[off_j * kThreads];
-    logdet += logf(dj);
-    const float inv = rsqrtf(dj);
-    for (int a = 1; a < seg; ++a) t[(off_j + a) * kThreads] *= inv;
-    const float tj = uu[j * kThreads] * inv;
-    quad += tj * tj;
-    for (int a = 1; a < seg; ++a)
-      uu[(j + a) * kThreads] -= tj * t[(off_j + a) * kThreads];
-    // trailing update of columns jj > j:  T[a, jj] -= L[a, j] L[jj, j]
-    int off_jj = off_j + seg;
-    for (int jj = j + 1; jj < k; ++jj) {
-      const float l_jj = t[(off_j + jj - j) * kThreads];
-      for (int a = jj; a < k; ++a)
-        t[(off_jj + a - jj) * kThreads] -= t[(off_j + a - j) * kThreads] * l_jj;
-      off_jj += k - jj;
+    float uq[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int row = q * 32 + a;
+      uq[q] = row < k ? __ldg(u + (size_t)s * k + row) : 0.0f;
     }
-    off_j += seg;
+    float m0 = 0.0f, m1 = 0.0f;
+    if (a == 0) {
+      m0 = __ldg(misc + 2 * (size_t)s);
+      m1 = __ldg(misc + 2 * (size_t)s + 1);
+    }
+    __syncwarp();
+
+    // rows of B: entry (row, c) at packed index off(c) + row - c, off(c + 1)
+    // = off(c) + k - c.  Entries above a lane's diagonal, and rows past
+    // k - 1, read whatever the buffer holds there (its padding covers
+    // them); nothing reads them back.
+    float r[Q][KMAX];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const float* p = dst + q * 32 + a;
+#pragma unroll
+      for (int c = 0; c < (q + 1) * 32; ++c) {
+        r[q][c] = c < k ? *p : 0.0f;
+        p += k - 1 - c;
+      }
+    }
+    __syncwarp();  // the buffer is free for the next sample
+
+    float quad = 0.0f;
+    float piv[Q];  // the pivots of the lane's rows
+#pragma unroll
+    for (int q = 0; q < Q; ++q) piv[q] = 1.0f;
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < k) {
+        const int qj = j / 32;  // lane lj, slot qj holds row j
+        const int lj = j % 32;
+        if (a == lj) r[qj][j] += 1.0f;  // + I, before the column's updates
+#pragma unroll
+        for (int c = 0; c < j; ++c) {
+          const float l = __shfl_sync(kFull, r[qj][c], lj);
+#pragma unroll
+          for (int q = 0; q < Q; ++q)
+            if (j < (q + 1) * 32) r[q][j] -= r[q][c] * l;
+        }
+        const float d = __shfl_sync(kFull, r[qj][j], lj);
+        if (a == lj) piv[qj] = d;
+        const float inv = rsqrtf(d);
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          if (j < (q + 1) * 32) r[q][j] *= inv;
+        const float t = __shfl_sync(kFull, uq[qj], lj) * inv;
+        quad += t * t;
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          if (j < (q + 1) * 32) uq[q] -= t * r[q][j];
+      }
+    }
+    // one logf a lane, then the pivots' logs summed j = 0..k-1 in order
+    float lg[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) lg[q] = logf(piv[q]);
+    float logdet = 0.0f;
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j)
+      if (j < k) logdet += __shfl_sync(kFull, lg[j / 32], j % 32);
+    if (a == 0) ll[s] = -0.5f * (m0 - quad + m1 + logdet);
   }
-  const size_t s = (size_t)(s0 + tid);
-  ll[s] = -0.5f * (misc[2 * s] - quad + misc[2 * s + 1] + logdet);
+}
+
+template <int KMAX>
+int launch(const float* B, const float* u, const float* misc, int S, int k, int buf,
+           int smem, int grid, float* ll, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(logmvn_chain_kernel<KMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  logmvn_chain_kernel<KMAX><<<grid, 32 * Geometry::warps(KMAX), smem, stream>>>(
+      B, u, misc, S, k, buf, ll);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The geometry (row bound, warps a block, shared bytes, grid) comes from
+// chain_geometry.  Refused: a row bound that is not compiled or is below k,
+// a block of other than the compiled warps, a warp's share of shared
+// memory short of its triangle, the 3 floats of alignment and the KMAX of
+// padding the rows past k - 1 read, and an empty grid.
 extern "C" int logmvn_chain_launch(const float* B, const float* u,
-                                   const float* misc, int S, int k, float* ll,
-                                   void* stream) {
-  const size_t smem = (size_t)(k * (k + 1) / 2 + k) * kThreads * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        logmvn_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (S + kThreads - 1) / kThreads;
-  logmvn_chain_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      B, u, misc, S, k, ll);
-  return (int)cudaGetLastError();
+                                   const float* misc, int S, int k, int rows,
+                                   int warps, int smem, int grid,
+                                   float* ll, void* stream) {
+  if (S < 1 || k < 1 || k > rows || (rows != 32 && rows != 64) ||
+      warps != Geometry::warps(rows) || grid < 1 || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const int buf = (smem / (4 * warps)) & ~3;  // floats, in whole float4s
+  if (buf < k * (k + 1) / 2 + 3 + rows) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rows == 32) return launch<32>(B, u, misc, S, k, buf, smem, grid, ll, st);
+  return launch<64>(B, u, misc, S, k, buf, smem, grid, ll, st);
 }

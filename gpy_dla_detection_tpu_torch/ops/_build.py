@@ -66,8 +66,9 @@ _SIGNATURES = {
     # misc, stream
     "logmvn_cap_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I,
                           _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # B, u, misc, S, k, ll, stream
-    "logmvn_chain_launch": [_P, _P, _P, _I, _I, _P, _P],
+    # B, u, misc, S, k, then the geometry (row bound, warps a block, shared
+    # bytes, grid), ll, stream
+    "logmvn_chain_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # stage, rows, N, M, k, Mp, A, S, ll, stream
     "logmvn_ablate_launch": [_I, _P, _I, _P, _I, _P, _P, _I, _P, _P],
     # B, its sample and entry strides, u, its strides, misc, its strides,

@@ -97,6 +97,57 @@ def cap_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
     )
 
 
+# K3's block (csrc/logmvn_chain.cu, K3_GEOMETRY): a warp per sample; per
+# row bound, the warps a block and the blocks an SM holds at once (the
+# launch bound)
+CHAIN_ROW_BOUNDS = (32, 64)
+CHAIN_MAX_K = CHAIN_ROW_BOUNDS[-1]
+CHAIN_WARPS = {32: 8, 64: 8}
+CHAIN_BLOCKS_PER_SM = {32: 4, 64: 2}
+
+
+class ChainGeometry(NamedTuple):
+    """K3's launch: the row bound ``rows`` (KMAX) of the instantiation,
+    ``warps`` a block, ``shared_bytes`` a block and ``grid`` blocks.  Warp
+    w of the grid's T takes the samples ``w * S // T`` up to
+    ``(w + 1) * S // T``."""
+
+    rows: int
+    warps: int
+    shared_bytes: int
+    grid: int
+
+
+def _chain_grid(S: int, warps: int, per_sm: int, sms: int) -> int:
+    """A block for every ``warps`` samples up to one an SM; beyond that the
+    same number of blocks on every SM, at most ``per_sm``: one even wave."""
+    blocks = -(-S // warps)
+    return blocks if blocks <= sms else sms * min(-(-blocks // sms), per_sm)
+
+
+def _chain_shared_bytes(k: int, rows: int, warps: int) -> int:
+    """A warp's buffer: its triangle, up to 3 floats of alignment and
+    ``rows`` of padding (the rows past k - 1 read into it), in whole
+    float4s."""
+    return 4 * warps * 4 * -(-(k * (k + 1) // 2 + 3 + rows) // 4)
+
+
+def chain_geometry(S: int, k: int, sms: int = H100_SMS) -> ChainGeometry:
+    """K3's launch geometry for S samples of a k x k capacitance on
+    ``sms`` SMs: the smallest row bound that holds k, and
+    :func:`_chain_grid`'s grid, so every warp takes an even share of the
+    samples."""
+    if not 1 <= k <= CHAIN_MAX_K:
+        raise ValueError(f"K3 takes 1 <= k <= {CHAIN_MAX_K}, got k={k}")
+    if S < 1:
+        raise ValueError(f"K3 needs S >= 1, got S={S}")
+    rows = next(b for b in CHAIN_ROW_BOUNDS if k <= b)
+    warps = CHAIN_WARPS[rows]
+    return ChainGeometry(rows=rows, warps=warps,
+                         shared_bytes=_chain_shared_bytes(k, rows, warps),
+                         grid=_chain_grid(S, warps, CHAIN_BLOCKS_PER_SM[rows], sms))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -258,7 +309,8 @@ def logmvn_cap(
 
 def logmvn_chain(B: torch.Tensor, u: torch.Tensor, misc: torch.Tensor):
     """Stage B of the Woodbury likelihood: K3 on CUDA, its twin on the
-    CPU (float32).  Returns the (S,) per-sample log-likelihoods."""
+    CPU (float32).  Returns the (S,) per-sample log-likelihoods.  The
+    kernel takes 1 <= k <= ``CHAIN_MAX_K``."""
     if not use_kernel(B):
         return logmvn_chain_reference(B, u, misc)
     device = B.device
@@ -269,11 +321,13 @@ def logmvn_chain(B: torch.Tensor, u: torch.Tensor, misc: torch.Tensor):
             f"shape mismatch: B {tuple(B.shape)}, u {tuple(u.shape)}, "
             f"misc {tuple(misc.shape)}"
         )
+    g = chain_geometry(S, k, _sm_count(device))
     ll = torch.empty((S,), dtype=torch.float32, device=device)
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.logmvn_chain_launch(
-            ptr(B), ptr(u), ptr(misc), S, k, ptr(ll), stream_ptr(device)
+            ptr(B), ptr(u), ptr(misc), S, k, g.rows, g.warps, g.shared_bytes, g.grid,
+            ptr(ll), stream_ptr(device)
         )
     check_launch("logmvn_chain", err)
     launch_counts["logmvn_chain"] += 1

@@ -230,7 +230,8 @@ def main(argv):
           f"S={S} N={N} k={K} | TF32 {torch.backends.cuda.matmul.allow_tf32}", flush=True)
     if any(s.startswith(("chain_", "decoupled")) for s in stages):
         print("the <bs> suffix is the TPU's block rows; the CUDA kernels choose their own "
-              "(stage kernel and flat chain 32 samples a block, K2 32, K3 64)", flush=True)
+              "(stage kernel and flat chain 32 samples a block, K2 from cap_geometry, K3 a "
+                  "warp a sample from chain_geometry)", flush=True)
     for stage in stages:
         if stage == "accuracy":
             continue  # after the timings, as the JAX script runs it

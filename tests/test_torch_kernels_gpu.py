@@ -13,7 +13,9 @@ measured 2.4e-7); K2 and K3 |dll| <= 1e-6 |ll|, with
 |ll| the largest magnitude of the sample set, at the main path's even
 k = 20 and at odd k (the rank-1 chain variant's case); K2 also at the
 narrow bases k = 1, 4, 5 (packed) and 4 (flat), at S = 1, 79, 81 and
-10,000 and at N = 768 and 1,664.  K2 is isolated by passing both
+10,000 and at N = 768 and 1,664; K3 also on both sides of each of its row
+bounds and of a half warp, k = 1 to 41, at S = 1 to 10,000, and with NaN
+where its twin gives NaN (a capacitance that is not positive definite).  K2 is isolated by passing both
 stage-A outputs through the same (twin) chain, K3 by passing the same
 stage-A outputs through kernel and twin.  K7's kernels (the ablation's
 stage kernel and flat chain, K2 with the flat basis) are held to the same
@@ -224,17 +226,55 @@ def test_absorption_tail_rejects_rows_beyond_shared_memory(cuda_device):
                         torch.ones(2, device=cuda_device))
 
 
-@pytest.mark.parametrize("k", [5, 21])
-def test_chain_kernel_matches_twin_at_odd_k(cuda_device, k):
-    (y, mu, M, omega2, v, mask), A, _ = _problem(cuda_device, k=k, S=1001)
+def _chain_inputs(device, k, S):
+    """A real capacitance: K2's twin on a GP basis of k columns."""
+    (y, mu, M, omega2, v, mask), A, _ = _problem(device, k=k, S=S, seed=k)
     rows = torch.stack([y, mu, omega2, v, mask.float()])
-    B, u, misc = logmvn_cap_reference(rows, M, packed_pair_basis(M), A)
+    return logmvn_cap_reference(rows, M, packed_pair_basis(M), A)
+
+
+# k: both sides of K3's row bound 32 (64 gives a lane two rows) and of a
+# half warp, narrow bases, the main path's 20, the odd 21, the 41 the
+# earlier kernel's limit; S: a lone sample, one past a warp's 32, a count
+# that is no multiple of anything, the main path's 10,000
+@pytest.mark.parametrize("S", [1, 33, 1001, 10_000])
+@pytest.mark.parametrize("k", [1, 2, 8, 16, 17, 20, 21, 31, 32, 33, 41])
+def test_chain_kernel_matches_twin(cuda_device, k, S):
+    B, u, misc = _chain_inputs(cuda_device, k, S)
     before = _build.launch_counts["logmvn_chain"]
     ll_kernel = logmvn_chain(B, u, misc)
     torch.cuda.synchronize()
     assert _build.launch_counts["logmvn_chain"] == before + 1
     ll_twin = logmvn_chain_reference(B, u, misc)
+    assert torch.isfinite(ll_kernel).all()
     assert float((ll_kernel - ll_twin).abs().max()) <= REL_K23 * float(ll_twin.abs().max())
+
+
+@pytest.mark.parametrize("k", [5, 20, 41])
+def test_chain_kernel_gives_the_twins_nan_where_not_positive_definite(cuda_device, k):
+    """A negative pivot (at the first column, and at a later one) gives NaN
+    in kernel and twin alike; the other samples are untouched."""
+    B, u, misc = _chain_inputs(cuda_device, k, 100)
+    diag = [j * k - j * (j - 1) // 2 for j in range(k)]  # packed (j, j)
+    B[0, diag[0]] = -2.0
+    B[1, diag[k // 2]] = -50.0
+    ll_kernel = logmvn_chain(B, u, misc)
+    ll_twin = logmvn_chain_reference(B, u, misc)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ll_twin)
+    assert bool(nan[0]) and bool(nan[1])
+    assert torch.equal(torch.isnan(ll_kernel), nan)
+    ok = ~nan
+    assert float((ll_kernel[ok] - ll_twin[ok]).abs().max()) <= (
+        REL_K23 * float(ll_twin[ok].abs().max()))
+
+
+def test_chain_kernel_refuses_k_beyond_its_row_bounds(cuda_device):
+    k = 65
+    B = torch.zeros((4, k * (k + 1) // 2), device=cuda_device)
+    with pytest.raises(ValueError):
+        logmvn_chain(B, torch.zeros((4, k), device=cuda_device),
+                     torch.zeros((4, 2), device=cuda_device))
 
 
 @pytest.mark.parametrize("num_lines", [3, 8])  # 8: overlapping windows

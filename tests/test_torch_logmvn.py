@@ -148,6 +148,20 @@ def test_twins_cover_the_chain_variants(k, chain_r2, packed):
     _assert_twins_held_to_f64(got.numpy(), want, _f64_composition(base, A, extra))
 
 
+# the edges of K3's row bound 32 (csrc/logmvn_chain.cu: KMAX 32, 64) and of
+# a half warp; even k runs the reference's rank-2 chain, odd k its rank-1
+# form
+@pytest.mark.parametrize("k", [16, 17, 32, 33])
+def test_chain_twin_matches_jax_kernel_at_row_bounds(k):
+    base, A, extra = _problem(N=200, k=k, S=24, seed=k)
+    want = _jax_kernel(base, A, extra, k)
+    y, mu, M, omega2, v, mask = _torch(base)
+    rows = torch.stack([y, mu, omega2, v, mask.float()])
+    got = logmvn_chain_reference(*logmvn_cap_reference(rows, M, packed_pair_basis(M),
+                                                       torch.as_tensor(A)))
+    _assert_twins_held_to_f64(got.numpy(), want, _f64_composition(base, A, extra))
+
+
 @pytest.mark.parametrize("n_extra", [0, 3])
 def test_twins_match_f64_composition_at_full_width(n_extra):
     """Main-path widths (N = 1280, k = 20) on a synthetic spectrum with
