@@ -14,7 +14,9 @@ Phases, one line each; any failure exits non-zero before the result:
      Lyman-limit break at the LLS search's P = 1,670, and K2 and K3 at its
      N = 1,664; K2 also on a narrow basis, k = 5; K3 also on both sides of
      its row bound 32 and of a half warp, k = 1, 2, 8, 16, 17, 31, 32, 33,
-     41, on full-rank bases)
+     41, on full-rank bases); K1 with the Weideman window (poly=False) at
+     the same two widths, also against the float64 exact profile; and both
+     K1 branches at 1, 8 and 31 lines, F = 1 and 3, P = 7 and 301)
   4. the default catalog path at Parameters(): process_batch on 16
      synthetic spectra (odd ones carry a DLA at z_qso - 0.3, logNHI 21.2),
      with the kernels' launch counts over that run and the detections
@@ -37,7 +39,9 @@ Phases, one line each; any failure exits non-zero before the result:
   9. the absorber MCMC head: a DLA chain (32 walkers x 5,000 steps) on an
      injected spectrum at full width, checked against the truth, and a
      CIV chain (40 walkers x 1,000 steps); posterior evaluations per second
- 10. timings: each kernel vs its twin and its bound (K2 also beside its
+ 10. timings: each kernel vs its twin and its bound (K1 also by its device
+     time over 50 launches, CUDA events and the profiler, at P = 1,286, with
+     the break at P = 1,670 and with the Weideman window; K2 also beside its
      library yardstick, the two float32 matmuls on the twin's w and r,
      with its achieved TFLOP/s and share of the bound; K3 also by its device
      time over 50 launches, and beside its library yardstick, the batched
@@ -56,6 +60,13 @@ Phases, one line each; any failure exits non-zero before the result:
      synthetic spectra through civ_inference_many (odd ones carry a CIV
      doublet), with launch counts, detections and golden parity with the
      JAX float64 run (tests/data/torch_golden_civ.npz)
+ 13. the Weideman-window configuration (voigt_impl="windowed_weideman": K1
+     with the Weideman rational and continued fraction in the windows, the
+     reference's GPY_DLA_FUSED_POLY=0) on 4 spectra of the default catalog,
+     with its launch counts, detections and golden parity as in phase 5;
+     then the LLS search in it, with launch counts, detections and golden
+     parity as in phase 8
+Every other phase asserts that the Weideman window is never launched.
 Then a JSON line of the kernels, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package: both are
@@ -87,6 +98,7 @@ ABLATE_SCRIPT = ROOT / "scripts" / "kernel_ablate_torch.py"
 NUM_SPECTRA = 16
 NUM_EXACT = 4
 NUM_UNFUSED = 4
+NUM_WEIDEMAN = 4
 NUM_LLS = 8
 MAX_DLAS = 4
 MAX_LYA = 4
@@ -99,6 +111,11 @@ NARROW_K = 5  # a GP basis narrower than the old K2 block took
 CHAIN_KS = (1, 2, 8, 16, 17, 31, 32, 33, 41)  # K3 on both sides of its row bound 32
 
 TOL_K1 = 2e-6  # absolute, kernel vs twin (measured 2.4e-7)
+# K1 with the Weideman window: the mutual bound of two float32 Weideman
+# evaluations (tests/test_voigt.py), and against the float64 exact profile
+# at most 1.5x the twin's own error or TOL_TRUTH_FLOOR
+TOL_K1_WEIDEMAN = 5e-4
+TOL_TRUTH_FLOOR = 1e-4
 TOL_K5 = 1e-6  # absolute, kernel vs twin; profiles lie in [0, 1] (measured 1.8e-7)
 TOL_K6 = 1e-6  # absolute, kernel vs twin; the same exp and 7-tap sum as K5
 REL_K23 = 1e-6  # |dll| <= REL_K23 * max|ll|, kernel vs twin (measured 3.7e-7)
@@ -114,6 +131,11 @@ FP32_OPS_PER_S = 67e12
 LOGMVN = "gpy_dla_detection_tpu/ops/logmvn_pallas.py"
 KERNELS = {
     "absorption_all": (
+        "gpy_dla_detection_tpu_torch/csrc/absorption_all.cu",
+        "gpy_dla_detection_tpu/ops/voigt_pallas.py:239",
+    ),
+    # the same kernel's other window evaluator (the branch at :357)
+    "absorption_all_weideman": (
         "gpy_dla_detection_tpu_torch/csrc/absorption_all.cu",
         "gpy_dla_detection_tpu/ops/voigt_pallas.py:239",
     ),
@@ -193,6 +215,22 @@ def device_ms(fn, reps: int = 50) -> tuple[float, float]:
     return kernel_us / 1e3 / reps, start.elapsed_time(end) / reps
 
 
+def events_ms(fn, reps: int = 50) -> float:
+    """Milliseconds a call of ``fn()`` by CUDA events around ``reps``
+    back-to-back calls, after a warm-up: the device time of a kernel that
+    is longer than its launch's host time."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """Least milliseconds for the work: bytes over HBM rate or float32
     operations over the float32 peak, whichever is larger."""
@@ -201,14 +239,16 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_work(wl, z, n_fam, consts, far_lines, lls_break=False) -> tuple[float, float]:
+def k1_work(wl, z, n_fam, consts, far_lines, lls_break=False, poly=True) -> tuple[float, float]:
     """Bytes and float32 operations of one K1 call on these inputs.  Per
     sample, pixel and line: 6 for the line's x and |z|^2, then 4 in the
-    far field, 38 on the disk fit (degree 16) or 30 on the wing fit
-    (degree 10, one division); per family an exp and a product per pixel
-    and 7 FMAs per output pixel; with the Lyman-limit break 5 per pixel
-    (a product, a comparison, three products).  An exp or a division
-    counts as one."""
+    far field; inside it, with poly, 38 on the disk fit (degree 16) or 30
+    on the wing fit (degree 10, one division); without, 180 in the Weideman
+    disk (19 complex Horner steps) or 48 on the annulus (the continued
+    fraction, 5 terms); per family an exp and a product per pixel and 7
+    FMAs per output pixel; with the Lyman-limit break 5 per pixel (a
+    product, a comparison, three products).  An exp or a division counts
+    as one."""
     S, P = z.shape[0], wl.shape[0]
     ops = 5.0 * S * P if lls_break else 0.0
     one_plus_z = (1.0 + z)[:, None]
@@ -217,9 +257,13 @@ def k1_work(wl, z, n_fam, consts, far_lines, lls_break=False) -> tuple[float, fl
         u = ((wl[None, :] - lam_c) * (consts["c_cgs"] / lam_c) * consts["inv"]) ** 2
         far = (u + line["y2"]) > 256.0**2
         n_far = float(far.sum())
-        n_disk = float((~far & (u <= 9.0)).sum())
-        n_wing = S * P - n_far - n_disk
-        ops += 6 * S * P + (4 * n_far if l < far_lines else 0) + 38 * n_disk + 30 * n_wing
+        if poly:
+            n_disk = float((~far & (u <= 9.0)).sum())
+            window = 38 * n_disk + 30 * (S * P - n_far - n_disk)
+        else:
+            n_inner = float(((u + line["y2"]) <= 49.0).sum())
+            window = 180 * n_inner + 48 * (S * P - n_far - n_inner)
+        ops += 6 * S * P + (4 * n_far if l < far_lines else 0) + window
     ops += n_fam * (2 * S * P + 14 * S * (P - 6))
     n_bytes = 4 * (P + S + n_fam * S + n_fam * S * (P - 6))
     return n_bytes, ops
@@ -352,13 +396,17 @@ def main() -> None:
     )
     from gpy_dla_detection_tpu_torch.ops.voigt import (
         FAR_FIELD_LINES,
+        instrumental_broadening,
+        lyman_limit_unit_tau,
         unit_lyman_optical_depth,
         windowed_tau_parts,
     )
     from gpy_dla_detection_tpu_torch.ops.voigt_kernels import (
+        K1_MAX_LINES,
         _kernel_constants,
         absorption_all,
         absorption_all_reference,
+        launch_absorption_all,
         absorption_tail,
         absorption_tail_reference,
         absorption_windowed,
@@ -478,6 +526,50 @@ def main() -> None:
     check(err_k1_lls <= TOL_K1, f"K1 with the break vs twin {err_k1_lls:.3e} > {TOL_K1}")
     err["absorption_all"] = max(err["absorption_all"], err_k1_lls)
 
+    # K1 with the Weideman window (poly=False) at the same two widths:
+    # against its twin, and against the float64 exact profile within 1.5x
+    # the twin's own error
+    def exact_profiles(wl_, z_, nhis_, lls_break):
+        wl64, z64 = wl_.double(), z_.double()
+        unit = unit_lyman_optical_depth(wl64, z64, params.num_lines)
+        if lls_break:
+            unit = unit + lyman_limit_unit_tau(wl64, z64)
+        return [instrumental_broadening(torch.exp(-n.double()[:, None] * unit)) for n in nhis_]
+
+    def weideman_parity(wl_, z_, nhis_, lls_break, label):
+        got = absorption_all(wl_, z_, nhis_, lls_break=lls_break, poly=False)
+        want = absorption_all_reference(wl_, z_, nhis_, lls_break=lls_break, poly=False)
+        worst = [0.0, 0.0, 0.0]
+        for g_, w_, t_ in zip(got, want, exact_profiles(wl_, z_, nhis_, lls_break)):
+            e = float((g_ - w_).abs().max())
+            e_kernel = float((g_.double() - t_).abs().max())
+            e_twin = float((w_.double() - t_).abs().max())
+            check(e <= TOL_K1_WEIDEMAN, f"K1 Weideman {label} vs twin {e:.3e} > {TOL_K1_WEIDEMAN}")
+            check(e_kernel <= max(1.5 * e_twin, TOL_TRUTH_FLOOR),
+                  f"K1 Weideman {label} vs float64 {e_kernel:.3e} > 1.5 x the twin's {e_twin:.3e}")
+            worst = [max(a, b) for a, b in zip(worst, (e, e_kernel, e_twin))]
+        return worst
+
+    k1w = weideman_parity(wl, z_s, nhis, False, "main path")
+    k1w_lls = weideman_parity(wl_lls, z_lls, nhi_lls, True, "with the break")
+    err["absorption_all_weideman"] = max(k1w[0], k1w_lls[0])
+    # both branches at other line counts, family counts and pixel counts
+    k1_cases = {}
+    for poly in (True, False):
+        for n_lines in (1, 8, K1_MAX_LINES):
+            for F_, P_ in ((1, 7), (3, 301)):
+                wl_c, z_c = wl[:P_], z_s[:1001]
+                nh_c = tuple(n[:1001] for n in (nhis * 2)[:F_])
+                e = max(float((a - b).abs().max()) for a, b in zip(
+                    absorption_all(wl_c, z_c, nh_c, n_lines, poly=poly),
+                    absorption_all_reference(wl_c, z_c, nh_c, n_lines, poly=poly)))
+                tol = TOL_K1 if poly else TOL_K1_WEIDEMAN
+                name = "absorption_all" if poly else "absorption_all_weideman"
+                check(e <= tol, f"K1 (poly={poly}, {n_lines} lines, F={F_}, P={P_}) vs twin "
+                                f"{e:.3e} > {tol}")
+                k1_cases[f"{'poly' if poly else 'weideman'} L={n_lines} F={F_} P={P_}"] = e
+                err[name] = max(err[name], e)
+
     A = k1_out[0]
     S = A.shape[0]
     gen = torch.Generator(device=device).manual_seed(0)
@@ -567,7 +659,11 @@ def main() -> None:
           f"K2 max|dll| {k2_lls:.3e}, K3 {k3_lls:.3e} (tol {REL_K23} x {scale_lls:.4g}) | "
           f"K2 at k={NARROW_K} max|dll| {k2_narrow:.3e} (tol {REL_K23} x {scale_narrow:.4g}) | "
           f"K3 |dll|/max|ll| at k=" + ", ".join(f"{kw}: {e:.2e}" for kw, e in k3_widths.items())
-          + f" (tol {REL_K23})")
+          + f" (tol {REL_K23}) | K1 Weideman window max|d| {k1w[0]:.3e} at {S}x{wl.shape[0]} "
+          f"F=2, {k1w_lls[0]:.3e} with the break at {S}x{wl_lls.shape[0]} (tol "
+          f"{TOL_K1_WEIDEMAN}); vs float64 kernel {k1w[1]:.3e} / {k1w_lls[1]:.3e}, twin "
+          f"{k1w[2]:.3e} / {k1w_lls[2]:.3e} | K1 at S={min(S, 1001)} max|d| "
+          + ", ".join(f"{c}: {e:.2e}" for c, e in k1_cases.items()))
 
     def run_slice(base_inds=None, batch=spectra, voigt_impl="windowed"):
         return process_batch(
@@ -609,6 +705,7 @@ def main() -> None:
             "logmvn_chain": 5 * NUM_SPECTRA}
     for name, n in need.items():
         check(launches.get(name, 0) >= n, f"{name} launched {launches.get(name, 0)} < {n} times")
+    check(launches.get("absorption_all_weideman", 0) == 0, "slice: the Weideman window launched")
     print(f"[4 slice] {NUM_SPECTRA} spectra at S={params.num_dla_samples} N="
           f"{params.num_pixels_padded} k={params.k} max_dlas={MAX_DLAS} | launches {launches} | "
           f"{check_detections(results, truths, 'slice')}")
@@ -653,7 +750,7 @@ def main() -> None:
         lambda: run_slice(batch=spectra[:NUM_EXACT], voigt_impl="exact"))
     path_launches["exact"] = launches
     need = {"absorption_tail": 2 * NUM_EXACT, "logmvn_cap": 5 * NUM_EXACT,
-            "logmvn_chain": 5 * NUM_EXACT}
+            "logmvn_chain": 5 * NUM_EXACT, "absorption_all_weideman": 0}
     for name, n in need.items():
         check(launches.get(name, 0) == n, f"exact: {name} launched {launches.get(name, 0)} != {n}")
     check(launches.get("absorption_all", 0) == 0, "exact: K1 launched")
@@ -668,7 +765,8 @@ def main() -> None:
         lambda: run_slice(batch=spectra[:NUM_UNFUSED], voigt_impl="windowed_unfused"))
     path_launches["windowed_unfused"] = launches
     need = {"absorption_windowed": 2 * NUM_UNFUSED, "logmvn_cap": 5 * NUM_UNFUSED,
-            "logmvn_chain": 5 * NUM_UNFUSED, "absorption_all": 0, "absorption_tail": 0}
+            "logmvn_chain": 5 * NUM_UNFUSED, "absorption_all": 0, "absorption_tail": 0,
+            "absorption_all_weideman": 0}
     for name, n in need.items():
         check(launches.get(name, 0) == n,
               f"unfused: {name} launched {launches.get(name, 0)} != {n}")
@@ -738,7 +836,8 @@ def main() -> None:
     outs, launches = count_launches(run_lls)
     path_launches["lls"] = launches
     need = {"absorption_all": NUM_LLS, "logmvn_cap": MAX_LYA * NUM_LLS,
-            "logmvn_chain": MAX_LYA * NUM_LLS, "absorption_tail": 0, "absorption_windowed": 0}
+            "logmvn_chain": MAX_LYA * NUM_LLS, "absorption_tail": 0, "absorption_windowed": 0,
+            "absorption_all_weideman": 0}
     for name, n in need.items():
         check(launches.get(name, 0) == n, f"lls: {name} launched {launches.get(name, 0)} != {n}")
     lls_line = (f"{NUM_LLS} spectra at S={lls_params.num_dla_samples} N="
@@ -748,7 +847,8 @@ def main() -> None:
     outs, launches = count_launches(lambda: run_lls(voigt_impl="windowed_unfused"))
     path_launches["lls_unfused"] = launches
     need = {"absorption_tail": NUM_LLS, "logmvn_cap": MAX_LYA * NUM_LLS,
-            "logmvn_chain": MAX_LYA * NUM_LLS, "absorption_all": 0, "absorption_windowed": 0}
+            "logmvn_chain": MAX_LYA * NUM_LLS, "absorption_all": 0, "absorption_windowed": 0,
+            "absorption_all_weideman": 0}
     for name, n in need.items():
         check(launches.get(name, 0) == n,
               f"lls unfused: {name} launched {launches.get(name, 0)} != {n}")
@@ -777,6 +877,7 @@ def main() -> None:
     path_launches["mcmc_dla"] = launches
     check(launches.get("absorption_tail", 0) == 2 * steps + 1,
           f"mcmc: absorption_tail launched {launches.get('absorption_tail', 0)} != {2 * steps + 1}")
+    check(launches.get("absorption_all_weideman", 0) == 0, "mcmc: the Weideman window launched")
     acc = float(acc)
     tail = chain[-steps // 4:].reshape(-1, 2).cpu().numpy()
     med_z, med_n = float(np.median(tail[:, 0])), float(np.median(tail[:, 1]))
@@ -793,6 +894,8 @@ def main() -> None:
     path_launches["mcmc_civ"] = launches_c
     check(launches_c.get("absorption_tail", 0) == 2 * steps_c + 1,
           f"civ mcmc: absorption_tail launched {launches_c.get('absorption_tail', 0)}")
+    check(launches_c.get("absorption_all_weideman", 0) == 0,
+          "civ mcmc: the Weideman window launched")
     check(bool(torch.isfinite(lps_c[-1]).all()), "civ mcmc: non-finite log posterior")
     civ_rate = Wc * steps_c / civ_s
     print(f"[9 mcmc] {card} | DLA {W} walkers x {steps} steps at full width: {dla_s:.2f} s, "
@@ -808,11 +911,29 @@ def main() -> None:
         "absorption_all_lls": (
             timed_median(lambda: absorption_all(wl_lls, z_lls, nhi_lls, lls_break=True)),
             timed_median(lambda: absorption_all_reference(wl_lls, z_lls, nhi_lls, lls_break=True))),
+        "absorption_all_weideman": (
+            timed_median(lambda: absorption_all(wl, z_s, nhis, poly=False)),
+            timed_median(lambda: absorption_all_reference(wl, z_s, nhis, poly=False))),
         "absorption_windowed": (
             timed_median(lambda: absorption_windowed(parts, nhis[0])),
             timed_median(lambda: absorption_windowed_reference(parts, nhis[0]))),
     }
     parts_ms = timed_median(lambda: windowed_tau_parts(wl, z_s, params.num_lines))
+    # K1's device time: 50 back-to-back launches into one output, by CUDA
+    # events and by the profiler's kernel time
+    nhi_2, nhi_1 = torch.stack(nhis), torch.stack(nhi_lls)
+    out_2 = torch.empty((2, S, wl.shape[0] - 6), device=device)
+    out_1 = torch.empty((1, z_lls.shape[0], wl_lls.shape[0] - 6), device=device)
+    k1_launches = {
+        "absorption_all": lambda: launch_absorption_all(wl, z_s, nhi_2, out_2),
+        "absorption_all_lls": lambda: launch_absorption_all(wl_lls, z_lls, nhi_1, out_1,
+                                                            lls_break=True),
+        "absorption_all_weideman": lambda: launch_absorption_all(wl, z_s, nhi_2, out_2,
+                                                                 poly=False),
+        "absorption_all_weideman_lls": lambda: launch_absorption_all(
+            wl_lls, z_lls, nhi_1, out_1, lls_break=True, poly=False),
+    }
+    k1_device = {name: (events_ms(fn), device_ms(fn)[0]) for name, fn in k1_launches.items()}
     for rows_n, (tau_r, nhi_r) in k5_rows.items():
         ms[f"absorption_tail_{rows_n}"] = (
             timed_median(lambda: absorption_tail(tau_r, nhi_r)),
@@ -867,13 +988,18 @@ def main() -> None:
     lls_rate = rate_of(run_lls, NUM_LLS)
     civ_rate = rate_of(run_civ, len(civ_spectra))
 
-    consts, _ = _kernel_constants(params.num_lines)
+    consts = _kernel_constants(params.num_lines)
     work = {
         "absorption_all": k1_work(wl, z_s, 2, consts, min(params.num_lines, FAR_FIELD_LINES)),
         "absorption_tail": k5_work(*unit_tau.shape),
         "absorption_windowed": k6_work(S, parts.far.shape[1], wl.shape[0], parts.c0.shape[1]),
         "absorption_all_lls": k1_work(wl_lls, z_lls, 1, consts,
                                       min(params.num_lines, FAR_FIELD_LINES), lls_break=True),
+        "absorption_all_weideman": k1_work(wl, z_s, 2, consts,
+                                           min(params.num_lines, FAR_FIELD_LINES), poly=False),
+        "absorption_all_weideman_lls": k1_work(wl_lls, z_lls, 1, consts,
+                                               min(params.num_lines, FAR_FIELD_LINES),
+                                               lls_break=True, poly=False),
         "logmvn_cap": k2_work(S, A.shape[1], model.M.shape[1], 0),
         "logmvn_chain": k3_work(S, model.M.shape[1]),
         f"logmvn_chain_k{ODD_K}": k3_work(S, ODD_K),
@@ -886,6 +1012,10 @@ def main() -> None:
         f" | {n}: library yardstick {lib:.3f} ms, K2 {work[n][1] / ms[n][0] * 1e-9:.2f} "
         f"TFLOP/s, {bounds[n][0] / ms[n][0]:.1%} of its bound"
         for n, lib in library.items() if n.startswith("logmvn_cap"))
+    timing += "".join(
+        f" | {n}: device {ev:.4f} ms (CUDA events, 50 launches; profiler {prof:.4f} ms), "
+        f"{bounds[n][0] / ev:.1%} of its bound"
+        for n, (ev, prof) in k1_device.items())
     timing += "".join(
         f" | {n}: device {dev:.4f} ms (profiler, 50 launches), {bounds[n][0] / dev:.1%} of its "
         f"bound; CUDA events' span {span:.4f} ms a launch"
@@ -919,7 +1049,8 @@ def main() -> None:
     n_stage = len(ablate.STAGES)
     n_flat = sum(ablate.CHAIN_LAYOUTS[v] != "packed" for v in ablate.CHAIN_LAYOUTS) + 2
     need = {"logmvn_ablate": n_stage, "logmvn_flat_chain": n_flat, "logmvn_cap": 2,
-            "logmvn_chain": sum(v == "packed" for v in ablate.CHAIN_LAYOUTS.values())}
+            "logmvn_chain": sum(v == "packed" for v in ablate.CHAIN_LAYOUTS.values()),
+            "absorption_all_weideman": 0}
     for name, n in need.items():
         check(launches.get(name, 0) == n, f"ablation: {name} launched {launches.get(name, 0)} != {n}")
     rel_errs, abs_errs = {}, {}
@@ -986,7 +1117,7 @@ def main() -> None:
     path_launches["civ"] = launches
     n_civ = len(civ_spectra)
     need = {"absorption_tail": n_civ, "logmvn_cap": n_civ, "logmvn_chain": n_civ,
-            "absorption_all": 0, "absorption_windowed": 0}
+            "absorption_all": 0, "absorption_windowed": 0, "absorption_all_weideman": 0}
     for name, n in need.items():
         check(launches.get(name, 0) == n, f"civ: {name} launched {launches.get(name, 0)} != {n}")
     worst_rel, worst_dp, p_clean, p_inj = 0.0, 0.0, [0.0], [1.0]
@@ -1013,6 +1144,32 @@ def main() -> None:
           f"{REL_GOLDEN_EVIDENCE}) | max |dp_civ| {worst_dp:.3e} (tol {ABS_GOLDEN_P_DLA}) | "
           f"argmax models equal")
 
+    # 13. the Weideman-window configuration: one K1 launch (poly=False, both
+    # families) a spectrum; then the LLS search in it, one a spectrum
+    results, launches = count_launches(
+        lambda: run_slice(batch=spectra[:NUM_WEIDEMAN], voigt_impl="windowed_weideman"))
+    path_launches["windowed_weideman"] = launches
+    need = {"absorption_all_weideman": NUM_WEIDEMAN, "absorption_all": 0,
+            "logmvn_cap": 5 * NUM_WEIDEMAN, "logmvn_chain": 5 * NUM_WEIDEMAN,
+            "absorption_tail": 0, "absorption_windowed": 0}
+    for name, n in need.items():
+        check(launches.get(name, 0) == n,
+              f"weideman: {name} launched {launches.get(name, 0)} != {n}")
+    weideman_line = (f"{NUM_WEIDEMAN} spectra, voigt_impl=windowed_weideman | launches "
+                     f"{launches} | {check_detections(results, truths[:NUM_WEIDEMAN], 'weideman')}"
+                     f" | golden: {golden_parity('windowed_weideman')}")
+    outs, launches = count_launches(lambda: run_lls(voigt_impl="windowed_weideman"))
+    path_launches["lls_weideman"] = launches
+    need = {"absorption_all_weideman": NUM_LLS, "absorption_all": 0,
+            "logmvn_cap": MAX_LYA * NUM_LLS, "logmvn_chain": MAX_LYA * NUM_LLS,
+            "absorption_tail": 0, "absorption_windowed": 0}
+    for name, n in need.items():
+        check(launches.get(name, 0) == n,
+              f"lls weideman: {name} launched {launches.get(name, 0)} != {n}")
+    print(f"[13 weideman] {weideman_line} || LLS search, {NUM_LLS} spectra: launches "
+          f"{launches} | {check_lls(outs, 'lls weideman')} | golden: "
+          f"{golden_lls('windowed_weideman')}")
+
     total = {name: sum(p.get(name, 0) for p in path_launches.values()) for name in KERNELS}
     also_ablate = {
         "logmvn_flat_chain[row]": [f"{ABLATE}:367", f"{ABLATE}:459", f"{ABLATE}:468"],
@@ -1025,7 +1182,12 @@ def main() -> None:
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library.get(name),
-         **({"device_ms": k3_device[name][0]} if name in k3_device else {})}
+         **({"device_ms": k3_device[name][0]} if name in k3_device else {}),
+         **({"device_ms": k1_device[name][0], "device_ms_profiler": k1_device[name][1],
+             "device_ms_lls_break": k1_device[f"{name}_lls"][0],
+             "bound_ms_lls_break": bounds[f"{name}_lls"][0]} if name in k1_device else {}),
+         **({"branch": "poly=False (voigt_pallas.py:357)"}
+            if name == "absorption_all_weideman" else {})}
         for name, (src, rep) in KERNELS.items()
     ] + [
         {"name": name, "route": "cuda", "source": ABLATE_SOURCE, "replaces": rep,

@@ -2,8 +2,8 @@
 
 Port of ``gpy_dla_detection_tpu/models/evidence.py``.  Each level's S
 per-sample likelihoods are one batched Woodbury evaluation (K2 then K3
-on the float32 path); the single-absorber profiles are computed once (K1;
-in the exact configuration the exact unit optical depth and K5; in the
+on the float32 path); the single-absorber profiles are computed once (K1, with
+its polynomial or its Weideman window; in the exact configuration the exact unit optical depth and K5; in the
 unfused windowed configuration the windowed unit optical depth parts and
 K6) and deeper levels gather rows of them by the importance-resampled
 parent indices.  The level-k evidence is
@@ -35,7 +35,7 @@ from ..params import Parameters
 from .learned import SpectrumModel
 
 
-VOIGT_IMPLS = ("windowed", "exact", "windowed_unfused")
+VOIGT_IMPLS = ("windowed", "exact", "windowed_unfused", "windowed_weideman")
 # absorption-profile families: "dla" = Lyman series only, "lls" = Lyman
 # series plus the Lyman-limit break
 PROFILES = ("dla", "lls")
@@ -53,11 +53,14 @@ def single_absorber_profiles(
     column-density family sharing the redshift samples.
 
     :param voigt_impl: float32 evaluation: ``"windowed"`` runs K1 for all
-        families in one launch; ``"exact"`` evaluates the exact unit
-        optical depth once and runs K5 once per family (the reference's
-        ``GPY_DLA_FAST_VOIGT=0`` configuration); ``"windowed_unfused"``
-        builds the windowed unit optical depth parts once and runs K6
-        once per family (the reference's ``GPY_DLA_FUSED_ABS=0``).  On
+        families in one launch; ``"windowed_weideman"`` runs K1 with the
+        Weideman rational and continued fraction in the windows in place of
+        the per-line polynomial (the reference's ``GPY_DLA_FUSED_POLY=0``);
+        ``"exact"`` evaluates the exact unit optical depth once and runs K5
+        once per family (the reference's ``GPY_DLA_FAST_VOIGT=0``
+        configuration); ``"windowed_unfused"`` builds the windowed unit
+        optical depth parts once and runs K6 once per family (the
+        reference's ``GPY_DLA_FUSED_ABS=0``).  On
         the CPU they run the kernels' twins.  float64 is always exact (the
         CPU conformance path), with one unit optical depth serving every
         family.
@@ -72,8 +75,9 @@ def single_absorber_profiles(
     if profile not in PROFILES:
         raise ValueError(f"profile must be one of {PROFILES}, got {profile!r}")
     lls = profile == "lls"
-    if wavelengths.dtype == torch.float32 and voigt_impl == "windowed":
-        return absorption_all(wavelengths, z_samples, nhis, num_lines, lls_break=lls)
+    if wavelengths.dtype == torch.float32 and voigt_impl in ("windowed", "windowed_weideman"):
+        return absorption_all(wavelengths, z_samples, nhis, num_lines, lls_break=lls,
+                              poly=voigt_impl == "windowed")
     if wavelengths.dtype == torch.float32 and voigt_impl == "windowed_unfused":
         parts = windowed_tau_parts(wavelengths, z_samples, num_lines)
         if not lls:

@@ -145,8 +145,10 @@ def lls_log_evidences(
     :param generator: drives the importance resampling; on that device.
     :param base_inds_override: optional (max_lya - 1, S) resampling indices
         replacing the draws.
-    :param voigt_impl: ``"windowed"`` (K1 with the break), ``"exact"`` or
-        ``"windowed_unfused"`` (see ``models.evidence.single_absorber_profiles``).
+    :param voigt_impl: ``"windowed"`` (K1 with the break),
+        ``"windowed_weideman"`` (K1 with the break and the Weideman window),
+        ``"exact"`` or ``"windowed_unfused"`` (see
+        ``models.evidence.single_absorber_profiles``).
     """
     device, dtype = learned.mu.device, learned.mu.dtype
     model = build_spectrum_model(learned, to_torch(spec, device, dtype), params)
@@ -249,6 +251,7 @@ def lls_inference_many(
     params: Parameters,
     batch_size: int = 8,
     voigt_impl: str = "windowed",
+    base_inds_override=None,
 ) -> list[tuple[float, QMCEvidenceResult]]:
     """The LLS search over many spectra.  Each batch of ``batch_size``
     spectra is stacked, moved to the device and modelled in one pass; the
@@ -259,19 +262,29 @@ def lls_inference_many(
 
     :param specs: any iterable of preprocessed spectra.
     :param voigt_impl: as for :func:`lls_log_evidences`.
+    :param base_inds_override: optional (n_spectra, max_lya - 1, S)
+        resampling indices replacing the draws, in the order of ``specs``.
     :return: per spectrum (null evidence, QMC result as numpy arrays).
     """
     device, dtype = learned.mu.device, learned.mu.dtype
     sample_t = sample_tensors(samples, device, dtype)
+    if base_inds_override is not None:
+        base_inds_override = torch.as_tensor(
+            np.asarray(base_inds_override, np.int64), device=device
+        )
     it = iter(specs)
     out = []
     while batch := list(islice(it, batch_size)):
         models = build_spectrum_model(learned, to_torch(stack(batch), device, dtype), params)
         null = null_log_evidence(models)
+        first = len(out)
         results = [
             qmc_log_evidences(
                 SpectrumModel(*[f[i] for f in models]), *sample_t, generator,
                 max_lya, params, voigt_impl=voigt_impl, profile="lls",
+                base_inds_override=(
+                    None if base_inds_override is None else base_inds_override[first + i]
+                ),
             )
             for i in range(len(batch))
         ]

@@ -67,9 +67,9 @@ def compute_evidences(
 
     :param base_inds_override: optional (max_dlas - 1, S) resampling
         indices replacing the draws of the DLA chain.
-    :param voigt_impl: ``"windowed"`` (K1), ``"exact"`` (exact unit
-        optical depth + K5) or ``"windowed_unfused"`` (windowed parts +
-        K6).
+    :param voigt_impl: ``"windowed"`` (K1), ``"windowed_weideman"`` (K1
+        with the Weideman window), ``"exact"`` (exact unit optical depth +
+        K5) or ``"windowed_unfused"`` (windowed parts + K6).
     """
     model = build_spectrum_model(learned, spec, params)
     return EvidenceOutputs(

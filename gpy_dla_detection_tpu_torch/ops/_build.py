@@ -50,13 +50,14 @@ _lib: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # wl, P, z, S, nhi, F, line_params, num_lines, far_lines, lls_break,
-    # inv, c_cgs, sqrt_pi, out, stream
-    "absorption_all_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I,
-                              _F, _F, _F, _P, _P],
+    # wl, P, z, S, nhi, F, num_lines, far_lines, lls_break, poly, then the
+    # geometry (warps a block, shared bytes, grid), out, stream
+    "absorption_all_launch": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _P, _P],
+    # the line table: host floats, their count, stream
+    "absorption_all_upload": [_P, _I, _P],
     # unit_tau, nhi, S, P, taps, out, stream
     "absorption_tail_launch": [_P, _P, _I, _I, _P, _P, _P],
     # far, corr, c0, nhi, S, P_pad, P, L, taps, out, stream

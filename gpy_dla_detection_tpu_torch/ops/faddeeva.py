@@ -64,8 +64,13 @@ def _wofz_weideman(x: torch.Tensor, y: torch.Tensor):
     # w = 2 P(Z) / (L - iz)^2 + (1 / sqrt(pi)) / (L - iz)
     inv2_r = (dr * dr - x * x) * inv_s * inv_s
     inv2_i = 2.0 * dr * x * inv_s * inv_s
-    w_re = 2.0 * (pr * inv2_r - pi * inv2_i) + dr * inv_s / SQRT_PI
-    w_im = 2.0 * (pr * inv2_i + pi * inv2_r) + x * inv_s / SQRT_PI
+    # sqrt(pi) as a tensor: PyTorch divides a CUDA tensor by a Python
+    # scalar as a product with the scalar's reciprocal, one rounding more
+    # than the CPU and the reference take, and near a line centre, where
+    # this sum cancels, that rounding shows in float32
+    sqrt_pi = torch.full_like(inv_s, SQRT_PI)
+    w_re = 2.0 * (pr * inv2_r - pi * inv2_i) + dr * inv_s / sqrt_pi
+    w_im = 2.0 * (pr * inv2_i + pi * inv2_r) + x * inv_s / sqrt_pi
     return w_re, w_im
 
 

@@ -7,7 +7,8 @@ QMC marginalization then loops over the spectra, each level launching the
 likelihood kernels over all S samples of one spectrum.  When the DLA and
 subDLA sample sets share their redshift offsets (as the reference's
 sample files do), one redshift evaluation serves both families: one K1
-launch by default (``voigt_impl="windowed"``); in the exact configuration
+launch by default (``voigt_impl="windowed"``, or with the Weideman window
+``"windowed_weideman"``); in the exact configuration
 (``voigt_impl="exact"``) one exact unit optical depth and one K5 launch
 per family; in the unfused windowed configuration
 (``voigt_impl="windowed_unfused"``) one windowed unit optical depth in
@@ -66,9 +67,10 @@ def batch_evidences(
         profile evaluation serves both families.
     :param base_inds_override: optional (B, max_dlas - 1, S) resampling
         indices replacing the draws of each spectrum's DLA chain.
-    :param voigt_impl: ``"windowed"`` (K1), ``"exact"`` (exact unit
-        optical depth + K5) or ``"windowed_unfused"`` (windowed parts +
-        K6); see ``models.evidence.single_absorber_profiles``.
+    :param voigt_impl: ``"windowed"`` (K1), ``"windowed_weideman"`` (K1
+        with the Weideman window), ``"exact"`` (exact unit optical depth +
+        K5) or ``"windowed_unfused"`` (windowed parts + K6); see
+        ``models.evidence.single_absorber_profiles``.
     """
     models = build_spectrum_model(learned, specs, params)
     null = null_log_evidence(models)
@@ -118,8 +120,8 @@ def dispatch_batch(
 
     :param base_inds_override: optional (B, max_dlas - 1, S) resampling
         indices replacing the draws (reproduces a reference run).
-    :param voigt_impl: ``"windowed"`` (default, K1), ``"exact"`` or
-        ``"windowed_unfused"``.
+    :param voigt_impl: ``"windowed"`` (default, K1),
+        ``"windowed_weideman"``, ``"exact"`` or ``"windowed_unfused"``.
     """
     device, dtype = learned.mu.device, learned.mu.dtype
     shared = np.array_equal(
@@ -190,9 +192,11 @@ def process_batch(
         model's device.
     :param base_inds_override: optional (B, max_dlas - 1, S) resampling
         indices replacing the draws.
-    :param voigt_impl: ``"windowed"`` (default, K1), ``"exact"`` (exact
-        unit optical depth + K5, the reference's ``GPY_DLA_FAST_VOIGT=0``)
-        or ``"windowed_unfused"`` (windowed parts + K6, the reference's
+    :param voigt_impl: ``"windowed"`` (default, K1),
+        ``"windowed_weideman"`` (K1 with the Weideman window, the
+        reference's ``GPY_DLA_FUSED_POLY=0``), ``"exact"`` (exact unit
+        optical depth + K5, the reference's ``GPY_DLA_FAST_VOIGT=0``) or
+        ``"windowed_unfused"`` (windowed parts + K6, the reference's
         ``GPY_DLA_FUSED_ABS=0``).
     """
     out = dispatch_batch(

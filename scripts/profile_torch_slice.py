@@ -6,8 +6,9 @@ per kernel name (top 15), the device busy time against both wall times,
 and the card's name and power limit; with ``--trace PATH`` also writes
 the Chrome trace there.  Imports no JAX and nothing of the JAX package.
 
-Paths (``--path``): ``windowed`` (default), ``exact`` and
-``windowed_unfused`` run ``process_batch`` in that Voigt configuration on
+Paths (``--path``): ``windowed`` (default), ``exact``,
+``windowed_unfused`` and ``windowed_weideman`` run ``process_batch`` in
+that Voigt configuration on
 the 16 synthetic spectra of ``chip_smoke.py`` at ``Parameters()``;
 ``lls`` runs ``lls_inference_many`` on the 8 LLS spectra of
 ``chip_smoke.py`` at the LLS search's width.
@@ -50,7 +51,7 @@ from gpy_dla_detection_tpu_torch.parallel.batch import process_batch  # noqa: E4
 
 NUM_SPECTRA = 16
 NUM_LLS = 8
-PATHS = ("windowed", "exact", "windowed_unfused", "lls")
+PATHS = ("windowed", "exact", "windowed_unfused", "windowed_weideman", "lls")
 
 
 def main() -> None:

@@ -8,7 +8,10 @@ without the suite's conftest:
 
 Tolerances, tightened from the ported kernels' budgets (1e-5; 2e-6 |ll|)
 to what the card measures (2.4e-7; 3.7e-7 |ll|): K1 <= 2e-6 absolute, with
-and without the Lyman-limit break; K5 and K6 <= 1e-6 absolute (K5
+and without the Lyman-limit break, at 1, 3, 8 and 31 lines, P = 7 to 1,670,
+F = 1 to 7 and S = 1 to 10,000; K1 with poly=False (the Weideman window)
+<= 5e-4 absolute and, against the float64 exact profile, within 1.5x the
+twin's own error or 1e-4; K5 and K6 <= 1e-6 absolute (K5
 measured 2.4e-7); K2 and K3 |dll| <= 1e-6 |ll|, with
 |ll| the largest magnitude of the sample set, at the main path's even
 k = 20 and at odd k (the rank-1 chain variant's case); K2 also at the
@@ -46,19 +49,31 @@ from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
     packed_pair_basis,
 )
 from gpy_dla_detection_tpu_torch.ops.voigt import (
+    instrumental_broadening,
+    lyman_limit_unit_tau,
     unit_lyman_optical_depth,
     windowed_tau_parts,
 )
 from gpy_dla_detection_tpu_torch.ops.voigt_kernels import (
+    K1_MAX_FAMILIES,
+    K1_MAX_LINES,
+    K1_WARPS,
     absorption_all,
     absorption_all_reference,
     absorption_tail,
     absorption_tail_reference,
     absorption_windowed,
     absorption_windowed_reference,
+    k1_launch_name,
 )
 
 TOL_K1 = 2e-6
+# K1 with poly=False (the Weideman rational and the continued fraction):
+# the mutual bound of two float32 Weideman evaluations (tests/test_voigt.py),
+# and against the float64 exact profile at most 1.5x the twin's own error
+# or TOL_TRUTH_FLOOR
+TOL_K1_WEIDEMAN = 5e-4
+TOL_TRUTH_FLOOR = 1e-4
 TOL_K5 = 1e-6
 TOL_K6 = 1e-6
 REL_K23 = 1e-6
@@ -310,6 +325,97 @@ def test_absorption_kernel_with_lyman_limit_break_matches_twin(cuda_device):
     assert float((got - want).abs().max()) <= TOL_K1
     (plain,) = absorption_all(wl, z, (nhi,))
     assert float((plain - got).max()) > 0.5  # the break is in
+
+
+# K1 over its range: line counts 1, 3 (the compiled main path), 8 and the
+# table's 31; P from one output pixel to the LLS search's 1,670, with and
+# without the break; F = 1-3 and 7 (two launches); S = 1 to 10,000
+K1_LINES = (1, 3, 8, K1_MAX_LINES)
+K1_PIXEL_CASES = [(7, False), (301, False), (1286, False), (1670, False), (1670, True)]
+
+
+def _k1_inputs(device, P, S, F, lls_break, seed=11):
+    """A log grid from 2.9 x Lya (or, with the break, from 4.2 x 850 A, the
+    LLS search's window), redshifts that put line centres on it, and F
+    families of column densities cycling DLA, subDLA and LLS ranges."""
+    rng = np.random.default_rng(seed)
+    start = 850.0 * 4.2 if lls_break else 1215.67 * 2.9
+    wl = (start * 10 ** (1e-4 * np.arange(P))).astype(np.float32)
+    z = (rng.uniform(3.0, 3.6, S) if lls_break else rng.uniform(1.9, 3.3, S)).astype(np.float32)
+    ranges = [(20.0, 23.0), (19.5, 20.0), (17.2, 20.5)]
+    nhis = [(10 ** rng.uniform(*ranges[f % 3], S)).astype(np.float32) for f in range(F)]
+    put = lambda x: torch.as_tensor(x, device=device)
+    return put(wl), put(z), tuple(put(n) for n in nhis)
+
+
+def _exact_profiles(wl, z, nhis, num_lines, lls_break):
+    """The float64 exact profiles on the card: the exact unit optical depth
+    (plus the break) of every line, exp and the 7-tap convolution."""
+    wl64, z64 = wl.double(), z.double()
+    unit = unit_lyman_optical_depth(wl64, z64, num_lines)
+    if lls_break:
+        unit = unit + lyman_limit_unit_tau(wl64, z64)
+    return [instrumental_broadening(torch.exp(-n.double()[:, None] * unit)) for n in nhis]
+
+
+def _check_k1(wl, z, nhis, num_lines, lls_break, poly):
+    name, other = k1_launch_name(poly), k1_launch_name(not poly)
+    before = dict(_build.launch_counts)
+    got = absorption_all(wl, z, nhis, num_lines, lls_break, poly)
+    torch.cuda.synchronize()
+    launches = -(-len(nhis) // K1_MAX_FAMILIES)
+    assert _build.launch_counts[name] == before.get(name, 0) + launches
+    assert _build.launch_counts[other] == before.get(other, 0)
+    want = absorption_all_reference(wl, z, nhis, num_lines, lls_break, poly)
+    truth = None if poly else _exact_profiles(wl, z, nhis, num_lines, lls_break)
+    for f, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == (z.shape[0], wl.shape[0] - 6)
+        err = float((g - w).abs().max())
+        if poly:
+            assert err <= TOL_K1, (f, err)
+            continue
+        assert err <= TOL_K1_WEIDEMAN, (f, err)
+        e_kernel = float((g.double() - truth[f]).abs().max())
+        e_twin = float((w.double() - truth[f]).abs().max())
+        assert e_kernel <= max(1.5 * e_twin, TOL_TRUTH_FLOOR), (f, e_kernel, e_twin)
+
+
+@pytest.mark.parametrize("poly", [True, False])
+@pytest.mark.parametrize("P, lls_break", K1_PIXEL_CASES)
+@pytest.mark.parametrize("num_lines", K1_LINES)
+def test_absorption_kernel_over_lines_and_pixel_counts(cuda_device, num_lines, P, lls_break, poly):
+    wl, z, nhis = _k1_inputs(cuda_device, P, 1001, 2, lls_break)
+    _check_k1(wl, z, nhis, num_lines, lls_break, poly)
+
+
+@pytest.mark.parametrize("poly", [True, False])
+@pytest.mark.parametrize("F", [1, 2, 3, 7])
+@pytest.mark.parametrize("S", [1, 33, 1001, 10_000])
+def test_absorption_kernel_over_sample_and_family_counts(cuda_device, S, F, poly):
+    wl, z, nhis = _k1_inputs(cuda_device, 1286, S, F, False)
+    _check_k1(wl, z, nhis, 3, False, poly)
+
+
+@pytest.mark.parametrize("field, value", [("warps", K1_WARPS // 2), ("warps", 2 * K1_WARPS),
+                                          ("shared_bytes", -4), ("grid", 0)])
+def test_absorption_kernel_refuses_a_geometry_it_was_not_compiled_for(
+        cuda_device, monkeypatch, field, value):
+    """The launcher checks what its safety needs: the compiled block, rings
+    for every family, a grid; a refused launch raises and is not counted."""
+    from gpy_dla_detection_tpu_torch.ops import voigt_kernels as V
+
+    right = V.k1_geometry
+
+    def wrong(S, P, F, sms):
+        g = right(S, P, F, sms)
+        return g._replace(**{field: g.shared_bytes + value if field == "shared_bytes" else value})
+
+    monkeypatch.setattr(V, "k1_geometry", wrong)
+    wl, z, nhis = _k1_inputs(cuda_device, 1286, 100, 2, False)
+    before = _build.launch_counts["absorption_all"]
+    with pytest.raises(RuntimeError):
+        absorption_all(wl, z, nhis)
+    assert _build.launch_counts["absorption_all"] == before
 
 
 def _rel_err_nan_equal(got, want):

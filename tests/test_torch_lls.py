@@ -213,7 +213,8 @@ def _p_absorber(null_ev, evs):
     return 1.0 - TL.lls_model_posteriors(float(null_ev), np.asarray(evs, np.float64))[0]
 
 
-@pytest.mark.parametrize("voigt_impl", ["windowed", "exact", "windowed_unfused"])
+@pytest.mark.parametrize("voigt_impl", ["windowed", "exact", "windowed_unfused",
+                                        "windowed_weideman"])
 def test_lls_float64_matches_jax(lls_inputs, voigt_impl):
     """float64 is the exact path in every configuration."""
     for (null_ev, got), (j_null, want) in zip(_run_single(lls_inputs, torch.float64, voigt_impl),
@@ -228,15 +229,9 @@ def test_lls_float64_matches_jax(lls_inputs, voigt_impl):
         np.testing.assert_array_equal(got.base_sample_inds.numpy(), np.asarray(want.base_sample_inds))
 
 
-@pytest.mark.parametrize("voigt_impl", ["windowed", "exact", "windowed_unfused"])
-def test_lls_float32_matches_jax_float64(lls_inputs, voigt_impl):
-    """float32: K1's twin with the break (windowed), the exact unit tau
-    plus the break and K5's twin (exact), or the placed windowed unit tau
-    plus the break and K5's twin (windowed_unfused), against the JAX
-    float64 run."""
-    results = _run_single(lls_inputs, torch.float32, voigt_impl)
+def _assert_lls_float32_matches_float64(results, jax_results):
     p_inj = []
-    for (null_ev, got), (j_null, want) in zip(results, lls_inputs[-1]):
+    for (null_ev, got), (j_null, want) in zip(results, jax_results):
         got_all = np.concatenate([[float(null_ev)], got.log_evidences.numpy()]).astype(np.float64)
         want_all = np.concatenate([[float(j_null)], np.asarray(want.log_evidences)])
         scale = np.abs(want_all).max()
@@ -247,6 +242,32 @@ def test_lls_float32_matches_jax_float64(lls_inputs, voigt_impl):
             np.argmax(JL.lls_model_posteriors(float(j_null), np.asarray(want.log_evidences)))
         p_inj.append(p_got)
     assert p_inj[0] < 0.1 and p_inj[1] > 0.9  # the injected LLS is found
+
+
+@pytest.mark.parametrize("voigt_impl", ["windowed", "exact", "windowed_unfused",
+                                        "windowed_weideman"])
+def test_lls_float32_matches_jax_float64(lls_inputs, voigt_impl):
+    """float32: K1's twin with the break (windowed; windowed_weideman with
+    the Weideman window), the exact unit tau plus the break and K5's twin
+    (exact), or the placed windowed unit tau plus the break and K5's twin
+    (windowed_unfused), against the JAX float64 run."""
+    _assert_lls_float32_matches_float64(
+        _run_single(lls_inputs, torch.float32, voigt_impl), lls_inputs[-1])
+
+
+def test_lls_inference_many_windowed_weideman_matches_jax_float64(lls_inputs):
+    """The batched LLS search in the Weideman-window configuration, float32,
+    with the JAX run's resampling indices, against the JAX float64 run."""
+    params, arrays, samples, specs, base, jax_results = lls_inputs
+    outs = TL.lls_inference_many(
+        _port_learned(arrays, torch.float32), iter(specs), samples, torch.Generator().manual_seed(0),
+        MAX_LYA, params, batch_size=2, voigt_impl="windowed_weideman", base_inds_override=base)
+    assert len(outs) == len(specs)
+    for (_, got), b in zip(outs, base):
+        np.testing.assert_array_equal(got.base_sample_inds, b)
+    _assert_lls_float32_matches_float64(
+        [(null_ev, res._replace(log_evidences=torch.as_tensor(res.log_evidences)))
+         for null_ev, res in outs], jax_results)
 
 
 def test_lls_inference_many_matches_single_path(lls_inputs):

@@ -8,7 +8,8 @@
   evidences within 1e-4 of the spectrum's largest |log evidence|,
   |dp_dla| <= 1e-3, same argmax model.
 * the same two comparisons in the exact-Voigt configuration
-  (``voigt_impl="exact"``: exact unit optical depth + K5's twin).
+  (``voigt_impl="exact"``: exact unit optical depth + K5's twin), and the
+  float32 one with the Weideman window (``voigt_impl="windowed_weideman"``);
 * a chi-square test of the port's own resampler;
 * a subprocess that blocks ``jax`` and the JAX package and still imports
   the port and runs its slice and an MCMC chain (the card's machine has
@@ -126,6 +127,15 @@ def test_float64_slice_matches_jax(slice_inputs):
 
 def test_float32_slice_matches_jax_float64(slice_inputs):
     _assert_float32_matches_float64(_run_port(slice_inputs, torch.float32), slice_inputs[-1])
+
+
+def test_windowed_weideman_configuration_float32_matches_jax_float64(slice_inputs):
+    """voigt_impl="windowed_weideman" (the reference's GPY_DLA_FUSED_POLY=0)
+    in float32: K1's twin with the Weideman rational and the continued
+    fraction in the windows, against the JAX float64 run, as the default
+    configuration is held."""
+    _assert_float32_matches_float64(
+        _run_port(slice_inputs, torch.float32, "windowed_weideman"), slice_inputs[-1])
 
 
 def test_exact_configuration_float64_matches_jax(slice_inputs):
