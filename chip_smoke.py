@@ -66,7 +66,21 @@ Phases, one line each; any failure exits non-zero before the result:
      with its launch counts, detections and golden parity as in phase 5;
      then the LLS search in it, with launch counts, detections and golden
      parity as in phase 8
-Every other phase asserts that the Weideman window is never launched.
+ 14. compact profile storage (abs_dtype=torch.int16: int16 codes round(a *
+     32767), the reference's GPY_DLA_ABS_DTYPE=i16 and i16p): the int16
+     instantiations of K1 (both windows, with and without the break), K5 (at
+     10,000 and 16 rows), K6 and K2 (0 and 3 streams, N = 1,280 and 1,664)
+     against their twins by codes (max |dcode| <= 1; K2 |dll| <= 1e-6 |ll|,
+     and against K2 fed the codes decoded to float32); the default catalog
+     in int16 on 4 spectra and its golden parity with the JAX float64 int16
+     run (tests/data/torch_golden_i16.npz), the exact, unfused and Weideman
+     configurations and the LLS search in int16 on 4 spectra each, with
+     launch counts that show only the int16 instantiations, detections and
+     golden parity; then each int16 kernel's times beside the float32 one's
+     (interleaved), the chained-row gather, the default slice's device time
+     and peak memory per 16 spectra, and its spectra/s, in each storage
+Every other phase asserts that the Weideman window is never launched, and
+every phase before 14 that no int16 instantiation is.
 Then a JSON line of the kernels, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package: both are
@@ -94,12 +108,14 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_fullscale.npz"
 GOLDEN_LLS = ROOT / "tests" / "data" / "torch_golden_lls.npz"
 GOLDEN_CIV = ROOT / "tests" / "data" / "torch_golden_civ.npz"
+GOLDEN_I16 = ROOT / "tests" / "data" / "torch_golden_i16.npz"
 ABLATE_SCRIPT = ROOT / "scripts" / "kernel_ablate_torch.py"
 NUM_SPECTRA = 16
 NUM_EXACT = 4
 NUM_UNFUSED = 4
 NUM_WEIDEMAN = 4
 NUM_LLS = 8
+NUM_I16 = 4  # spectra of each configuration in int16 storage (phase 14)
 MAX_DLAS = 4
 MAX_LYA = 4
 LLS_PARAMS = dict(num_dla_samples=10000, min_lambda=850.0, num_pixels_padded=1664)
@@ -121,6 +137,7 @@ TOL_K6 = 1e-6  # absolute, kernel vs twin; the same exp and 7-tap sum as K5
 REL_K23 = 1e-6  # |dll| <= REL_K23 * max|ll|, kernel vs twin (measured 3.7e-7)
 REL_K7 = 2e-6  # |d| <= REL_K7 * max|value|, the ablation's kernels vs twins
 REL_GOLDEN_EVIDENCE = 1e-4  # of the largest |log evidence|, float32 vs float64 JAX
+MAX_DCODE = 1  # int16 codes, kernel vs twin: a ~3e-7 float32 difference moves a code by one
 ABS_GOLDEN_P_DLA = 1e-3
 
 # published H100 SXM peaks (NVIDIA data sheet; 700 W): HBM3 bytes/s and
@@ -155,6 +172,22 @@ KERNELS = {
         "gpy_dla_detection_tpu_torch/csrc/logmvn_chain.cu",
         f"{LOGMVN}:497",
     ),
+}
+VOIGT_PALLAS = "gpy_dla_detection_tpu/ops/voigt_pallas.py"
+# the int16 instantiations (compact storage): each kernel's storage branch,
+# the encode at the store (_encode_store) or K2's decode (_decode)
+KERNELS_I16 = {
+    "absorption_all_i16": ("gpy_dla_detection_tpu_torch/csrc/absorption_all.cu",
+                           f"{VOIGT_PALLAS}:381", "poly=True, int16 store (voigt_pallas.py:61-73)"),
+    "absorption_all_weideman_i16": ("gpy_dla_detection_tpu_torch/csrc/absorption_all.cu",
+                                    f"{VOIGT_PALLAS}:381",
+                                    "poly=False, int16 store (voigt_pallas.py:61-73)"),
+    "absorption_tail_i16": ("gpy_dla_detection_tpu_torch/csrc/absorption_tail.cu",
+                            f"{VOIGT_PALLAS}:84", "int16 store (voigt_pallas.py:61-73)"),
+    "absorption_windowed_i16": ("gpy_dla_detection_tpu_torch/csrc/absorption_windowed.cu",
+                                f"{VOIGT_PALLAS}:174", "int16 store (voigt_pallas.py:61-73)"),
+    "logmvn_cap_i16": ("gpy_dla_detection_tpu_torch/csrc/logmvn_cap.cu", f"{LOGMVN}:152",
+                       "int16 a and streams, decoded in _assemble (logmvn_pallas.py:152-171)"),
 }
 ABLATE = "scripts/kernel_ablate.py"
 # the chain variants K3 stands for: rank-1 packed (odd k), flat rank-2, flat
@@ -239,8 +272,11 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_work(wl, z, n_fam, consts, far_lines, lls_break=False, poly=True) -> tuple[float, float]:
-    """Bytes and float32 operations of one K1 call on these inputs.  Per
+def k1_work(wl, z, n_fam, consts, far_lines, lls_break=False, poly=True,
+            elem=4) -> tuple[float, float]:
+    """Bytes and float32 operations of one K1 call on these inputs, storing
+    ``elem`` bytes an output (4 float32, 2 int16 codes: one more product
+    and a conversion an output).  Per
     sample, pixel and line: 6 for the line's x and |z|^2, then 4 in the
     far field; inside it, with poly, 38 on the disk fit (degree 16) or 30
     on the wing fit (degree 10, one division); without, 180 in the Weideman
@@ -265,17 +301,23 @@ def k1_work(wl, z, n_fam, consts, far_lines, lls_break=False, poly=True) -> tupl
             window = 180 * n_inner + 48 * (S * P - n_far - n_inner)
         ops += 6 * S * P + (4 * n_far if l < far_lines else 0) + window
     ops += n_fam * (2 * S * P + 14 * S * (P - 6))
-    n_bytes = 4 * (P + S + n_fam * S + n_fam * S * (P - 6))
+    if elem == 2:
+        ops += 2.0 * n_fam * S * (P - 6)
+    n_bytes = 4 * (P + S + n_fam * S) + elem * n_fam * S * (P - 6)
     return n_bytes, ops
 
 
-def k2_work(S, N, k, n_extra) -> tuple[float, float]:
+def k2_work(S, N, k, n_extra, elem=4) -> tuple[float, float]:
     """The two capacitance products (2 S N (k(k+1)/2 + k)) and ~12 + n_extra
-    elementwise operations per sample and pixel; reads A, the extras, the
-    rows, M and M_pair, writes B, u and misc."""
+    elementwise operations per sample and pixel (with int16 codes, elem = 2,
+    a decode more per stream); reads A and the extras (``elem`` bytes an
+    element), the rows, M and M_pair, writes B, u and misc."""
     kp = k * (k + 1) // 2
     ops = 2.0 * S * N * (kp + k) + S * N * (12 + n_extra)
-    n_bytes = 4.0 * (5 * N + N * k + N * kp + S * N * (1 + n_extra) + S * (kp + k + 2))
+    if elem == 2:
+        ops += 2.0 * S * N * (1 + n_extra)
+    n_bytes = (4.0 * (5 * N + N * k + N * kp + S * (kp + k + 2))
+               + elem * S * N * (1 + n_extra))
     return n_bytes, ops
 
 
@@ -286,18 +328,22 @@ def k3_work(S, k) -> tuple[float, float]:
     return 4.0 * S * (kp + k + 2 + 1), S * (k**3 / 3.0 + 2.0 * k * k)
 
 
-def k5_work(S, P) -> tuple[float, float]:
-    """An exp and a product per input pixel, 7 FMAs per output pixel;
-    reads unit_tau, nhi and the taps, writes the profile."""
-    return 4.0 * (S * P + S + 7 + S * (P - 6)), S * (2.0 * P + 14.0 * (P - 6))
+def k5_work(S, P, elem=4) -> tuple[float, float]:
+    """An exp and a product per input pixel, 7 FMAs per output pixel (with
+    int16 codes a product and a conversion more); reads unit_tau, nhi and
+    the taps, writes the profile at ``elem`` bytes an output."""
+    ops = S * (2.0 * P + 14.0 * (P - 6) + (2.0 * (P - 6) if elem == 2 else 0.0))
+    return 4.0 * (S * P + S + 7) + elem * S * (P - 6), ops
 
 
-def k6_work(S, P_pad, P, L) -> tuple[float, float]:
+def k6_work(S, P_pad, P, L, elem=4) -> tuple[float, float]:
     """256 adds per line window, an exp and a product per used pixel, 7
-    FMAs per output pixel; reads far, corr, c0 (int32), nhi and the taps,
-    writes the profile."""
-    n_bytes = 4.0 * (S * P_pad + S * L * 256 + S * L + S + 7 + S * (P - 6))
-    return n_bytes, S * (256.0 * L + 2.0 * P + 14.0 * (P - 6))
+    FMAs per output pixel (with int16 codes a product and a conversion
+    more); reads far, corr, c0 (int32), nhi and the taps, writes the profile
+    at ``elem`` bytes an output."""
+    n_bytes = 4.0 * (S * P_pad + S * L * 256 + S * L + S + 7) + elem * S * (P - 6)
+    ops = S * (256.0 * L + 2.0 * P + 14.0 * (P - 6) + (2.0 * (P - 6) if elem == 2 else 0.0))
+    return n_bytes, ops
 
 
 def ablation_work(stage: str, S, N, k) -> tuple[float, float]:
@@ -385,6 +431,7 @@ def main() -> None:
         logmvn_flat_chain,
         logmvn_flat_chain_reference,
     )
+    from gpy_dla_detection_tpu_torch.ops.logmvn import decode_profile_store
     from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
         assemble_reference,
         logmvn_cap,
@@ -412,6 +459,7 @@ def main() -> None:
         absorption_windowed,
         absorption_windowed_reference,
     )
+    from gpy_dla_detection_tpu_torch.models.pipeline import spectrum_result
     from gpy_dla_detection_tpu_torch.params import CIVParameters, Parameters
     from gpy_dla_detection_tpu_torch.parallel.batch import process_batch
 
@@ -573,7 +621,8 @@ def main() -> None:
     A = k1_out[0]
     S = A.shape[0]
     gen = torch.Generator(device=device).manual_seed(0)
-    extras3 = [A[torch.randint(0, S, (S,), generator=gen, device=device)] for _ in range(3)]
+    idx3 = [torch.randint(0, S, (S,), generator=gen, device=device) for _ in range(3)]
+    extras3 = [A[i] for i in idx3]
     rows = torch.stack([model.y, model.mu, model.omega2, model.v, model.mask.float()])
     Mp = packed_pair_basis(model.M)
     k2_err, k3_err, k2_rel = [], [], []
@@ -665,11 +714,11 @@ def main() -> None:
           f"{k1w[2]:.3e} / {k1w_lls[2]:.3e} | K1 at S={min(S, 1001)} max|d| "
           + ", ".join(f"{c}: {e:.2e}" for c, e in k1_cases.items()))
 
-    def run_slice(base_inds=None, batch=spectra, voigt_impl="windowed"):
+    def run_slice(base_inds=None, batch=spectra, voigt_impl="windowed", abs_dtype=None):
         return process_batch(
             learned, batch, dla_samples, sub_samples, prior, params,
             torch.Generator(device=device).manual_seed(1), MAX_DLAS,
-            base_inds_override=base_inds, voigt_impl=voigt_impl,
+            base_inds_override=base_inds, voigt_impl=voigt_impl, abs_dtype=abs_dtype,
         )
 
     def check_detections(results, batch_truths, label):
@@ -690,11 +739,18 @@ def main() -> None:
         return (f"clean max p_dla {max(p_clean):.3e} | injected min p_dla {min(p_inj):.6f}, "
                 f"max |MAP z - truth| {max(dzs):.2e}")
 
-    def count_launches(fn):
+    def count_launches(fn, int16=False):
+        """Run ``fn`` with the launch counts set to 0 just before; the
+        counts just after.  Unless ``int16``, no int16 instantiation may
+        launch (float32 storage is every entry point's default)."""
         _build.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
-        return out, dict(_build.launch_counts)
+        counts = dict(_build.launch_counts)
+        if not int16:
+            i16 = {n: c for n, c in counts.items() if n.endswith("_i16")}
+            check(not i16, f"an int16 instantiation launched on a float32 path: {i16}")
+        return out, counts
 
     path_launches = {}
 
@@ -721,23 +777,36 @@ def main() -> None:
                                         g["dla_z"], g["dla_log_nhi"])
     ]
 
-    def golden_parity(voigt_impl):
-        gres = run_slice(g["base_inds"].astype(np.int64), golden_spectra, voigt_impl)
+    def golden_parity(voigt_impl, abs_dtype=None, want_fixture=g):
+        """The fixture's spectra with its resampling indices (the int16
+        fixture's are the float64 one's) against ``want_fixture``; where it
+        holds evidences only (the int16 fixture), its p_dla and posteriors
+        come from the port's model selection (models.selection, equal to
+        the reference's) on those evidences."""
+        gres = run_slice(g["base_inds"].astype(np.int64), golden_spectra, voigt_impl, abs_dtype)
         worst_rel, worst_dp = 0.0, 0.0
-        for i, res in enumerate(gres):
+        label = f"{voigt_impl}{'' if abs_dtype is None else ' int16'}"
+        for i, (res, spec) in enumerate(zip(gres, golden_spectra)):
+            want_ev = (want_fixture["log_evidence_null"][i], want_fixture["log_evidence_subdla"][i],
+                       want_fixture["log_evidences_dla"][i])
+            if "p_dla" in want_fixture:
+                want_p, want_post = float(want_fixture["p_dla"][i]), want_fixture["model_posteriors"][i]
+            else:
+                sel = spectrum_result(
+                    want_ev[0], want_ev[2], np.array([want_ev[1]]), np.zeros((1, MAX_DLAS)),
+                    np.zeros((1, 1)), None, None, None, spec, sub_samples, prior, MAX_DLAS)
+                want_p, want_post = sel.p_dla, sel.selection.model_posteriors
             got = np.concatenate([[res.log_evidence_null, res.log_evidence_subdla],
                                   res.log_evidences_dla]).astype(np.float64)
-            want = np.concatenate([[g["log_evidence_null"][i], g["log_evidence_subdla"][i]],
-                                   g["log_evidences_dla"][i]])
+            want = np.concatenate([[want_ev[0], want_ev[1]], want_ev[2]])
             # relative to the spectrum's evidence scale (a log evidence may cross 0)
             rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
-            dp = abs(res.p_dla - float(g["p_dla"][i]))
+            dp = abs(res.p_dla - want_p)
             worst_rel, worst_dp = max(worst_rel, rel), max(worst_dp, dp)
-            check(rel <= REL_GOLDEN_EVIDENCE,
-                  f"golden {voigt_impl} {i}: log evidence rel {rel:.3e}")
-            check(dp <= ABS_GOLDEN_P_DLA, f"golden {voigt_impl} {i}: |dp_dla| {dp:.3e}")
-            check(np.argmax(res.selection.model_posteriors) == np.argmax(g["model_posteriors"][i]),
-                  f"golden {voigt_impl} {i}: argmax model differs")
+            check(rel <= REL_GOLDEN_EVIDENCE, f"golden {label} {i}: log evidence rel {rel:.3e}")
+            check(dp <= ABS_GOLDEN_P_DLA, f"golden {label} {i}: |dp_dla| {dp:.3e}")
+            check(np.argmax(res.selection.model_posteriors) == np.argmax(want_post),
+                  f"golden {label} {i}: argmax model differs")
         return (f"{len(gres)} spectra vs JAX float64 at full width, same indices | "
                 f"log evidence max rel {worst_rel:.3e} (tol {REL_GOLDEN_EVIDENCE}) | "
                 f"max |dp_dla| {worst_dp:.3e} (tol {ABS_GOLDEN_P_DLA}) | argmax models equal")
@@ -779,10 +848,10 @@ def main() -> None:
     # likelihood levels per spectrum; then the unfused windowed
     # configuration: the placed windowed unit tau plus the break and one K5
     # launch per spectrum (the reference places the LLS windows outside K6)
-    def run_lls(batch=lls_spectra, voigt_impl="windowed"):
+    def run_lls(batch=lls_spectra, voigt_impl="windowed", abs_dtype=None):
         return lls_inference_many(
             lls_learned, batch, lya_samples, torch.Generator(device=device).manual_seed(3),
-            MAX_LYA, lls_params, voigt_impl=voigt_impl)
+            MAX_LYA, lls_params, voigt_impl=voigt_impl, abs_dtype=abs_dtype)
 
     def p_absorber(null_ev, evs):
         return 1.0 - float(lls_model_posteriors(float(null_ev), np.asarray(evs, np.float64))[0])
@@ -807,7 +876,7 @@ def main() -> None:
 
     gl = np.load(GOLDEN_LLS)
 
-    def golden_lls(voigt_impl):
+    def golden_lls(voigt_impl, abs_dtype=None):
         worst_rel, worst_dp = 0.0, 0.0
         for i, (z, seed, inj, lz, ln) in enumerate(zip(
                 gl["z_qso"], gl["obs_seed"], gl["injected"], gl["lls_z"], gl["lls_log_nhi"])):
@@ -817,7 +886,7 @@ def main() -> None:
             null_ev, res = lls_log_evidences(
                 lls_learned, gspec, lya_samples, torch.Generator(device=device).manual_seed(4),
                 MAX_LYA, lls_params, base_inds_override=gl["base_inds"][i].astype(np.int64),
-                voigt_impl=voigt_impl)
+                voigt_impl=voigt_impl, abs_dtype=abs_dtype)
             got = np.concatenate([[float(null_ev)], res.log_evidences.cpu().numpy()]).astype(
                 np.float64)
             want = np.concatenate([[gl["log_evidence_null"][i]], gl["log_evidences_lls"][i]])
@@ -1170,7 +1239,246 @@ def main() -> None:
           f"{launches} | {check_lls(outs, 'lls weideman')} | golden: "
           f"{golden_lls('windowed_weideman')}")
 
-    total = {name: sum(p.get(name, 0) for p in path_launches.values()) for name in KERNELS}
+    # 14. compact profile storage: the int16 instantiations against their
+    # twins by codes, then every catalog configuration and the LLS search in
+    # int16, then the int16 kernels' times beside the float32 ones'
+    i16 = torch.int16
+
+    def dcode(got, want):
+        """max |dcode| and the share of codes that differ."""
+        d = (got.int() - want.int()).abs()
+        return int(d.max()), float((d > 0).float().mean())
+
+    def check_codes(got, want, label):
+        check(got.dtype == want.dtype == i16, f"{label}: not int16 codes")
+        m, share = dcode(got, want)
+        check(m <= MAX_DCODE, f"{label}: max |dcode| {m} > {MAX_DCODE}")
+        return m, share
+
+    codes_err, codes_share = {}, {}
+
+    def note_codes(name, m, share):
+        codes_err[name] = max(codes_err.get(name, 0), m)
+        codes_share[name] = max(codes_share.get(name, 0.0), share)
+
+    k1_16 = absorption_all(wl, z_s, nhis, out_dtype=i16)
+    for fam, (g16, w16) in enumerate(zip(k1_16, absorption_all_reference(wl, z_s, nhis,
+                                                                         out_dtype=i16))):
+        note_codes("absorption_all_i16", *check_codes(g16, w16, f"K1 int16 family {fam}"))
+    (A_lls16,) = absorption_all(wl_lls, z_lls, nhi_lls, lls_break=True, out_dtype=i16)
+    note_codes("absorption_all_i16", *check_codes(
+        A_lls16, absorption_all_reference(wl_lls, z_lls, nhi_lls, lls_break=True,
+                                          out_dtype=i16)[0], "K1 int16 with the break"))
+    for wl_, z_, nh_, lb in ((wl, z_s, nhis, False), (wl_lls, z_lls, nhi_lls, True)):
+        for g16, w16 in zip(absorption_all(wl_, z_, nh_, lls_break=lb, poly=False, out_dtype=i16),
+                            absorption_all_reference(wl_, z_, nh_, lls_break=lb, poly=False,
+                                                     out_dtype=i16)):
+            note_codes("absorption_all_weideman_i16",
+                       *check_codes(g16, w16, f"K1 Weideman int16 (break {lb})"))
+    for rows_n, (tau_r, nhi_r) in k5_rows.items():
+        note_codes("absorption_tail_i16", *check_codes(
+            absorption_tail(tau_r, nhi_r, i16), absorption_tail_reference(tau_r, nhi_r, i16),
+            f"K5 int16 ({rows_n} rows)"))
+    for n in nhis:
+        note_codes("absorption_windowed_i16", *check_codes(
+            absorption_windowed(parts, n, i16), absorption_windowed_reference(parts, n, i16),
+            "K6 int16"))
+    # K2 on K1's codes, chained streams gathered as codes; against its twin
+    # on the same codes and against K2 fed them decoded to float32
+    A16 = k1_16[0]
+    extras16 = [A16[i] for i in idx3]
+    dec = lambda c: decode_profile_store(c, torch.float32)
+    k2_16, k2_16_bitwise = [], []
+    for label, (r_, M_, Mp_, a_, ex_) in (
+            ("0 streams", (rows, model.M, Mp, A16, [])),
+            ("3 streams", (rows, model.M, Mp, A16, extras16)),
+            ("N=1664", (rows_lls, lls_model.M, Mp_lls, A_lls16, []))):
+        cap16 = logmvn_cap(r_, M_, Mp_, a_, ex_)
+        ll_ref16 = logmvn_chain_reference(*logmvn_cap_reference(r_, M_, Mp_, a_, ex_))
+        scale16 = float(ll_ref16.abs().max())
+        e16 = float((logmvn_chain_reference(*cap16) - ll_ref16).abs().max())
+        check(e16 <= REL_K23 * scale16, f"K2 int16 ({label}) |dll| {e16:.3e} > {REL_K23} x "
+                                        f"{scale16:.4g}")
+        cap32 = logmvn_cap(r_, M_, Mp_, dec(a_), [dec(e) for e in ex_])
+        e32 = float((logmvn_chain_reference(*cap16) - logmvn_chain_reference(*cap32)).abs().max())
+        check(e32 <= REL_K23 * scale16, f"K2 int16 ({label}) vs float32 on the decoded codes "
+                                        f"{e32:.3e}")
+        k2_16.append((label, e16, scale16, e32))
+        k2_16_bitwise.append(all(torch.equal(x, y) for x, y in zip(cap16, cap32)))
+    torch.cuda.synchronize()
+    err["logmvn_cap_i16"] = max(e for _, e, _, _ in k2_16)
+    for name in codes_err:
+        err[name] = codes_err[name] / 32767.0  # in absorption: a code is 1/32767
+    print(f"[14 int16 parity] max |dcode| (share of codes that differ) vs twin: "
+          + ", ".join(f"{n} {codes_err[n]} ({codes_share[n]:.2e})" for n in codes_err)
+          + f" (tol {MAX_DCODE}) | K2 int16 |dll| vs twin / vs K2 on the decoded codes: "
+          + ", ".join(f"{lab} {e:.3e} / {e32:.3e} (max|ll| {sc:.4g})" for lab, e, sc, e32 in k2_16)
+          + f" (tol {REL_K23} x max|ll|); bitwise equal to K2 on the decoded codes: "
+          + ", ".join(f"{lab} {b}" for (lab, *_), b in zip(k2_16, k2_16_bitwise)))
+
+    # the catalog configurations and the LLS search in int16: only the int16
+    # instantiations launch
+    gi = np.load(GOLDEN_I16)
+    check(np.array_equal(gi["z_qso"], g["z_qso"]) and np.array_equal(gi["obs_seed"], g["obs_seed"]),
+          "the int16 fixture's spectra are not the float64 fixture's")
+    profile_kernels = {"windowed": "absorption_all_i16",
+                       "windowed_weideman": "absorption_all_weideman_i16",
+                       "exact": "absorption_tail_i16", "windowed_unfused": "absorption_windowed_i16"}
+    i16_lines = []
+    for impl, kname in profile_kernels.items():
+        results, launches = count_launches(
+            lambda: run_slice(batch=spectra[:NUM_I16], voigt_impl=impl, abs_dtype=i16), int16=True)
+        path_launches[f"{impl}_i16"] = launches
+        per_spectrum = 1 if kname.startswith("absorption_all") else 2
+        need = {kname: per_spectrum * NUM_I16, "logmvn_cap_i16": 5 * NUM_I16,
+                "logmvn_chain": 5 * NUM_I16}
+        for name, n in need.items():
+            check(launches.get(name, 0) == n,
+                  f"{impl} int16: {name} launched {launches.get(name, 0)} != {n}")
+        others = {n: c for n, c in launches.items() if n not in need}
+        check(not others, f"{impl} int16: other kernels launched {others}")
+        i16_lines.append(
+            f"{impl}: launches {launches} | "
+            f"{check_detections(results, truths[:NUM_I16], f'{impl} int16')} | golden vs JAX "
+            f"float64 int16: {golden_parity(impl, i16, gi)}")
+    outs, launches = count_launches(lambda: run_lls(batch=lls_spectra[:NUM_I16], abs_dtype=i16),
+                                    int16=True)
+    path_launches["lls_i16"] = launches
+    need = {"absorption_all_i16": NUM_I16, "logmvn_cap_i16": MAX_LYA * NUM_I16,
+            "logmvn_chain": MAX_LYA * NUM_I16}
+    for name, n in need.items():
+        check(launches.get(name, 0) == n, f"lls int16: {name} launched {launches.get(name, 0)} != {n}")
+    others = {n: c for n, c in launches.items() if n not in need}
+    check(not others, f"lls int16: other kernels launched {others}")
+    i16_lines.append(f"LLS search: launches {launches} | {check_lls(outs, 'lls int16')} | golden "
+                     f"vs JAX float64 (float64 storage): {golden_lls('windowed', i16)}")
+    print(f"[14 int16 paths] {NUM_I16} spectra each, abs_dtype=torch.int16 || "
+          + " || ".join(i16_lines))
+
+    # times: each int16 kernel beside its float32 instantiation, in turns
+    # (f32, i16, i16, f32), device ms by CUDA events over 50 launches (K2
+    # by the profiler); host-synchronised medians as in phase 10
+    def turns(fn32, fn16, timer):
+        a, b, c, d = timer(fn32), timer(fn16), timer(fn16), timer(fn32)
+        return (a + d) / 2, (b + c) / 2
+
+    out_2_16 = torch.empty((2, S, wl.shape[0] - 6), dtype=i16, device=device)
+    out_1_16 = torch.empty((1, z_lls.shape[0], wl_lls.shape[0] - 6), dtype=i16, device=device)
+    dev_pairs = {
+        "absorption_all_i16": turns(
+            lambda: launch_absorption_all(wl, z_s, nhi_2, out_2),
+            lambda: launch_absorption_all(wl, z_s, nhi_2, out_2_16), events_ms),
+        "absorption_all_i16_lls": turns(
+            lambda: launch_absorption_all(wl_lls, z_lls, nhi_1, out_1, lls_break=True),
+            lambda: launch_absorption_all(wl_lls, z_lls, nhi_1, out_1_16, lls_break=True),
+            events_ms),
+        "absorption_all_weideman_i16": turns(
+            lambda: launch_absorption_all(wl, z_s, nhi_2, out_2, poly=False),
+            lambda: launch_absorption_all(wl, z_s, nhi_2, out_2_16, poly=False), events_ms),
+        "absorption_tail_i16": turns(
+            lambda: absorption_tail(*k5_rows[S]), lambda: absorption_tail(*k5_rows[S], i16),
+            events_ms),
+        "absorption_windowed_i16": turns(
+            lambda: absorption_windowed(parts, nhis[0]),
+            lambda: absorption_windowed(parts, nhis[0], i16), events_ms),
+    }
+    profiler_ms = lambda fn: device_ms(fn)[0]
+    for name, (r_, M_, Mp_, a32, ex32, a16, ex16) in (
+            ("logmvn_cap_i16", (rows, model.M, Mp, A, [], A16, [])),
+            ("logmvn_cap_i16_3", (rows, model.M, Mp, A, extras3, A16, extras16)),
+            ("logmvn_cap_i16_N1664", (rows_lls, lls_model.M, Mp_lls, A_lls, [], A_lls16, []))):
+        dev_pairs[name] = turns(lambda: logmvn_cap(r_, M_, Mp_, a32, ex32),
+                                lambda: logmvn_cap(r_, M_, Mp_, a16, ex16), profiler_ms)
+    # the chained-row gather of a DLA level: one (S, N) row gather by the
+    # resampled indices
+    dev_pairs["gather"] = turns(lambda: A[idx3[0]], lambda: A16[idx3[0]], events_ms)
+    # host-synchronised medians, kernel and twin (the table's card ms)
+    ms.update({
+        "absorption_all_i16": (
+            timed_median(lambda: absorption_all(wl, z_s, nhis, out_dtype=i16)),
+            timed_median(lambda: absorption_all_reference(wl, z_s, nhis, out_dtype=i16))),
+        "absorption_all_weideman_i16": (
+            timed_median(lambda: absorption_all(wl, z_s, nhis, poly=False, out_dtype=i16)),
+            timed_median(lambda: absorption_all_reference(wl, z_s, nhis, poly=False,
+                                                          out_dtype=i16))),
+        "absorption_tail_i16": (
+            timed_median(lambda: absorption_tail(*k5_rows[S], i16)),
+            timed_median(lambda: absorption_tail_reference(*k5_rows[S], i16))),
+        "absorption_windowed_i16": (
+            timed_median(lambda: absorption_windowed(parts, nhis[0], i16)),
+            timed_median(lambda: absorption_windowed_reference(parts, nhis[0], i16))),
+        "logmvn_cap_i16": (
+            timed_median(lambda: logmvn_cap(rows, model.M, Mp, A16, [])),
+            timed_median(lambda: logmvn_cap_reference(rows, model.M, Mp, A16, []))),
+    })
+    # K2's library yardstick on the codes: the two float32 products on the
+    # twin's w and r from the decoded codes (on no path)
+    _, w16_, r16_, *_ = assemble_reference(rows, A16)
+    library["logmvn_cap_i16"] = timed_median(lambda: (torch.matmul(w16_, Mp),
+                                                      torch.matmul(r16_, model.M)))
+    work.update({
+        "absorption_all_i16": k1_work(wl, z_s, 2, consts, min(params.num_lines, FAR_FIELD_LINES),
+                                      elem=2),
+        "absorption_all_i16_lls": k1_work(wl_lls, z_lls, 1, consts,
+                                          min(params.num_lines, FAR_FIELD_LINES),
+                                          lls_break=True, elem=2),
+        "absorption_all_weideman_i16": k1_work(wl, z_s, 2, consts,
+                                               min(params.num_lines, FAR_FIELD_LINES),
+                                               poly=False, elem=2),
+        "absorption_tail_i16": k5_work(*unit_tau.shape, elem=2),
+        "absorption_windowed_i16": k6_work(S, parts.far.shape[1], wl.shape[0],
+                                           parts.c0.shape[1], elem=2),
+        "logmvn_cap_i16": k2_work(S, A.shape[1], model.M.shape[1], 0, elem=2),
+        "logmvn_cap_i16_3": k2_work(S, A.shape[1], model.M.shape[1], 3, elem=2),
+        "logmvn_cap_i16_N1664": k2_work(S, A_lls.shape[1], lls_model.M.shape[1], 0, elem=2),
+        "logmvn_cap_3": k2_work(S, A.shape[1], model.M.shape[1], 3),
+    })
+    bounds = {name: bound(*w) for name, w in work.items()}
+
+    # the default slice of 16 spectra in each storage: device kernel time
+    # (profiler), peak device memory of one batch, spectra/s
+    def slice_device(abs_dtype):
+        run_slice(abs_dtype=abs_dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base_mem = torch.cuda.memory_allocated(device)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_slice(abs_dtype=abs_dtype)
+            torch.cuda.synchronize()
+        kernel_us = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type != torch.autograd.DeviceType.CPU)
+        return kernel_us / 1e3, (torch.cuda.max_memory_allocated(device) - base_mem) / 2**20
+
+    slice_dev = {}
+    for key in ("f32", "i16", "i16", "f32"):
+        d_ms, mem = slice_device(None if key == "f32" else i16)
+        slice_dev.setdefault(key, []).append((d_ms, mem))
+    rates = {"f32": slice_rate(spectra, "windowed")}
+    rates["i16"] = rate_of(lambda: run_slice(abs_dtype=i16), NUM_SPECTRA)
+    rates["f32_again"] = slice_rate(spectra, "windowed")
+    A_bytes = lambda t: t.numel() * t.element_size() / 2**20
+    print(f"[14 int16 timing] {card} | device ms float32 -> int16 (CUDA events over 50 launches, "
+          f"in turns f32, i16, i16, f32; K2 by the profiler): "
+          + ", ".join(f"{n} {a:.4f} -> {b:.4f}" for n, (a, b) in dev_pairs.items())
+          + " | bounds at int16 bytes: "
+          + ", ".join(f"{n} {bounds[n][0]:.4f} ms ({bounds[n][1]})"
+                      for n in dev_pairs if n in bounds)
+          + " | median of 10 synchronised calls, kernel vs twin: "
+          + ", ".join(f"{n} {ms[n][0]:.3f} vs {ms[n][1]:.3f} ms" for n in KERNELS_I16)
+          + f" | K2 int16 library yardstick {library['logmvn_cap_i16']:.3f} ms | default slice, "
+          f"{NUM_SPECTRA} spectra: device kernel ms (profiler) f32 "
+          + " / ".join(f"{d:.2f}" for d, _ in slice_dev["f32"]) + ", int16 "
+          + " / ".join(f"{d:.2f}" for d, _ in slice_dev["i16"]) + "; peak memory above the "
+          f"inputs, MiB: f32 " + " / ".join(f"{m:.1f}" for _, m in slice_dev["f32"])
+          + ", int16 " + " / ".join(f"{m:.1f}" for _, m in slice_dev["i16"])
+          + f"; profile arrays a spectrum (A of both families + 3 gathered streams): f32 "
+          f"{5 * A_bytes(A):.1f} MiB, int16 {5 * A_bytes(A16):.1f} MiB | spectra/s (median of 3 "
+          f"runs of {NUM_SPECTRA}): f32 {rates['f32']:.2f} / {rates['f32_again']:.2f}, int16 "
+          f"{rates['i16']:.2f}")
+
+    total = {name: sum(p.get(name, 0) for p in path_launches.values())
+             for name in list(KERNELS) + list(KERNELS_I16)}
     also_ablate = {
         "logmvn_flat_chain[row]": [f"{ABLATE}:367", f"{ABLATE}:459", f"{ABLATE}:468"],
         "logmvn_ablate[full]": [f"{ABLATE}:86", f"{ABLATE}:118"],
@@ -1195,6 +1503,14 @@ def main() -> None:
          "launches": n, "max_abs_err": e, "ms": k, "plain_ms": t, "bound_ms": b,
          "bound_by": by, "library_ms": lib, **row_extra.get(name, {})}
         for name, k, t, (b, by), n, lib, rep, e in kernel_rows
+    ] + [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "branch": branch,
+         "launches": total[name], "max_abs_err": err[name], "ms": ms[name][0],
+         "plain_ms": ms[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library.get(name), "device_ms": dev_pairs[name][1],
+         "device_ms_float32": dev_pairs[name][0],
+         **({"max_dcode": codes_err[name]} if name in codes_err else {})}
+        for name, (src, rep, branch) in KERNELS_I16.items()
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -55,6 +55,19 @@
 // reciprocal); both take the far field's approximate reciprocal and
 // ex2.approx for the family exps (<= ~3e-7 of the absorption in all;
 // TOL_K1 = 2e-6).
+//
+// Storage: float32, or int16 fixed-point codes round(a * 32767) (the
+// reference's GPY_DLA_ABS_DTYPE=i16 / i16p, ops/kernel_config.py), an
+// instantiation of its own.  Only the store differs: a lane's four values
+// become four codes, rounded half to even from the correctly rounded
+// product (as torch.round and jnp.round do; roundf would round half away
+// from zero), in one 8-byte store where the row allows it.  The codes
+// halve the output's bytes; a code is a float32 value's rounding, so the
+// twin's codes differ by at most one where a value sits near a half-step.
+// The kernel is issue-bound, and the encode's ~10 instructions a lane,
+// step and family cost more than the halved store bytes save (on an H100,
+// chip_smoke.py phase 14: +4-5% over float32 storage; rounding by adding
+// 1.5 * 2^23 in place of __float2int_rn saved 0.0007 ms of it).
 
 #include <cuda_runtime.h>
 
@@ -121,6 +134,7 @@ constexpr float kCfEps = 1e-30f;
 constexpr float kLymanLimit = 911.7641f;
 constexpr float kBreakScale = 6.3095732e-18f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kI16Scale = 32767.0f;  // ABS_I16_SCALE
 
 __constant__ float c_tab[kTableFloats];
 
@@ -301,6 +315,36 @@ __device__ __forceinline__ void add_line(int l, const Row<NL, POLY>& row, int fa
   }
 }
 
+// A lane's four outputs at pixels q0..q0 + 3 of a row of n_out: one 16-byte
+// (float32) or 8-byte (int16 codes) store where the row is aligned for it
+// (vec) and holds all four, else one store a pixel.
+__device__ __forceinline__ void store4(float* orow, int q0, int n_out, bool vec,
+                                       const float (&o)[4]) {
+  if (vec && q0 + 3 < n_out) {
+    *reinterpret_cast<float4*>(orow + q0) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (q0 + i < n_out) orow[q0 + i] = o[i];
+  }
+}
+
+__device__ __forceinline__ int16_t encode_i16(float a) {
+  return static_cast<int16_t>(__float2int_rn(__fmul_rn(a, kI16Scale)));
+}
+
+__device__ __forceinline__ void store4(int16_t* orow, int q0, int n_out, bool vec,
+                                       const float (&o)[4]) {
+  if (vec && q0 + 3 < n_out) {
+    *reinterpret_cast<short4*>(orow + q0) =
+        make_short4(encode_i16(o[0]), encode_i16(o[1]), encode_i16(o[2]), encode_i16(o[3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (q0 + i < n_out) orow[q0 + i] = encode_i16(o[i]);
+  }
+}
+
 // The unit optical depth at this lane's N pixels of wavelengths w.
 template <int NL, bool POLY, int N>
 __device__ __forceinline__ void unit_tau(const Row<NL, POLY>& row, int num_lines, int far_lines,
@@ -323,18 +367,20 @@ __device__ __forceinline__ void unit_tau(const Row<NL, POLY>& row, int num_lines
   }
 }
 
-template <int NL, bool POLY>
+template <int NL, bool POLY, typename OutT>
 __global__ void __launch_bounds__(32 * kWarps, Geometry::kBlocks)
 absorption_all_kernel(const float* __restrict__ wl, int P, const float* __restrict__ z, int S,
                       const float* __restrict__ nhi, int F, int num_lines, int far_lines,
-                      int lls_break, float* __restrict__ out) {
+                      int lls_break, OutT* __restrict__ out) {
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   float* const ring = reinterpret_cast<float*>(smem4) + warp * F * kRing;
   const int n_out = P - kHalo;
   const int nc = (n_out + kChunk - 1) / kChunk;
-  const bool vec_rows = (n_out & 3) == 0;  // out is 16-byte aligned (checked)
+  // out is 16-byte aligned (checked), so a row's groups of 4 are aligned
+  // for their store when a row is a whole number of them
+  const bool vec_rows = (n_out & 3) == 0;
   // the rows' chunks in one sequence, row by row: warp w of the grid's T
   // takes chunks w C / T up to (w + 1) C / T, a run of whole or partial rows
   const long long chunks = (long long)S * nc;  // < 2^31 (checked)
@@ -414,30 +460,39 @@ absorption_all_kernel(const float* __restrict__ wl, int P, const float* __restri
           for (int k = 1; k <= kHalo; ++k) acc = acc + c_tab[kTapsAt + k] * r[i + k];
           o[i] = acc;
         }
-        float* orow = out + ((size_t)f * S + s) * n_out;
         // without the store stage, a store no profile takes (o >= 0) keeps
         // the arithmetic alive
         if (!kStores && !(o[0] + o[1] + o[2] + o[3] < 0.0f)) continue;
-        if (vec_rows && q0 + 3 < n_out) {
-          *reinterpret_cast<float4*>(orow + q0) = make_float4(o[0], o[1], o[2], o[3]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (q0 + i < n_out) orow[q0 + i] = o[i];
-        }
+        store4(out + ((size_t)f * S + s) * n_out, q0, n_out, vec_rows, o);
       }
       __syncwarp();  // the next step overwrites slot c & 1
     }
   }
 }
 
-template <int NL, bool POLY>
+template <int NL, bool POLY, typename OutT>
 int launch(const float* wl, int P, const float* z, int S, const float* nhi, int F,
            int num_lines, int far_lines, int lls_break, int smem, int grid,
-           float* out, cudaStream_t stream) {
-  absorption_all_kernel<NL, POLY><<<grid, 32 * kWarps, smem, stream>>>(
-      wl, P, z, S, nhi, F, num_lines, far_lines, lls_break, out);
+           void* out, cudaStream_t stream) {
+  absorption_all_kernel<NL, POLY, OutT><<<grid, 32 * kWarps, smem, stream>>>(
+      wl, P, z, S, nhi, F, num_lines, far_lines, lls_break, static_cast<OutT*>(out));
   return (int)cudaGetLastError();
+}
+
+template <typename OutT>
+int launch_window(int num_lines, bool poly, const float* wl, int P, const float* z, int S,
+                  const float* nhi, int F, int far_lines, int lls_break, int smem, int grid,
+                  void* out, cudaStream_t st) {
+  if (num_lines == 3) {
+    return poly ? launch<3, true, OutT>(wl, P, z, S, nhi, F, num_lines, far_lines, lls_break,
+                                        smem, grid, out, st)
+                : launch<3, false, OutT>(wl, P, z, S, nhi, F, num_lines, far_lines, lls_break,
+                                         smem, grid, out, st);
+  }
+  return poly ? launch<0, true, OutT>(wl, P, z, S, nhi, F, num_lines, far_lines, lls_break,
+                                      smem, grid, out, st)
+              : launch<0, false, OutT>(wl, P, z, S, nhi, F, num_lines, far_lines, lls_break,
+                                       smem, grid, out, st);
 }
 
 }  // namespace
@@ -451,31 +506,27 @@ extern "C" int absorption_all_upload(const float* table, int n, void* stream) {
 }
 
 // The geometry (warps a block, shared bytes, grid) comes from
-// k1_geometry.  Refused: a problem the kernel cannot index (S < 1, P <= 6,
-// F outside 1..6, num_lines outside 1..31, far_lines outside 0..num_lines),
-// S x chunks a row >= 2^31, a block of other than the compiled
-// warps, shared memory short of the rings or beyond 48 KB, an empty grid,
-// and wavelengths or output not 16-byte aligned.
+// k1_geometry; store 0 writes float32, 1 int16 codes.  Refused: a problem
+// the kernel cannot index (S < 1, P <= 6, F outside 1..6, num_lines
+// outside 1..31, far_lines outside 0..num_lines), S x chunks a row >=
+// 2^31, a block of other than the compiled warps, shared memory short of
+// the rings or beyond 48 KB, an empty grid, another store, and wavelengths
+// or output not 16-byte aligned.
 extern "C" int absorption_all_launch(const float* wl, int P, const float* z, int S,
                                      const float* nhi, int F, int num_lines, int far_lines,
-                                     int lls_break, int poly, int warps, int smem,
-                                     int grid, float* out, void* stream) {
+                                     int lls_break, int poly, int store, int warps, int smem,
+                                     int grid, void* out, void* stream) {
   const int nc = (P - kHalo + kChunk - 1) / kChunk;
   if (S < 1 || P <= kHalo || F < 1 || F > kMaxFamilies || num_lines < 1 ||
       num_lines > kMaxLines || far_lines < 0 || far_lines > num_lines ||
       (long long)S * nc >= (1LL << 31) || warps != kWarps || grid < 1 ||
       smem < F * kWarps * kRing * (int)sizeof(float) || smem > 48 * 1024 ||
+      (store != 0 && store != 1) ||
       (reinterpret_cast<uintptr_t>(wl) & 15) || (reinterpret_cast<uintptr_t>(out) & 15))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (num_lines == 3) {
-    return poly ? launch<3, true>(wl, P, z, S, nhi, F, num_lines, far_lines, lls_break,
-                                  smem, grid, out, st)
-                : launch<3, false>(wl, P, z, S, nhi, F, num_lines, far_lines, lls_break,
-                                   smem, grid, out, st);
-  }
-  return poly ? launch<0, true>(wl, P, z, S, nhi, F, num_lines, far_lines, lls_break,
-                                smem, grid, out, st)
-              : launch<0, false>(wl, P, z, S, nhi, F, num_lines, far_lines, lls_break,
-                                 smem, grid, out, st);
+  return store ? launch_window<int16_t>(num_lines, poly, wl, P, z, S, nhi, F, far_lines,
+                                        lls_break, smem, grid, out, st)
+               : launch_window<float>(num_lines, poly, wl, P, z, S, nhi, F, far_lines,
+                                      lls_break, smem, grid, out, st);
 }

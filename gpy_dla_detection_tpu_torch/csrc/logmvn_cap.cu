@@ -48,6 +48,22 @@
 // bytes, and its w or r reads 2 distinct 16-byte words.  Threads past the
 // last column group (padding) load, assemble and sum like the others and
 // store nothing.
+//
+// Compact storage (the reference's GPY_DLA_ABS_DTYPE=i16 / i16p: the
+// _decode in _assemble).  A and the streams may arrive as int16 codes
+// round(a * 32767), all of one launch alike; an instantiation of its own
+// stages the codes as they are, in half the shared bytes (16 bytes are 8
+// codes; rows of TN + 8 codes keep the assembly's reads in distinct
+// banks), and decodes them in the assembly, code * (1 / 32767) rounded
+// once (__fmul_rn, so no FMA takes the product in), ahead of the same
+// float32 arithmetic: fed the same codes decoded to float32, the float32
+// instantiation computes the same values.  A row is staged 16 bytes a
+// copy where N % 8 == 0, 4 bytes (2 codes) where N is even, and by plain
+// loads and stores where N is odd (cp.async moves 4, 8 or 16 bytes, and
+// an odd-N row of codes need not be 4-byte aligned); the plain stores go
+// to the buffer no thread reads until the next barrier.  Rows past S
+// stage as zeros (a = 0) in every instantiation; their accumulators and
+// sums are their own and never stored.
 
 #include <cuda_runtime.h>
 
@@ -69,21 +85,29 @@ __host__ __device__ inline int padded_columns(int k, int kp) {
   return kTile * kWarpCG * cdiv(cdiv(kp, kTile) + cdiv(k, kTile), kWarpCG);
 }
 
-inline size_t shared_bytes(int ts, int tn, int ncp, int n_extra) {
-  return sizeof(float) * ((size_t)2 * (1 + n_extra) * ts * (tn + 8) +
-                          (size_t)2 * tn * ncp + (size_t)4 * tn * (ts + 4));
+// elem: bytes of a staged sample-stream element (4 float32, 2 int16 codes)
+inline size_t shared_bytes(int ts, int tn, int ncp, int n_extra, int elem) {
+  return (size_t)elem * 2 * (1 + n_extra) * ts * (tn + 8) +
+         sizeof(float) * ((size_t)2 * tn * ncp + (size_t)4 * tn * (ts + 4));
 }
 
-__device__ inline void cp_async16(float* dst, const float* src, int src_bytes) {
+__device__ inline void cp_async16(void* dst, const void* src, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(src_bytes));
 }
 
-__device__ inline void cp_async4(float* dst, const float* src, int src_bytes) {
+__device__ inline void cp_async4(void* dst, const void* src, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(src_bytes));
+}
+
+// a staged element as float32: float32 as it is, an int16 code decoded
+constexpr float kInvI16Scale = 1.0f / 32767.0f;  // 1 / ABS_I16_SCALE
+__device__ __forceinline__ float decode(float x) { return x; }
+__device__ __forceinline__ float decode(int16_t code) {
+  return __fmul_rn(static_cast<float>(code), kInvI16Scale);
 }
 
 __device__ inline void cp_async_commit() {
@@ -94,14 +118,15 @@ __device__ inline void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// VEC: the sample streams are staged 16 bytes a thread (N % 4 == 0 and
-// aligned rows), else 4 bytes a thread
-template <int TN, bool VEC>
+// T: the sample streams' storage (float, or int16_t codes).  VB: the bytes
+// of a staging copy, 16 (rows a whole number of 16-byte groups, aligned) or
+// 4 by cp.async, or 0: plain loads and stores (int16 codes of odd N)
+template <int TN, int VB, typename T>
 __global__ void __launch_bounds__(kMaxThreads, 1) logmvn_cap_kernel(
     const float* __restrict__ rows, int N, const float* __restrict__ M, int k,
-    const float* __restrict__ Mp, int kp, const float* __restrict__ A,
-    const float* __restrict__ e0, const float* __restrict__ e1,
-    const float* __restrict__ e2, int n_extra, int S, int TS,
+    const float* __restrict__ Mp, int kp, const T* __restrict__ A,
+    const T* __restrict__ e0, const T* __restrict__ e1,
+    const T* __restrict__ e2, int n_extra, int S, int TS,
     float* __restrict__ B, float* __restrict__ u, float* __restrict__ misc) {
   constexpr int TNP = TN + 8;  // staged row length (bank spread)
   const int TSP = TS + 4;      // w | r row length (4 x odd: bank spread)
@@ -114,9 +139,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) logmvn_cap_kernel(
   const int stream_stride = TS * TNP;
 
   extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);     // [2][streams][TS][TNP]
-  float* Mc = As + 2 * n_streams * stream_stride;  // [2][TN][ncp] (halves)
-  float* WR = Mc + 2 * TN * ncp;                   // [2][w | r][TN][TSP]
+  T* As = reinterpret_cast<T*>(smem4);  // [2][streams][TS][TNP]
+  // [2][TN][ncp] (halves); 16-byte aligned, TS being a multiple of 16
+  float* Mc = reinterpret_cast<float*>(As + 2 * n_streams * stream_stride);
+  float* WR = Mc + 2 * TN * ncp;  // [2][w | r][TN][TSP]
 
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
@@ -133,17 +159,22 @@ __global__ void __launch_bounds__(kMaxThreads, 1) logmvn_cap_kernel(
   auto stage_samples = [&](int c, int buf) {
     const int n0 = c * TN;
     for (int st = 0; st < n_streams; ++st) {
-      const float* src = st == 0 ? A : st == 1 ? e0 : st == 2 ? e1 : e2;
-      float* dst = As + (buf * n_streams + st) * stream_stride;
-      if (VEC) {
-        for (int e = tid; e < TS * (TN / 4); e += nthreads) {
-          const int sl = e / (TN / 4);
-          const int j = e % (TN / 4);
+      const T* src = st == 0 ? A : st == 1 ? e0 : st == 2 ? e1 : e2;
+      T* dst = As + (buf * n_streams + st) * stream_stride;
+      if constexpr (VB > 0) {
+        constexpr int V = VB / sizeof(T);  // elements a copy
+        for (int e = tid; e < TS * (TN / V); e += nthreads) {
+          const int sl = e / (TN / V);
+          const int j = e % (TN / V);
           const int s = s0 + sl;
-          const int n = n0 + 4 * j;
+          const int n = n0 + V * j;
           const bool ok = s < S && n < N;
-          cp_async16(dst + sl * TNP + 4 * j, ok ? src + (size_t)s * N + n : src,
-                     ok ? 16 : 0);
+          const T* from = ok ? src + (size_t)s * N + n : src;
+          if constexpr (VB == 16) {
+            cp_async16(dst + sl * TNP + V * j, from, ok ? 16 : 0);
+          } else {
+            cp_async4(dst + sl * TNP + V * j, from, ok ? 4 : 0);
+          }
         }
       } else {
         for (int e = tid; e < TS * TN; e += nthreads) {
@@ -151,9 +182,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) logmvn_cap_kernel(
           const int nl = e % TN;
           const int s = s0 + sl;
           const int n = n0 + nl;
-          const bool ok = s < S && n < N;
-          cp_async4(dst + sl * TNP + nl, ok ? src + (size_t)s * N + n : src,
-                    ok ? 4 : 0);
+          dst[sl * TNP + nl] = s < S && n < N ? src[(size_t)s * N + n] : T(0);
         }
       }
     }
@@ -220,7 +249,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) logmvn_cap_kernel(
 
     if (c + 1 < n_chunks) {
       const int n0 = (c + 1) * TN;
-      const float* as = As + next * n_streams * stream_stride;
+      const T* as = As + next * n_streams * stream_stride;
       float* W = WR + next * 2 * TN * TSP;
       float* R = W + TN * TSP;
 #pragma unroll
@@ -241,11 +270,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) logmvn_cap_kernel(
             const float vv = __ldg(rows + 3 * N + nc);
             const float m = in ? __ldg(rows + 4 * N + nc) : 0.0f;
             const bool valid = m > 0.0f;
-            const float* ap = as + sl * TNP + nl;
-            float a_raw = ap[0];
-            if (n_extra > 0) a_raw = a_raw * ap[stream_stride];
-            if (n_extra > 1) a_raw = a_raw * ap[2 * stream_stride];
-            if (n_extra > 2) a_raw = a_raw * ap[3 * stream_stride];
+            const T* ap = as + sl * TNP + nl;
+            float a_raw = decode(ap[0]);
+            if (n_extra > 0) a_raw = a_raw * decode(ap[stream_stride]);
+            if (n_extra > 1) a_raw = a_raw * decode(ap[2 * stream_stride]);
+            if (n_extra > 2) a_raw = a_raw * decode(ap[3 * stream_stride]);
             const float a = valid ? a_raw : 1.0f;
             const float d = om * a * a + vv;
             const float d_inv = m / (valid ? d : 1.0f);
@@ -336,37 +365,51 @@ __global__ void __launch_bounds__(kMaxThreads, 1) logmvn_cap_kernel(
 }
 
 template <int TN>
-void* pick_kernel(bool vec) {
-  return vec ? reinterpret_cast<void*>(logmvn_cap_kernel<TN, true>)
-             : reinterpret_cast<void*>(logmvn_cap_kernel<TN, false>);
+void* pick_kernel(int store, int vb) {
+  if (store == 0)
+    return vb == 16 ? reinterpret_cast<void*>(logmvn_cap_kernel<TN, 16, float>)
+                    : reinterpret_cast<void*>(logmvn_cap_kernel<TN, 4, float>);
+  return vb == 16  ? reinterpret_cast<void*>(logmvn_cap_kernel<TN, 16, int16_t>)
+         : vb == 4 ? reinterpret_cast<void*>(logmvn_cap_kernel<TN, 4, int16_t>)
+                   : reinterpret_cast<void*>(logmvn_cap_kernel<TN, 0, int16_t>);
 }
 
-inline bool aligned16(const float* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace
 
-// The geometry (ts samples a block, tn pixels a chunk, threads, shared
-// bytes, grid) comes from the caller and must be the one cap_geometry
-// gives for (S, N, k, kp, n_extra); anything else is refused.
+// store: A and the streams as float32 (0) or int16 codes (1).  The
+// geometry (ts samples a block, tn pixels a chunk, threads, shared bytes,
+// grid) comes from the caller and must be the one cap_geometry gives for
+// (S, N, k, kp, n_extra) and the store's element size; anything else is
+// refused, as is a float32 stream not 4-byte aligned.
 extern "C" int logmvn_cap_launch(
     const float* rows, int N, const float* M, int k, const float* Mp, int kp,
-    const float* A, const float* e0, const float* e1, const float* e2,
-    int n_extra, int S, int ts, int tn, int threads, int smem, int grid,
+    const void* A, const void* e0, const void* e1, const void* e2,
+    int n_extra, int store, int S, int ts, int tn, int threads, int smem, int grid,
     float* B, float* u, float* misc, void* stream) {
-  if (k < 1 || kp < 1 || N < 1 || S < 1 || n_extra < 0 || n_extra > 3)
+  if (k < 1 || kp < 1 || N < 1 || S < 1 || n_extra < 0 || n_extra > 3 ||
+      (store != 0 && store != 1))
     return (int)cudaErrorInvalidValue;
+  const int elem = store ? 2 : 4;
   const int ncp = padded_columns(k, kp);
   const int warps = (ts / (kTile * kWarpSG)) * (ncp / (kTile * kWarpCG));
   if (ts < kTile * kWarpSG || ts % (kTile * kWarpSG) != 0 || (tn != 16 && tn != 32) ||
       threads != 32 * warps || threads > kMaxThreads ||
-      (size_t)smem != shared_bytes(ts, tn, ncp, n_extra) || grid != cdiv(S, ts))
+      (size_t)smem != shared_bytes(ts, tn, ncp, n_extra, elem) || grid != cdiv(S, ts))
     return (int)cudaErrorInvalidValue;
-  bool vec = N % 4 == 0 && aligned16(A);
-  const float* es[3] = {e0, e1, e2};
-  for (int i = 0; i < n_extra; ++i) vec = vec && aligned16(es[i]);
-  void* kern = tn == 32 ? pick_kernel<32>(vec) : pick_kernel<16>(vec);
+  // the widest copy every row of every stream allows
+  const void* ps[4] = {A, e0, e1, e2};
+  bool a16 = true, a4 = true;
+  for (int i = 0; i <= n_extra; ++i) {
+    a16 = a16 && aligned(ps[i], 16);
+    a4 = a4 && aligned(ps[i], 4);
+  }
+  const int vb = (N * elem) % 16 == 0 && a16 ? 16 : (N * elem) % 4 == 0 && a4 ? 4 : 0;
+  if (store == 0 && vb == 0) return (int)cudaErrorInvalidValue;
+  void* kern = tn == 32 ? pick_kernel<32>(store, vb) : pick_kernel<16>(store, vb);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;

@@ -12,6 +12,12 @@ parent indices.  The level-k evidence is
 
 with the mean over samples that pass the 3000 km/s pair-separation cut.
 Everything stays on the device: no value is read back inside the loop.
+
+The profiles may be stored compactly (``abs_dtype=torch.int16``: the
+fixed-point codes of ``ops/kernel_config.py``, the reference's
+``GPY_DLA_ABS_DTYPE=i16`` and ``i16p``): the absorption kernels encode
+them at their store, the chained rows are gathered as codes, and K2
+decodes them as it assembles.  The default keeps the model's dtype.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ def single_absorber_profiles(
     num_lines: int,
     voigt_impl: str = "windowed",
     profile: str = "dla",
+    out_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """(S, N) broadened absorption of one absorber per sample for every
     column-density family sharing the redshift samples.
@@ -69,25 +76,41 @@ def single_absorber_profiles(
         to the exact unit optical depth; or, unfused, added to the placed
         windowed unit optical depth before K5, as the reference places
         the LLS windows outside K6 (its ``voigt_absorption_lls``)).
+    :param out_dtype: storage of the profiles: None keeps the wavelengths'
+        dtype; ``torch.int16`` stores fixed-point codes, encoded at the
+        store of K1, K5 or K6 on float32 and after the exact profiles on
+        float64 (:func:`profile_store`).
     """
     if voigt_impl not in VOIGT_IMPLS:
         raise ValueError(f"voigt_impl must be one of {VOIGT_IMPLS}, got {voigt_impl!r}")
     if profile not in PROFILES:
         raise ValueError(f"profile must be one of {PROFILES}, got {profile!r}")
+    store = profile_store(out_dtype, wavelengths.dtype)
     lls = profile == "lls"
     if wavelengths.dtype == torch.float32 and voigt_impl in ("windowed", "windowed_weideman"):
         return absorption_all(wavelengths, z_samples, nhis, num_lines, lls_break=lls,
-                              poly=voigt_impl == "windowed")
+                              poly=voigt_impl == "windowed", out_dtype=store)
     if wavelengths.dtype == torch.float32 and voigt_impl == "windowed_unfused":
         parts = windowed_tau_parts(wavelengths, z_samples, num_lines)
         if not lls:
-            return tuple(absorption_windowed(parts, nhi) for nhi in nhis)
+            return tuple(absorption_windowed(parts, nhi, store) for nhi in nhis)
         unit = place_windows(parts) + lyman_limit_unit_tau(wavelengths, z_samples)
-        return tuple(absorption_from_unit_tau(unit, nhi) for nhi in nhis)
+        return tuple(absorption_from_unit_tau(unit, nhi, store) for nhi in nhis)
     unit = unit_lyman_optical_depth(wavelengths, z_samples, num_lines)
     if lls:
         unit = unit + lyman_limit_unit_tau(wavelengths, z_samples)
-    return tuple(absorption_from_unit_tau(unit, nhi) for nhi in nhis)
+    return tuple(absorption_from_unit_tau(unit, nhi, store) for nhi in nhis)
+
+
+def profile_store(abs_dtype: torch.dtype | None, dtype: torch.dtype) -> torch.dtype | None:
+    """The storage of profiles computed in ``dtype``, or None to keep
+    ``dtype``: ``abs_dtype`` None or ``dtype`` keeps it; ``torch.int16``
+    stores the fixed-point codes."""
+    if abs_dtype is None or abs_dtype == dtype:
+        return None
+    if abs_dtype == torch.int16:
+        return abs_dtype
+    raise TypeError(f"{dtype} profiles cannot be stored as {abs_dtype}")
 
 
 def _draw_base_indices(generator: torch.Generator, probs: torch.Tensor) -> torch.Tensor:
@@ -130,6 +153,7 @@ def qmc_log_evidences(
     A_override: torch.Tensor | None = None,
     voigt_impl: str = "windowed",
     profile: str = "dla",
+    abs_dtype: torch.dtype | None = None,
 ) -> QMCEvidenceResult:
     """Marginalize the k-absorber models over the QMC sample set.
 
@@ -144,9 +168,15 @@ def qmc_log_evidences(
         replacing the draws (reproduces a reference run exactly).
     :param A_override: optional precomputed (S, N) single-absorber
         profiles for these samples (the batch layer computes both families
-        from one redshift evaluation).
+        from one redshift evaluation), in the model's dtype or as int16
+        codes.
     :param voigt_impl, profile: profile evaluation when ``A_override``
         is None (see :func:`single_absorber_profiles`).
+    :param abs_dtype: storage of the profiles and of the chained rows
+        gathered from them: None keeps the model's dtype (float32 on the
+        card, float64 on the CPU conformance path); ``torch.int16`` stores
+        fixed-point codes in every ``voigt_impl`` and profile (the
+        reference's ``GPY_DLA_ABS_DTYPE=i16`` or ``i16p``).
     """
     S = offset_samples.shape[0]
     dtype, device = model.y.dtype, model.y.device
@@ -157,7 +187,7 @@ def qmc_log_evidences(
     if A_override is None:
         (A,) = single_absorber_profiles(
             model.padded_wavelengths, z_samples, (nhi_samples,), params.num_lines,
-            voigt_impl, profile,
+            voigt_impl, profile, out_dtype=abs_dtype,
         )
     else:
         A = A_override
@@ -183,7 +213,7 @@ def qmc_log_evidences(
                 probs = torch.exp(logits - torch.max(logits))
                 base = _draw_base_indices(generator, probs)
             base_inds_rows.append(base)
-            extra.append(A[base])
+            extra.append(A[base])  # in A's storage: int16 codes stay codes
             z_rows.append(z_samples[base])
             lognhi_rows.append(log_nhi_samples[base])
 

@@ -137,6 +137,7 @@ def lls_log_evidences(
     params: Parameters,
     base_inds_override=None,
     voigt_impl: str = "windowed",
+    abs_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, QMCEvidenceResult]:
     """(null evidence, QMC result for 1..max_lya absorbers) for one
     spectrum with the LLS-break profile, on the learned model's device and
@@ -149,6 +150,8 @@ def lls_log_evidences(
         ``"windowed_weideman"`` (K1 with the break and the Weideman window),
         ``"exact"`` or ``"windowed_unfused"`` (see
         ``models.evidence.single_absorber_profiles``).
+    :param abs_dtype: storage of the profiles, None (the model's dtype) or
+        ``torch.int16`` (see ``models.evidence.qmc_log_evidences``).
     """
     device, dtype = learned.mu.device, learned.mu.dtype
     model = build_spectrum_model(learned, to_torch(spec, device, dtype), params)
@@ -159,6 +162,7 @@ def lls_log_evidences(
     result = qmc_log_evidences(
         model, *sample_tensors(samples, device, dtype), generator, max_lya, params,
         base_inds_override=base_inds_override, voigt_impl=voigt_impl, profile="lls",
+        abs_dtype=abs_dtype,
     )
     return null_log_evidence(model), result
 
@@ -252,6 +256,7 @@ def lls_inference_many(
     batch_size: int = 8,
     voigt_impl: str = "windowed",
     base_inds_override=None,
+    abs_dtype: torch.dtype | None = None,
 ) -> list[tuple[float, QMCEvidenceResult]]:
     """The LLS search over many spectra.  Each batch of ``batch_size``
     spectra is stacked, moved to the device and modelled in one pass; the
@@ -264,6 +269,8 @@ def lls_inference_many(
     :param voigt_impl: as for :func:`lls_log_evidences`.
     :param base_inds_override: optional (n_spectra, max_lya - 1, S)
         resampling indices replacing the draws, in the order of ``specs``.
+    :param abs_dtype: storage of the profiles, as for
+        :func:`lls_log_evidences`.
     :return: per spectrum (null evidence, QMC result as numpy arrays).
     """
     device, dtype = learned.mu.device, learned.mu.dtype
@@ -282,6 +289,7 @@ def lls_inference_many(
             qmc_log_evidences(
                 SpectrumModel(*[f[i] for f in models]), *sample_t, generator,
                 max_lya, params, voigt_impl=voigt_impl, profile="lls",
+                abs_dtype=abs_dtype,
                 base_inds_override=(
                     None if base_inds_override is None else base_inds_override[first + i]
                 ),

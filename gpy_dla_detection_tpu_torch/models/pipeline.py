@@ -62,6 +62,7 @@ def compute_evidences(
     max_dlas: int,
     base_inds_override: torch.Tensor | None = None,
     voigt_impl: str = "windowed",
+    abs_dtype: torch.dtype | None = None,
 ) -> EvidenceOutputs:
     """All model evidences for one tensor spectrum.
 
@@ -70,6 +71,9 @@ def compute_evidences(
     :param voigt_impl: ``"windowed"`` (K1), ``"windowed_weideman"`` (K1
         with the Weideman window), ``"exact"`` (exact unit optical depth +
         K5) or ``"windowed_unfused"`` (windowed parts + K6).
+    :param abs_dtype: storage of the absorption profiles, None (the
+        model's dtype) or ``torch.int16`` (see
+        ``models.evidence.qmc_log_evidences``).
     """
     model = build_spectrum_model(learned, spec, params)
     return EvidenceOutputs(
@@ -77,9 +81,11 @@ def compute_evidences(
         dla=qmc_log_evidences(
             model, *dla, generator, max_dlas, params,
             base_inds_override=base_inds_override, voigt_impl=voigt_impl,
+            abs_dtype=abs_dtype,
         ),
         subdla=qmc_log_evidences(
-            model, *sub, generator, 1, params, voigt_impl=voigt_impl
+            model, *sub, generator, 1, params, voigt_impl=voigt_impl,
+            abs_dtype=abs_dtype,
         ),
     )
 
@@ -151,10 +157,11 @@ def process_spectrum(
     max_dlas: int = 4,
     base_inds_override: np.ndarray | None = None,
     voigt_impl: str = "windowed",
+    abs_dtype: torch.dtype | None = None,
 ) -> SpectrumResult:
     """Full Bayesian model selection for one preprocessed spectrum, on the
-    learned model's device and dtype (``voigt_impl`` as in
-    :func:`compute_evidences`)."""
+    learned model's device and dtype (``voigt_impl`` and ``abs_dtype`` as
+    in :func:`compute_evidences`)."""
     device, dtype = learned.mu.device, learned.mu.dtype
     out = compute_evidences(
         learned,
@@ -170,6 +177,7 @@ def process_spectrum(
             else torch.as_tensor(np.asarray(base_inds_override, np.int64), device=device)
         ),
         voigt_impl=voigt_impl,
+        abs_dtype=abs_dtype,
     )
     host = lambda t: t.detach().cpu().numpy()
     return spectrum_result(

@@ -10,7 +10,8 @@ Which implementation runs is decided by the tensor alone
 (:func:`use_kernel`): float32 on a CUDA device launches the kernel,
 float32 on the CPU takes the kernel's plain PyTorch twin, anything else
 raises.  Every wrapper adds one to ``launch_counts[name]`` where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else; an instantiation that stores or
+reads int16 profile codes counts under its own name (:func:`store_name`).
 """
 
 from __future__ import annotations
@@ -52,20 +53,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # wl, P, z, S, nhi, F, num_lines, far_lines, lls_break, poly, then the
-    # geometry (warps a block, shared bytes, grid), out, stream
-    "absorption_all_launch": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+    # wl, P, z, S, nhi, F, num_lines, far_lines, lls_break, poly, store
+    # (0 float32, 1 int16), then the geometry (warps a block, shared bytes,
+    # grid), out, stream
+    "absorption_all_launch": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P, _P],
     # the line table: host floats, their count, stream
     "absorption_all_upload": [_P, _I, _P],
-    # unit_tau, nhi, S, P, taps, out, stream
-    "absorption_tail_launch": [_P, _P, _I, _I, _P, _P, _P],
-    # far, corr, c0, nhi, S, P_pad, P, L, taps, out, stream
-    "absorption_windowed_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    # rows, N, M, k, Mp, kp, A, e0, e1, e2, n_extra, S, then the geometry
-    # (samples a block, pixels a chunk, threads, shared bytes, grid), B, u,
-    # misc, stream
-    "logmvn_cap_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I,
+    # unit_tau, nhi, S, P, taps, store, out, stream
+    "absorption_tail_launch": [_P, _P, _I, _I, _P, _I, _P, _P],
+    # far, corr, c0, nhi, S, P_pad, P, L, taps, store, out, stream
+    "absorption_windowed_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P],
+    # rows, N, M, k, Mp, kp, A, e0, e1, e2, n_extra, store (of A and the
+    # streams: 0 float32, 1 int16), S, then the geometry (samples a block,
+    # pixels a chunk, threads, shared bytes, grid), B, u, misc, stream
+    "logmvn_cap_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # B, u, misc, S, k, then the geometry (row bound, warps a block, shared
     # bytes, grid), ll, stream
@@ -95,6 +97,22 @@ def use_kernel(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise TypeError(f"no kernel for device {x.device}")
+
+
+def check_store_dtype(dtype: torch.dtype | None) -> torch.dtype:
+    """The profile storage a kernel takes: float32 (``None`` too) or int16
+    codes (``ops/kernel_config.py``); anything else raises."""
+    if dtype is None or dtype == torch.float32:
+        return torch.float32
+    if dtype == torch.int16:
+        return torch.int16
+    raise TypeError(f"the kernels store profiles as float32 or int16, not {dtype}")
+
+
+def store_name(name: str, dtype: torch.dtype) -> str:
+    """The launch count of a kernel's instantiation for profile storage
+    ``dtype``: ``name`` for float32, ``name + "_i16"`` for int16 codes."""
+    return name + "_i16" if dtype == torch.int16 else name
 
 
 def check_cuda_f32(device: torch.device, **tensors: torch.Tensor) -> None:

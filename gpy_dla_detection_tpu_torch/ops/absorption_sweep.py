@@ -187,7 +187,7 @@ def launcher(lib, geo, case, poly, device, per_sm=None):
 
     # the arguments once, so a launch costs the host little next to the kernel
     args = (_build.ptr(wl), P, _build.ptr(z), S, _build.ptr(nhi), F, 3, 3, int(lls_break),
-            int(poly), warps, smem, grid, _build.ptr(out), _build.stream_ptr(device))
+            int(poly), 0, warps, smem, grid, _build.ptr(out), _build.stream_ptr(device))
 
     def run():
         _build.check_launch("absorption_all", lib.absorption_all_launch(*args))

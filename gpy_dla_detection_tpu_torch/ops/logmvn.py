@@ -21,6 +21,8 @@ from collections.abc import Sequence
 
 import torch
 
+from .kernel_config import ABS_I16_SCALE
+
 LOG_2PI = 1.8378770664093453
 
 
@@ -119,11 +121,23 @@ def batched_quad_logdet(B: torch.Tensor, u: torch.Tensor):
     return quad, logdet
 
 
+def decode_profile_store(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Stored profiles as ``dtype``: int16 codes times ``1 / ABS_I16_SCALE``
+    (a product with the reciprocal, never a division), any float cast; the
+    reference's ``_decode`` (``gpy_dla_detection_tpu/ops/logmvn.py``) and
+    the plain version of K2's decode."""
+    if x.dtype == torch.int16:
+        return x.to(dtype) * (1.0 / ABS_I16_SCALE)
+    return x.to(dtype)
+
+
 def _batched_log_mvnpdf_plain(y, mu, M, omega2, v, mask, absorption, M_pair, extra):
-    """The plain composition (the reference's XLA path)."""
+    """The plain composition (the reference's XLA path), on profiles
+    decoded to ``y``'s dtype."""
     k = M.shape[-1]
+    absorption = decode_profile_store(absorption, y.dtype)
     for e in extra:
-        absorption = absorption * e
+        absorption = absorption * decode_profile_store(e, y.dtype)
     a = torch.where(mask, absorption, 1.0)
     d = omega2 * a * a + v
     d_safe = torch.where(mask, d, 1.0)
@@ -156,10 +170,12 @@ def batched_log_mvnpdf(
     :param y, mu, omega2, v: (N,) spectrum-level arrays.
     :param M: (N, k).
     :param mask: (N,) bool.
-    :param absorption: (S, N) absorption profiles.
+    :param absorption: (S, N) absorption profiles, in ``y``'s float dtype
+        or as int16 codes (``ops/kernel_config.py``), decoded on entry.
     :param M_pair: optional :func:`likelihood_pair_basis` of ``M``.
-    :param extra: chained-absorber profile rows, each (S, N), multiplied
-        into the absorption (inside K2 on the float32 path).
+    :param extra: chained-absorber profile rows, each (S, N) and stored as
+        ``absorption`` is, multiplied into the absorption (inside K2 on the
+        float32 path, which also decodes them).
     :return: (S,) log densities.
     """
     if M_pair is None:

@@ -5,7 +5,11 @@ model per sample and forms the packed capacitance products; stage B (K3,
 ``logmvn_chain``, ``csrc/logmvn_chain.cu``) runs the k x k Cholesky with
 the forward substitution and emits the per-sample log-likelihood.  Each
 wrapper launches its kernel on float32 CUDA tensors and runs its plain
-twin (``*_reference``) on float32 CPU tensors.
+twin (``*_reference``) on float32 CPU tensors.  K2 also takes the
+profiles as int16 codes (``ops/kernel_config.py``), which an
+instantiation of its own decodes as it assembles (counted as
+``logmvn_cap_i16``); its twin decodes with
+``ops/logmvn.decode_profile_store``.
 
 Replaces ``gpy_dla_detection_tpu/ops/logmvn_pallas.py``:
 ``_make_cap_kernel`` (K2) and ``_make_chain_kernel_tp2c`` (K3).
@@ -24,13 +28,15 @@ from ._build import (
     MAX_DYNAMIC_SHARED_BYTES,
     check_cuda_f32,
     check_launch,
+    check_store_dtype,
     launch_counts,
     load_library,
     ptr,
+    store_name,
     stream_ptr,
     use_kernel,
 )
-from .logmvn import LOG_2PI, batched_quad_logdet
+from .logmvn import LOG_2PI, batched_quad_logdet, decode_profile_store
 
 MAX_EXTRA_STREAMS = 3  # streams K2 multiplies in; more are folded first
 
@@ -56,18 +62,20 @@ class CapGeometry(NamedTuple):
     grid: int
 
 
-def _cap_shared_bytes(ts: int, tn: int, ncp: int, n_extra: int) -> int:
-    """Double-buffered sample streams (rows of tn + 8 floats), M_pair | M
-    chunk, and w | r tile (rows of ts + 4 floats)."""
-    return 4 * (2 * (1 + n_extra) * ts * (tn + 8) + 2 * tn * ncp + 4 * tn * (ts + 4))
+def _cap_shared_bytes(ts: int, tn: int, ncp: int, n_extra: int, elem: int = 4) -> int:
+    """Double-buffered sample streams (rows of tn + 8 elements of ``elem``
+    bytes: 4 float32, 2 int16 codes), M_pair | M chunk, and w | r tile
+    (rows of ts + 4 floats)."""
+    return elem * 2 * (1 + n_extra) * ts * (tn + 8) + 4 * (2 * tn * ncp + 4 * tn * (ts + 4))
 
 
 def cap_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
-                 sms: int = H100_SMS) -> CapGeometry:
+                 sms: int = H100_SMS, elem: int = 4) -> CapGeometry:
     """K2's launch geometry for S samples, N pixels, a GP basis of k
-    columns and a pair basis of kp: the fewest waves over ``sms`` blocks
-    at once, each wave as even as the block allows.  Pixel chunks are 32
-    wide, 16 where N <= 16 or 32 does not fit in shared memory."""
+    columns, a pair basis of kp and sample streams of ``elem`` bytes an
+    element (4 float32, 2 int16 codes): the fewest waves over ``sms``
+    blocks at once, each wave as even as the block allows.  Pixel chunks
+    are 32 wide, 16 where N <= 16 or 32 does not fit in shared memory."""
     groups = -(-kp // CAP_TILE) + -(-k // CAP_TILE)
     ncp = CAP_WARP_COLUMNS * -(-groups * CAP_TILE // CAP_WARP_COLUMNS)
     warps_across = ncp // CAP_WARP_COLUMNS
@@ -77,7 +85,7 @@ def cap_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
 
     def fits(ts, tn):
         return (threads_of(ts) <= CAP_MAX_THREADS
-                and _cap_shared_bytes(ts, tn, ncp, n_extra) <= MAX_DYNAMIC_SHARED_BYTES)
+                and _cap_shared_bytes(ts, tn, ncp, n_extra, elem) <= MAX_DYNAMIC_SHARED_BYTES)
 
     for tn in ((16,) if N <= 16 else (32, 16)):
         if fits(CAP_WARP_SAMPLES, tn):
@@ -93,7 +101,7 @@ def cap_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
         waves += 1
     return CapGeometry(
         samples=ts, pixels=tn, threads=threads_of(ts), columns=ncp,
-        shared_bytes=_cap_shared_bytes(ts, tn, ncp, n_extra), grid=-(-S // ts),
+        shared_bytes=_cap_shared_bytes(ts, tn, ncp, n_extra, elem), grid=-(-S // ts),
     )
 
 
@@ -192,16 +200,17 @@ def assemble_reference(
     """K2's elementwise noise assembly, plain, with K2's masking.
 
     :param rows: (5, N) rows y, mu, omega2, v, mask (1.0 = valid pixel).
-    :param absorption: (S, N).
+    :param absorption: (S, N), float or int16 codes (decoded to ``rows``'s
+        dtype, as K2 decodes them).
     :param extra: chained streams, each (S, N), multiplied into ``a``.
     :return: d_inv, w = a^2 d_inv, r = a delta d_inv (each (S, N)), quad0
         = sum delta^2 d_inv and logdet0 = -sum log d_inv (each (S,)), and
         n, the count of valid pixels.
     """
     y, mu, omega2, v, mask = rows
-    a_raw = absorption
+    a_raw = decode_profile_store(absorption, rows.dtype)
     for e in extra:
-        a_raw = a_raw * e
+        a_raw = a_raw * decode_profile_store(e, rows.dtype)
     valid = mask > 0
     a = torch.where(valid, a_raw, 1.0)
     d = omega2 * a * a + v
@@ -229,8 +238,9 @@ def logmvn_cap_reference(
     :param M: (N, k).
     :param M_pair: (N, k(k+1)/2) packed pair basis, or the flat (N, k^2)
         one of the ablation's decoupled split.
-    :param absorption: (S, N).
-    :param extra: chained streams, each (S, N), multiplied into ``a``.
+    :param absorption: (S, N), float32 or int16 codes.
+    :param extra: chained streams, each (S, N) and stored as
+        ``absorption``, multiplied into ``a``.
     :return: B (S, M_pair's width) without the +I, u (S, k), misc (S, 2)
         = (quad0, logdet0 + n log 2 pi).
     """
@@ -258,20 +268,34 @@ def logmvn_cap(
     extra: Sequence[torch.Tensor] = (),
 ):
     """Stage A of the Woodbury likelihood: K2 on CUDA, its twin on the
-    CPU (float32).  Same contract as :func:`logmvn_cap_reference`: the
-    kernel takes a basis of any width, the packed one on the catalog
-    paths and the flat k^2 one in the ablation's decoupled split."""
+    CPU (float32 ``rows``).  Same contract as :func:`logmvn_cap_reference`:
+    the kernel takes a basis of any width, the packed one on the catalog
+    paths and the flat k^2 one in the ablation's decoupled split, and the
+    profiles as float32 or, all alike, as int16 codes (launched as
+    ``logmvn_cap_i16``)."""
     extra = tuple(extra)
-    if not use_kernel(absorption):
+    store = check_store_dtype(absorption.dtype)
+    if any(e.dtype != absorption.dtype for e in extra):
+        raise TypeError(
+            f"absorption and the streams share one storage dtype; got "
+            f"{absorption.dtype} and {[e.dtype for e in extra]}"
+        )
+    if not use_kernel(rows):
         return logmvn_cap_reference(rows, M, M_pair, absorption, extra)
     if len(extra) > MAX_EXTRA_STREAMS:
-        # deeper chains than the catalog's 4 levels: fold the oldest rows
+        # deeper chains than the catalog's 4 levels: fold the oldest rows,
+        # decoded (codes are not encoded again: that would round twice),
+        # and launch the float32 instantiation
+        f32 = lambda x: decode_profile_store(x, torch.float32)
         head = extra[: len(extra) - MAX_EXTRA_STREAMS + 1]
-        extra = (torch.prod(torch.stack(head), dim=0),) + extra[len(head):]
-    device = absorption.device
-    check_cuda_f32(device, rows=rows, M=M, M_pair=M_pair, absorption=absorption)
-    for i, e in enumerate(extra):
-        check_cuda_f32(device, **{f"extra[{i}]": e})
+        extra = (torch.prod(torch.stack([f32(e) for e in head]), dim=0),) + tuple(
+            f32(e) for e in extra[len(head):])
+        absorption, store = f32(absorption), torch.float32
+    device = rows.device
+    check_cuda_f32(device, rows=rows, M=M, M_pair=M_pair)
+    for name, t in [("absorption", absorption)] + [(f"extra[{i}]", e) for i, e in enumerate(extra)]:
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {device}")
     S, N = absorption.shape
     k = M.shape[1]
     kp = M_pair.shape[1]
@@ -289,7 +313,8 @@ def logmvn_cap(
         )
     if S == 0 or N == 0 or k == 0:
         raise ValueError(f"empty problem: S={S}, N={N}, k={k}")
-    g = cap_geometry(S, N, k, kp, len(extra), _sm_count(device))
+    i16 = store == torch.int16
+    g = cap_geometry(S, N, k, kp, len(extra), _sm_count(device), elem=2 if i16 else 4)
     B = torch.empty((S, kp), dtype=torch.float32, device=device)
     u = torch.empty((S, k), dtype=torch.float32, device=device)
     misc = torch.empty((S, 2), dtype=torch.float32, device=device)
@@ -298,12 +323,13 @@ def logmvn_cap(
     with torch.cuda.device(device):
         err = lib.logmvn_cap_launch(
             ptr(rows), N, ptr(M), k, ptr(M_pair), kp, ptr(absorption),
-            ptr(e[0]), ptr(e[1]), ptr(e[2]), len(extra), S,
+            ptr(e[0]), ptr(e[1]), ptr(e[2]), len(extra), int(i16), S,
             g.samples, g.pixels, g.threads, g.shared_bytes, g.grid,
             ptr(B), ptr(u), ptr(misc), stream_ptr(device),
         )
-    check_launch("logmvn_cap", err)
-    launch_counts["logmvn_cap"] += 1
+    name = store_name("logmvn_cap", store)
+    check_launch(name, err)
+    launch_counts[name] += 1
     return B, u, misc
 
 

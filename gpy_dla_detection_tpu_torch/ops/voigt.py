@@ -27,6 +27,7 @@ import torch
 from .. import constants as C
 
 from .faddeeva import RADIUS, SQRT_PI, _wofz_cf, _wofz_weideman, wofz_parts
+from .kernel_config import ABS_I16_SCALE
 
 # beyond |z| = CF_FAR_RADIUS the Lorentzian Re w = y / (sqrt(pi) |z|^2)
 # differs from w by <= 1/(2|z|^2) ~ 7.6e-6 relative; inside it the kernel
@@ -93,25 +94,47 @@ def unit_lyman_optical_depth(
     return tau
 
 
-def absorption_from_unit_tau(unit_tau: torch.Tensor, nhi: torch.Tensor) -> torch.Tensor:
+def encode_profile_store(out: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """Profiles in their storage dtype: ``None`` keeps them, float32 and
+    float64 cast, int16 stores the fixed-point codes ``round(out *
+    ABS_I16_SCALE)`` (round half to even, in ``out``'s float type), as
+    ``gpy_dla_detection_tpu/ops/voigt.py:encode_profile_store`` does.  The
+    plain version of the encode at the stores of K1, K5 and K6."""
+    if dtype is None:
+        return out
+    if dtype == torch.int16:
+        return torch.round(out * ABS_I16_SCALE).to(torch.int16)
+    if dtype in (torch.float32, torch.float64):
+        return out.to(dtype)
+    raise TypeError(f"profiles are stored as float32, float64 or int16, not {dtype}")
+
+
+def absorption_from_unit_tau(
+    unit_tau: torch.Tensor, nhi: torch.Tensor, out_dtype: torch.dtype | None = None
+) -> torch.Tensor:
     """Broadened absorption ``conv(exp(-nhi * unit_tau))``: (..., P) ->
-    (..., P - 6), the leading axes of ``unit_tau`` matching ``nhi``'s.
+    (..., P - 6), the leading axes of ``unit_tau`` matching ``nhi``'s,
+    stored as ``out_dtype`` (:func:`encode_profile_store`; None keeps
+    ``unit_tau``'s dtype).
 
     Dispatch by tensor: float32 runs K5 (its kernel on CUDA, its plain
-    twin on the CPU); float64 runs the plain composition on the CPU, the
-    conformance path; anything else raises."""
+    twin on the CPU), which encodes int16 at its store; float64 runs the
+    plain composition on the CPU, the conformance path, and encodes after
+    it; anything else raises."""
     if unit_tau.dtype == torch.float64:
         if unit_tau.device.type != "cpu":
             raise TypeError(
                 "the float64 absorption is the CPU conformance path; the "
                 "CUDA kernels take float32"
             )
-        return instrumental_broadening(torch.exp(-nhi[..., None] * unit_tau))
+        return encode_profile_store(
+            instrumental_broadening(torch.exp(-nhi[..., None] * unit_tau)), out_dtype
+        )
     from .voigt_kernels import absorption_tail
 
     lead, P = unit_tau.shape[:-1], unit_tau.shape[-1]
     out = absorption_tail(
-        unit_tau.reshape(-1, P).contiguous(), nhi.reshape(-1).contiguous()
+        unit_tau.reshape(-1, P).contiguous(), nhi.reshape(-1).contiguous(), out_dtype
     )
     return out.reshape(*lead, out.shape[-1])
 

@@ -24,6 +24,14 @@ replaces ``voigt_pallas.py:_abs_tail_kernel``.  ``absorption_windowed``
 launches ``csrc/absorption_windowed.cu`` and runs
 ``absorption_windowed_reference`` likewise; it replaces
 ``voigt_pallas.py:_abs_windowed_kernel``.
+
+Each takes ``out_dtype``: float32 (``None``) or int16, the fixed-point
+codes of compact profile storage (``ops/kernel_config.py``), which each
+kernel encodes at its store in an instantiation of its own, counted
+under its own name (``_build.store_name``: ``absorption_all_i16``,
+``absorption_all_weideman_i16``, ``absorption_tail_i16``,
+``absorption_windowed_i16``).  Each twin encodes its float32 result with
+``ops/voigt.encode_profile_store``.
 """
 
 from __future__ import annotations
@@ -42,9 +50,11 @@ from ._build import (
     MAX_DYNAMIC_SHARED_BYTES,
     check_cuda_f32,
     check_launch,
+    check_store_dtype,
     launch_counts,
     load_library,
     ptr,
+    store_name,
     stream_ptr,
     use_kernel,
 )
@@ -64,6 +74,7 @@ from .voigt import (
     LYMAN_LIMIT_A,
     LYMAN_LIMIT_LOG_NHI,
     WindowedTauParts,
+    encode_profile_store,
     instrumental_broadening,
     lyman_line_constants,
     place_windows,
@@ -219,6 +230,7 @@ def absorption_all_reference(
     num_lines: int = 3,
     lls_break: bool = False,
     poly: bool = True,
+    out_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """Plain PyTorch twin of K1 (dense per-pixel formula).
 
@@ -232,8 +244,11 @@ def absorption_all_reference(
         continued fraction on the annulus out to ``CF_FAR_RADIUS``
         (``ops/faddeeva._wofz_weideman`` / ``_wofz_cf``, float32 N = 20 and
         K = 5), in the order of the reference kernel's poly=False branch.
+    :param out_dtype: storage of the profiles, float32 (None) or int16
+        codes (``encode_profile_store`` of the float32 result).
     :return: one (S, P - 6) broadened absorption per family.
     """
+    out_dtype = check_store_dtype(out_dtype)
     consts = _kernel_constants(num_lines)
     inv, sqrt_pi, c_cgs = consts["inv"], consts["sqrt_pi"], consts["c_cgs"]
     far_r2 = CF_FAR_RADIUS * CF_FAR_RADIUS
@@ -288,14 +303,26 @@ def absorption_all_reference(
         wing = eu + y * t * wing
         tau = tau + amp * torch.where(far, 0.0, torch.where(u <= u0, disk, wing))
     return tuple(
-        instrumental_broadening(torch.exp(-nhi[:, None] * tau)) for nhi in nhis
+        encode_profile_store(instrumental_broadening(torch.exp(-nhi[:, None] * tau)), out_dtype)
+        for nhi in nhis
     )
 
 
-def k1_launch_name(poly: bool) -> str:
+def k1_launch_name(poly: bool, out_dtype: torch.dtype | None = None) -> str:
     """The launch count of K1's instantiation: ``absorption_all`` for the
-    polynomial window, ``absorption_all_weideman`` for poly=False."""
-    return "absorption_all" if poly else "absorption_all_weideman"
+    polynomial window, ``absorption_all_weideman`` for poly=False, each
+    with ``_i16`` for int16 output."""
+    return store_name("absorption_all" if poly else "absorption_all_weideman",
+                      check_store_dtype(out_dtype))
+
+
+def _check_out(out: torch.Tensor, device: torch.device) -> torch.dtype:
+    """An output buffer's storage dtype, checked: float32 or int16,
+    contiguous, on ``device``."""
+    store = check_store_dtype(out.dtype)
+    if out.device != device or not out.is_contiguous():
+        raise ValueError(f"out must be contiguous on {device}")
+    return store
 
 
 # lines of K1's table in each device's constant memory
@@ -313,9 +340,11 @@ def launch_absorption_all(
 ) -> None:
     """One K1 launch: the (F, S, P - 6) profiles of the (F, S) column
     densities ``nhi`` into ``out`` (float32 CUDA tensors, F <=
-    K1_MAX_FAMILIES), counted under :func:`k1_launch_name`."""
+    K1_MAX_FAMILIES; ``out`` float32, or int16 for the codes), counted
+    under :func:`k1_launch_name`."""
     device = wavelengths.device
-    check_cuda_f32(device, wavelengths=wavelengths, z_absorber=z_absorber, nhi=nhi, out=out)
+    check_cuda_f32(device, wavelengths=wavelengths, z_absorber=z_absorber, nhi=nhi)
+    store = _check_out(out, device)
     P, S, F = wavelengths.shape[0], z_absorber.shape[0], nhi.shape[0]
     n_out = P - 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH
     if (wavelengths.ndim != 1 or z_absorber.ndim != 1 or nhi.ndim != 2
@@ -337,9 +366,10 @@ def launch_absorption_all(
         err = lib.absorption_all_launch(
             ptr(wavelengths), P, ptr(z_absorber), S, ptr(nhi), F, num_lines,
             min(num_lines, FAR_FIELD_LINES), int(lls_break), int(poly),
-            g.warps, g.shared_bytes, g.grid, ptr(out), stream_ptr(device),
+            int(store == torch.int16), g.warps, g.shared_bytes, g.grid, ptr(out),
+            stream_ptr(device),
         )
-    name = k1_launch_name(poly)
+    name = k1_launch_name(poly, store)
     check_launch(name, err)
     launch_counts[name] += 1
 
@@ -351,6 +381,7 @@ def absorption_all(
     num_lines: int = 3,
     lls_break: bool = False,
     poly: bool = True,
+    out_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """Broadened absorption profiles of every family in ``nhis`` from the
     shared redshift samples: K1 on CUDA (one launch for up to
@@ -359,11 +390,14 @@ def absorption_all(
     :param lls_break: include the Lyman-limit break (the LLS profile).
     :param poly: the polynomial window (True) or the Weideman rational and
         continued fraction (False, the reference's GPY_DLA_FUSED_POLY=0).
-    :return: one (S, P - 6) float32 profile per family.
+    :param out_dtype: float32 (None) or int16, the codes K1 encodes at its
+        store.
+    :return: one (S, P - 6) profile per family, stored as ``out_dtype``.
     """
+    out_dtype = check_store_dtype(out_dtype)
     if not use_kernel(wavelengths):
         return absorption_all_reference(
-            wavelengths, z_absorber, nhis, num_lines, lls_break, poly
+            wavelengths, z_absorber, nhis, num_lines, lls_break, poly, out_dtype
         )
     nhi = torch.stack(tuple(nhis))  # (F, S)
     if wavelengths.ndim != 1 or z_absorber.ndim != 1 or nhi.shape[1:] != z_absorber.shape:
@@ -379,7 +413,7 @@ def absorption_all(
     profiles = []
     for f0 in range(0, nhi.shape[0], K1_MAX_FAMILIES):
         group = nhi[f0:f0 + K1_MAX_FAMILIES]
-        out = torch.empty((group.shape[0], S, n_out), dtype=torch.float32,
+        out = torch.empty((group.shape[0], S, n_out), dtype=out_dtype,
                           device=wavelengths.device)
         launch_absorption_all(wavelengths, z_absorber, group, out, num_lines, lls_break, poly)
         profiles += out.unbind(0)
@@ -393,27 +427,35 @@ def _device_taps(device: torch.device) -> torch.Tensor:
     )
 
 
-def absorption_tail_reference(unit_tau: torch.Tensor, nhi: torch.Tensor) -> torch.Tensor:
+def absorption_tail_reference(unit_tau: torch.Tensor, nhi: torch.Tensor,
+                              out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain PyTorch twin of K5: ``conv7(exp(-nhi[:, None] * unit_tau))``
-    with K5's float32 taps, summed in the kernel's order.
+    with K5's float32 taps, summed in the kernel's order, stored as
+    ``out_dtype`` (``encode_profile_store``).
 
     :param unit_tau: (S, P) optical depth per unit column density.
     :param nhi: (S,) column densities.
     :return: (S, P - 6).
     """
-    return instrumental_broadening(torch.exp(-nhi[:, None] * unit_tau))
+    return encode_profile_store(
+        instrumental_broadening(torch.exp(-nhi[:, None] * unit_tau)),
+        check_store_dtype(out_dtype))
 
 
-def absorption_tail(unit_tau: torch.Tensor, nhi: torch.Tensor) -> torch.Tensor:
+def absorption_tail(unit_tau: torch.Tensor, nhi: torch.Tensor,
+                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Broadened absorption from a unit optical depth: K5 on CUDA, its
     twin on the CPU (float32).  Any row count; one block per row.
 
     :param unit_tau: (S, P) float32, contiguous.
     :param nhi: (S,) float32.
-    :return: (S, P - 6) float32.
+    :param out_dtype: float32 (None) or int16, the codes K5 encodes at its
+        store.
+    :return: (S, P - 6) in ``out_dtype``.
     """
+    out_dtype = check_store_dtype(out_dtype)
     if not use_kernel(unit_tau):
-        return absorption_tail_reference(unit_tau, nhi)
+        return absorption_tail_reference(unit_tau, nhi, out_dtype)
     device = unit_tau.device
     check_cuda_f32(device, unit_tau=unit_tau, nhi=nhi)
     if unit_tau.ndim != 2 or nhi.shape != unit_tau.shape[:1]:
@@ -430,42 +472,49 @@ def absorption_tail(unit_tau: torch.Tensor, nhi: torch.Tensor) -> torch.Tensor:
             f"at most {MAX_DYNAMIC_SHARED_BYTES // 4} fit"
         )
     out = torch.empty(
-        (S, P - 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH), dtype=torch.float32, device=device
+        (S, P - 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH), dtype=out_dtype, device=device
     )
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.absorption_tail_launch(
-            ptr(unit_tau), ptr(nhi), S, P, ptr(_device_taps(device)), ptr(out),
-            stream_ptr(device),
+            ptr(unit_tau), ptr(nhi), S, P, ptr(_device_taps(device)),
+            int(out_dtype == torch.int16), ptr(out), stream_ptr(device),
         )
-    check_launch("absorption_tail", err)
-    launch_counts["absorption_tail"] += 1
+    name = store_name("absorption_tail", out_dtype)
+    check_launch(name, err)
+    launch_counts[name] += 1
     return out
 
 
-def absorption_windowed_reference(parts: WindowedTauParts, nhi: torch.Tensor) -> torch.Tensor:
+def absorption_windowed_reference(parts: WindowedTauParts, nhi: torch.Tensor,
+                                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain PyTorch twin of K6: place the window corrections
-    (``ops/voigt.place_windows``), then ``conv7(exp(-nhi * tau))``.
+    (``ops/voigt.place_windows``), then ``conv7(exp(-nhi * tau))``, stored
+    as ``out_dtype``.
 
     :param parts: the windowed unit optical depth of S samples.
     :param nhi: (S,) column densities.
     :return: (S, num_pixels - 6).
     """
-    return absorption_tail_reference(place_windows(parts), nhi)
+    return absorption_tail_reference(place_windows(parts), nhi, out_dtype)
 
 
-def absorption_windowed(parts: WindowedTauParts, nhi: torch.Tensor) -> torch.Tensor:
+def absorption_windowed(parts: WindowedTauParts, nhi: torch.Tensor,
+                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Broadened absorption from the unplaced windowed unit optical depth:
     K6 on CUDA, its twin on the CPU (float32).  One block per row.
 
     :param parts: far (S, P_pad) with P_pad a multiple of 128, corr
         (S, L * 256), c0 (S, L) int32 in [0, P_pad / 128 - 2], num_pixels P.
     :param nhi: (S,) column densities.
-    :return: (S, P - 6) float32.
+    :param out_dtype: float32 (None) or int16, the codes K6 encodes at its
+        store.
+    :return: (S, P - 6) in ``out_dtype``.
     """
+    out_dtype = check_store_dtype(out_dtype)
     far, corr, c0, P = parts
     if not use_kernel(far):
-        return absorption_windowed_reference(parts, nhi)
+        return absorption_windowed_reference(parts, nhi, out_dtype)
     device = far.device
     check_cuda_f32(device, far=far, corr=corr, nhi=nhi)
     if c0.dtype != torch.int32 or c0.device != device or not c0.is_contiguous():
@@ -489,14 +538,16 @@ def absorption_windowed(parts: WindowedTauParts, nhi: torch.Tensor) -> torch.Ten
             f"memory; at most {MAX_DYNAMIC_SHARED_BYTES // 4} fit"
         )
     out = torch.empty(
-        (S, P - 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH), dtype=torch.float32, device=device
+        (S, P - 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH), dtype=out_dtype, device=device
     )
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.absorption_windowed_launch(
             ptr(far), ptr(corr), ptr(c0), ptr(nhi), S, P_pad, P, L,
-            ptr(_device_taps(device)), ptr(out), stream_ptr(device),
+            ptr(_device_taps(device)), int(out_dtype == torch.int16), ptr(out),
+            stream_ptr(device),
         )
-    check_launch("absorption_windowed", err)
-    launch_counts["absorption_windowed"] += 1
+    name = store_name("absorption_windowed", out_dtype)
+    check_launch(name, err)
+    launch_counts[name] += 1
     return out

@@ -12,7 +12,9 @@ launch by default (``voigt_impl="windowed"``, or with the Weideman window
 (``voigt_impl="exact"``) one exact unit optical depth and one K5 launch
 per family; in the unfused windowed configuration
 (``voigt_impl="windowed_unfused"``) one windowed unit optical depth in
-parts and one K6 launch per family.
+parts and one K6 launch per family.  With ``abs_dtype=torch.int16`` the
+profiles are stored as fixed-point codes (``ops/kernel_config.py``):
+encoded in that launch, for both families, and decoded in K2.
 
 ``dispatch_batch`` only enqueues device work and returns device tensors;
 ``finalize_batch`` copies them to the host once and runs the model
@@ -60,6 +62,7 @@ def batch_evidences(
     shared_offsets: bool = False,
     base_inds_override: torch.Tensor | None = None,
     voigt_impl: str = "windowed",
+    abs_dtype: torch.dtype | None = None,
 ) -> EvidenceOutputs:
     """Evidences for a batch of tensor spectra (leading axis).
 
@@ -71,6 +74,9 @@ def batch_evidences(
         with the Weideman window), ``"exact"`` (exact unit optical depth +
         K5) or ``"windowed_unfused"`` (windowed parts + K6); see
         ``models.evidence.single_absorber_profiles``.
+    :param abs_dtype: storage of the profiles: None keeps the model's
+        dtype, ``torch.int16`` stores fixed-point codes (see
+        ``models.evidence.qmc_log_evidences``).
     """
     models = build_spectrum_model(learned, specs, params)
     null = null_log_evidence(models)
@@ -83,7 +89,7 @@ def batch_evidences(
             A_dla, A_sub = single_absorber_profiles(
                 model.padded_wavelengths, z,
                 (dla.nhi_samples, sub.nhi_samples), params.num_lines,
-                voigt_impl,
+                voigt_impl, out_dtype=abs_dtype,
             )
         dla_out.append(
             qmc_log_evidences(
@@ -93,12 +99,13 @@ def batch_evidences(
                 ),
                 A_override=A_dla,
                 voigt_impl=voigt_impl,
+                abs_dtype=abs_dtype,
             )
         )
         sub_out.append(
             qmc_log_evidences(
                 model, *sub, generator, 1, params, A_override=A_sub,
-                voigt_impl=voigt_impl,
+                voigt_impl=voigt_impl, abs_dtype=abs_dtype,
             )
         )
     return EvidenceOutputs(null, _stack_results(dla_out), _stack_results(sub_out))
@@ -114,6 +121,7 @@ def dispatch_batch(
     max_dlas: int = 4,
     base_inds_override: np.ndarray | None = None,
     voigt_impl: str = "windowed",
+    abs_dtype: torch.dtype | None = None,
 ) -> EvidenceOutputs:
     """Enqueue one batch's evidence computation on the learned model's
     device and dtype, and return the device outputs without waiting.
@@ -122,6 +130,8 @@ def dispatch_batch(
         indices replacing the draws (reproduces a reference run).
     :param voigt_impl: ``"windowed"`` (default, K1),
         ``"windowed_weideman"``, ``"exact"`` or ``"windowed_unfused"``.
+    :param abs_dtype: profile storage, None (the model's dtype) or
+        ``torch.int16``.
     """
     device, dtype = learned.mu.device, learned.mu.dtype
     shared = np.array_equal(
@@ -143,6 +153,7 @@ def dispatch_batch(
             else torch.as_tensor(np.asarray(base_inds_override, np.int64), device=device)
         ),
         voigt_impl=voigt_impl,
+        abs_dtype=abs_dtype,
     )
 
 
@@ -185,6 +196,7 @@ def process_batch(
     max_dlas: int = 4,
     base_inds_override: np.ndarray | None = None,
     voigt_impl: str = "windowed",
+    abs_dtype: torch.dtype | None = None,
 ) -> list[SpectrumResult]:
     """Full model selection for a list of spectra: dispatch + finalize.
 
@@ -198,9 +210,13 @@ def process_batch(
         optical depth + K5, the reference's ``GPY_DLA_FAST_VOIGT=0``) or
         ``"windowed_unfused"`` (windowed parts + K6, the reference's
         ``GPY_DLA_FUSED_ABS=0``).
+    :param abs_dtype: storage of the absorption profiles: None (default)
+        keeps the model's dtype; ``torch.int16`` stores fixed-point codes
+        (the reference's ``GPY_DLA_ABS_DTYPE=i16`` or ``i16p``; see
+        ``ops.kernel_config.profile_store_dtype``).
     """
     out = dispatch_batch(
         learned, spectra, dla_samples, subdla_samples, params, generator,
-        max_dlas, base_inds_override, voigt_impl,
+        max_dlas, base_inds_override, voigt_impl, abs_dtype,
     )
     return finalize_batch(out, spectra, subdla_samples, prior, max_dlas)

@@ -19,13 +19,22 @@ N = 768 pixels, k = 20): null and CIV log evidences of the 8 spectra of
 ``chip_smoke.py``'s CIV phase, every odd one with a CIV doublet multiplied
 into its flux (the injection of tests/test_accuracy_gates.py).
 
+``i16``: the DLA catalog of ``dla`` (the same two spectra, seeds and
+resampling indices) with int16 profile storage, the reference's
+``GPY_DLA_ABS_DTYPE=i16``: the JAX package's ``qmc_log_evidences`` in
+float64 with ``abs_dtype=jnp.int16`` for the 4 DLA levels (with the
+``dla`` fixture's indices) and the subDLA level (``process_spectrum`` has no
+storage argument, so the script calls it directly), and the null
+evidence.  It holds the evidences and the MAP chains; the indices are the
+``dla`` fixture's, which ``chip_smoke.py`` reads from there.
+
 Run from the repository root, naming the fixtures to write (all by
 default; each run rewrites the file, so name only the one that changes):
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [dla] [lls] [civ]
+    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [dla] [lls] [civ] [i16]
 
 Output: tests/data/torch_golden_fullscale.npz, tests/data/torch_golden_lls.npz,
-tests/data/torch_golden_civ.npz
+tests/data/torch_golden_civ.npz, tests/data/torch_golden_i16.npz
 """
 
 from __future__ import annotations
@@ -252,8 +261,65 @@ def write_civ() -> None:
     print(f"wrote {OUT_CIV} ({OUT_CIV.stat().st_size} bytes)")
 
 
+OUT_I16 = ROOT / "tests" / "data" / "torch_golden_i16.npz"
+
+
+def write_i16() -> None:
+    import jax.numpy as jnp
+
+    from gpy_dla_detection_tpu.models.evidence import null_log_evidence, qmc_log_evidences
+    from gpy_dla_detection_tpu.models.learned import build_spectrum_model
+
+    params = Parameters()
+    learned = synthetic_learned_model(params)
+    dla_samples = generate_dla_samples(params)
+    sub_samples = generate_subdla_samples(params)
+    S = params.num_dla_samples
+    # the dla fixture's indices: the same seed and draw
+    base_inds = np.random.default_rng(INDEX_SEED).integers(
+        0, S, size=(len(SPECTRA), MAX_DLAS - 1, S)
+    )
+
+    @jax.jit
+    def evidences(spec, base):
+        model = build_spectrum_model(learned, spec, params)
+        sample_args = lambda s: (jnp.asarray(s.offset_samples), jnp.asarray(s.log_nhi_samples),
+                                 jnp.asarray(s.nhi_samples))
+        dla = qmc_log_evidences(model, *sample_args(dla_samples), jax.random.PRNGKey(0),
+                                MAX_DLAS, params, base_inds_override=base, abs_dtype=jnp.int16)
+        sub = qmc_log_evidences(model, *sample_args(sub_samples), jax.random.PRNGKey(1), 1,
+                                params, abs_dtype=jnp.int16)
+        return null_log_evidence(model), dla, sub
+
+    fields = {k: [] for k in (
+        "log_evidence_null", "log_evidences_dla", "log_evidence_subdla",
+        "map_z_dlas", "map_log_nhis",
+    )}
+    for (z_qso, seed, dla), inds in zip(SPECTRA, base_inds):
+        spec = synthetic_spectrum(
+            params, learned, z_qso, seed=seed, dlas=None if dla is None else [dla]
+        )
+        null_ev, res, sub = evidences(spec, jnp.asarray(inds, jnp.int32))
+        fields["log_evidence_null"].append(float(null_ev))
+        fields["log_evidences_dla"].append(np.asarray(res.log_evidences))
+        fields["log_evidence_subdla"].append(float(sub.log_evidences[0]))
+        fields["map_z_dlas"].append(np.asarray(res.map_z_dlas))
+        fields["map_log_nhis"].append(np.asarray(res.map_log_nhis))
+        print(f"z_qso={z_qso:.4f} injected={dla is not None} null={float(null_ev):.6f} "
+              f"dla evidences={np.asarray(res.log_evidences)} subdla={float(sub.log_evidences[0])}")
+    OUT_I16.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(
+        OUT_I16,
+        z_qso=np.array([s[0] for s in SPECTRA], np.float64),
+        obs_seed=np.array([s[1] for s in SPECTRA], np.int64),
+        injected=np.array([s[2] is not None for s in SPECTRA]),
+        **{k: np.asarray(v, np.float64) for k, v in fields.items()},
+    )
+    print(f"wrote {OUT_I16} ({OUT_I16.stat().st_size} bytes)")
+
+
 def main(argv: list[str]) -> None:
-    writers = {"dla": write_dla, "lls": write_lls, "civ": write_civ}
+    writers = {"dla": write_dla, "lls": write_lls, "civ": write_civ, "i16": write_i16}
     which = argv or list(writers)
     unknown = set(which) - set(writers)
     if unknown:

@@ -11,9 +11,11 @@ Paths (``--path``): ``windowed`` (default), ``exact``,
 that Voigt configuration on
 the 16 synthetic spectra of ``chip_smoke.py`` at ``Parameters()``;
 ``lls`` runs ``lls_inference_many`` on the 8 LLS spectra of
-``chip_smoke.py`` at the LLS search's width.
+``chip_smoke.py`` at the LLS search's width.  ``--abs-dtype`` stores the
+absorption profiles as float32 (``f32``, the default) or as int16 codes
+(``i16``, or ``i16p``, which the port stores alike).
 
-    python3 scripts/profile_torch_slice.py [--path PATH] [--trace FILE]
+    python3 scripts/profile_torch_slice.py [--path PATH] [--abs-dtype f32|i16|i16p] [--trace FILE]
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from gpy_dla_detection_tpu_torch.models.lls import (  # noqa: E402
     lls_inference_many,
     with_boss_meanflux,
 )
+from gpy_dla_detection_tpu_torch.ops.kernel_config import profile_store_dtype  # noqa: E402
 from gpy_dla_detection_tpu_torch.params import Parameters  # noqa: E402
 from gpy_dla_detection_tpu_torch.parallel.batch import process_batch  # noqa: E402
 
@@ -57,8 +60,10 @@ PATHS = ("windowed", "exact", "windowed_unfused", "windowed_weideman", "lls")
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", choices=PATHS, default="windowed")
+    parser.add_argument("--abs-dtype", choices=("f32", "i16", "i16p"), default="f32")
     parser.add_argument("--trace", type=Path, help="write the Chrome trace here")
     args = parser.parse_args()
+    store = profile_store_dtype(args.abs_dtype)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     device = torch.device("cuda", 0)
@@ -80,7 +85,8 @@ def main() -> None:
 
         def run():
             return lls_inference_many(learned, spectra, samples,
-                                      torch.Generator(device=device).manual_seed(3), 4, params)
+                                      torch.Generator(device=device).manual_seed(3), 4, params,
+                                      abs_dtype=store)
     else:
         params = Parameters()
         arrays = synthetic_learned_model(params)
@@ -97,7 +103,7 @@ def main() -> None:
         def run():
             return process_batch(learned, spectra, dla, sub, prior, params,
                                  torch.Generator(device=device).manual_seed(1),
-                                 voigt_impl=args.path)
+                                 voigt_impl=args.path, abs_dtype=store)
 
     run()
     torch.cuda.synchronize()
@@ -118,7 +124,7 @@ def main() -> None:
         if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0
     ]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"card {card} | path {args.path} | {len(spectra)} spectra, S={params.num_dla_samples}, "
+    print(f"card {card} | path {args.path}, storage {args.abs_dtype} | {len(spectra)} spectra, S={params.num_dla_samples}, "
           f"N={params.num_pixels_padded}, k={params.k} | wall {plain_ms:.2f} ms "
           f"unprofiled, {wall_ms:.2f} ms profiled | device kernel time "
           f"{busy_ms:.2f} ms ({100 * busy_ms / plain_ms:.1f}% of the unprofiled "

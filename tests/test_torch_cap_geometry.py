@@ -53,6 +53,18 @@ def test_main_path_fills_the_card_in_one_wave(N, n_extra):
     assert g.shared_bytes == (210_944 if n_extra else 134_144)
 
 
+@pytest.mark.parametrize("N", [768, 1280, 1664])
+@pytest.mark.parametrize("n_extra", [0, 1, 2, 3])
+def test_int16_storage_keeps_the_main_path_geometry(N, n_extra):
+    """Sample streams staged as int16 codes: the same block and one wave,
+    in half the streams' shared bytes (80 samples x 40 codes x 2 buffers a
+    stream)."""
+    g32 = cap_geometry(10_000, N, 20, 210, n_extra)
+    g16 = cap_geometry(10_000, N, 20, 210, n_extra, elem=2)
+    assert g16._replace(shared_bytes=0) == g32._replace(shared_bytes=0)
+    assert g32.shared_bytes - g16.shared_bytes == 2 * 2 * (1 + n_extra) * 80 * 40
+
+
 @pytest.mark.parametrize("S", [20_000, 30_000])
 def test_more_samples_take_the_fewest_waves(S):
     """Beyond one wave of the largest block (80 samples with three

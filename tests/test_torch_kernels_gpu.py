@@ -25,6 +25,17 @@ stage kernel and flat chain, K2 with the flat basis) are held to the same
 1e-6 |ll| where the value is a likelihood, and to 2e-6 of the largest
 |value| for the stages that stop early; ``chain_nodot`` (wrong on purpose)
 must give NaN where its twin does.
+
+The int16 instantiations (compact profile storage) are held to their twins
+by codes: K1, K5 and K6 to max |dcode| <= 1 (kernel and twin differ by
+~3e-7 in float32; a code moves where a value sits near a half-step of the
+1/32767 grid), K1 at 1, 3, 8 and 31 lines, P = 7 to 1,670 with and without
+the break, F = 1 and 3, both windows, and at the main path; K5 at 16 and
+10,000 rows; K6 at the main path; K2 on int16 codes to 1e-6 |ll| at N =
+1,280, 1,664, 768, 512 and the odd 1,281, S = 72, 1,001 and 10,000, k = 5
+and 20, 0-3 streams, also on rows aligned to 2 and 4 bytes only, and
+against K2 fed the same codes decoded to float32 (printed: whether they
+agree bitwise).
 """
 
 import numpy as np
@@ -464,3 +475,150 @@ def test_flat_basis_cap_and_flat_chain_kernels_match_twins(cuda_device, k):
     assert float((transposed[:1001] - ll_twin).abs().max()) <= REL_K23 * scale
     dec = logmvn_decoupled(rows, M, Mp, A)
     assert float((dec - ll_twin).abs().max()) <= REL_K23 * scale
+
+
+# ---- compact profile storage: the int16 instantiations against their twins
+# (codes compared: kernel and twin differ by ~3e-7 in float32, which moves a
+# code by one where a value sits near a half-step of the 1/32767 grid)
+
+MAX_DCODE = 1
+
+
+def _dcode(got: torch.Tensor, want: torch.Tensor) -> int:
+    assert got.dtype == want.dtype == torch.int16 and got.shape == want.shape
+    return int((got.int() - want.int()).abs().max())
+
+
+@pytest.mark.parametrize("poly", [True, False])
+@pytest.mark.parametrize("P, lls_break", K1_PIXEL_CASES)
+@pytest.mark.parametrize("num_lines", K1_LINES)
+@pytest.mark.parametrize("F", [1, 3])
+def test_absorption_kernel_int16_matches_twin(cuda_device, F, num_lines, P, lls_break, poly):
+    wl, z, nhis = _k1_inputs(cuda_device, P, 1001, F, lls_break)
+    name = k1_launch_name(poly, torch.int16)
+    before = dict(_build.launch_counts)
+    got = absorption_all(wl, z, nhis, num_lines, lls_break, poly, torch.int16)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before.get(name, 0) + 1
+    assert _build.launch_counts[k1_launch_name(poly)] == before.get(k1_launch_name(poly), 0)
+    want = absorption_all_reference(wl, z, nhis, num_lines, lls_break, poly, torch.int16)
+    for g, w in zip(got, want):
+        assert _dcode(g, w) <= MAX_DCODE
+        assert int(g.min()) >= 0 and int(g.max()) <= 32767
+
+
+@pytest.mark.parametrize("poly", [True, False])
+@pytest.mark.parametrize("F", [1, 2, 3])
+def test_absorption_kernel_int16_at_the_main_path(cuda_device, F, poly):
+    wl, z, nhis = _k1_inputs(cuda_device, 1286, 10_000, F, False)
+    got = absorption_all(wl, z, nhis, 3, False, poly, torch.int16)
+    want = absorption_all_reference(wl, z, nhis, 3, False, poly, torch.int16)
+    f32 = absorption_all(wl, z, nhis, 3, False, poly)
+    torch.cuda.synchronize()
+    for g, w, g32 in zip(got, want, f32):
+        assert _dcode(g, w) <= MAX_DCODE
+        # the instantiations differ only at the store
+        assert _dcode(g, torch.round(g32 * 32767.0).to(torch.int16)) <= MAX_DCODE
+
+
+@pytest.mark.parametrize("S", [16, 10_000])
+def test_absorption_tail_kernel_int16_matches_twin(cuda_device, S):
+    grids, z, nhis = _grids_and_samples(S=S)
+    wl = torch.as_tensor(grids[0].astype(np.float32), device=cuda_device)
+    unit = unit_lyman_optical_depth(wl, torch.as_tensor(z, device=cuda_device), 3)
+    nhi = torch.as_tensor(nhis[0], device=cuda_device)
+    before = _build.launch_counts["absorption_tail_i16"]
+    got = absorption_tail(unit, nhi, torch.int16)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["absorption_tail_i16"] == before + 1
+    assert _dcode(got, absorption_tail_reference(unit, nhi, torch.int16)) <= MAX_DCODE
+
+
+def test_absorption_windowed_kernel_int16_at_the_main_path(cuda_device):
+    grids, z, nhis = _grids_and_samples(S=10_000)
+    wl = torch.as_tensor(grids[0].astype(np.float32), device=cuda_device)
+    parts = windowed_tau_parts(wl, torch.as_tensor(z, device=cuda_device), 3)
+    before = _build.launch_counts["absorption_windowed_i16"]
+    for nhi in nhis:
+        nt = torch.as_tensor(nhi, device=cuda_device)
+        got = absorption_windowed(parts, nt, torch.int16)
+        torch.cuda.synchronize()
+        assert _dcode(got, absorption_windowed_reference(parts, nt, torch.int16)) <= MAX_DCODE
+    assert _build.launch_counts["absorption_windowed_i16"] == before + len(nhis)
+
+
+def _k2_int16(device, N, S, k, n_extra, offset=0):
+    """K2 on int16 codes against its twin on the same codes (through the
+    same twin chain), and against K2 fed the codes decoded to float32: the
+    two |dll| and whether the latter agree bitwise.  ``offset`` shifts the
+    rows by that many codes in their buffer (2-byte alignment only)."""
+    (y, mu, M, omega2, v, mask), A, extra = _problem(device, N=N, k=k, S=S, n_extra=n_extra)
+    rows = torch.stack([y, mu, omega2, v, mask.float()])
+    Mp = packed_pair_basis(M)
+
+    def codes(x):
+        c = torch.round(x * 32767.0).to(torch.int16)
+        if not offset:
+            return c
+        buf = torch.empty(c.numel() + offset, dtype=torch.int16, device=device)
+        out = buf[offset:].view(c.shape)
+        out.copy_(c)
+        return out
+
+    cA, cE = codes(A), [codes(e) for e in extra]
+    before = dict(_build.launch_counts)
+    got = logmvn_cap(rows, M, Mp, cA, cE)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["logmvn_cap_i16"] == before.get("logmvn_cap_i16", 0) + 1
+    assert _build.launch_counts["logmvn_cap"] == before.get("logmvn_cap", 0)
+    ll_twin = logmvn_chain_reference(*logmvn_cap_reference(rows, M, Mp, cA, cE))
+    assert torch.isfinite(ll_twin).all()
+    scale = float(ll_twin.abs().max())
+    dec = lambda c: T.decode_profile_store(c, torch.float32).contiguous()
+    got32 = logmvn_cap(rows, M, Mp, dec(cA), [dec(c) for c in cE])
+    ll = logmvn_chain_reference(*got)
+    ll32 = logmvn_chain_reference(*got32)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, got32))
+    return (float((ll - ll_twin).abs().max()) / scale, float((ll - ll32).abs().max()) / scale,
+            bitwise)
+
+
+# N: the catalog's 1,280, the LLS search's 1,664, the CIV head's 768, the
+# reference test's 512 (16-byte copies), and the odd 1,281 (plain loads);
+# S: the reference test's 72, a count no multiple of the block, 10,000
+@pytest.mark.parametrize("n_extra", [0, 1, 2, 3])
+@pytest.mark.parametrize("k", [5, 20])
+@pytest.mark.parametrize("S", [72, 1001, 10_000])
+@pytest.mark.parametrize("N", [1280, 1664, 768, 512, 1281])
+def test_cap_kernel_int16_matches_twin(cuda_device, N, S, k, n_extra):
+    rel, rel32, bitwise = _k2_int16(cuda_device, N, S, k, n_extra)
+    print(f"K2 int16 N={N} S={S} k={k} streams={n_extra}: |dll|/max|ll| vs twin {rel:.2e}, "
+          f"vs float32 on the decoded codes {rel32:.2e}, bitwise {bitwise}")
+    assert rel <= REL_K23
+    assert rel32 <= REL_K23
+
+
+# a row offset of 1 code (2-byte aligned rows: plain loads) and of 2 codes
+# (4-byte aligned: 2 codes a copy), at an even N
+@pytest.mark.parametrize("offset", [1, 2])
+def test_cap_kernel_int16_on_unaligned_rows(cuda_device, offset):
+    rel, rel32, _ = _k2_int16(cuda_device, 1280, 1001, 20, 3, offset=offset)
+    assert rel <= REL_K23 and rel32 <= REL_K23
+
+
+def test_cap_kernel_folds_deep_int16_chains_in_float32(cuda_device):
+    """Four streams: the oldest two are folded after decoding, and the
+    float32 instantiation runs (codes are not encoded twice)."""
+    (y, mu, M, omega2, v, mask), A, extra = _problem(cuda_device, S=1001, n_extra=4)
+    rows = torch.stack([y, mu, omega2, v, mask.float()])
+    Mp = packed_pair_basis(M)
+    codes = lambda x: torch.round(x * 32767.0).to(torch.int16)
+    before = dict(_build.launch_counts)
+    got = logmvn_cap(rows, M, Mp, codes(A), [codes(e) for e in extra])
+    torch.cuda.synchronize()
+    assert _build.launch_counts["logmvn_cap"] == before.get("logmvn_cap", 0) + 1
+    assert _build.launch_counts["logmvn_cap_i16"] == before.get("logmvn_cap_i16", 0)
+    ll_twin = logmvn_chain_reference(*logmvn_cap_reference(rows, M, Mp, codes(A),
+                                                           [codes(e) for e in extra]))
+    scale = float(ll_twin.abs().max())
+    assert float((logmvn_chain_reference(*got) - ll_twin).abs().max()) <= REL_K23 * scale

@@ -9,6 +9,8 @@ same numpy code on the same inputs.
 
 import ast
 import dataclasses
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -21,6 +23,7 @@ from gpy_dla_detection_tpu.data import samples as JS
 from gpy_dla_detection_tpu.data import spectrum as JSpec
 from gpy_dla_detection_tpu.models import lls as JL
 from gpy_dla_detection_tpu.models import selection as JSel
+from gpy_dla_detection_tpu.ops import kernel_config as JK
 from gpy_dla_detection_tpu_torch import constants as TC
 from gpy_dla_detection_tpu_torch import params as TP
 from gpy_dla_detection_tpu_torch.data import catalog as TCat
@@ -32,6 +35,7 @@ from gpy_dla_detection_tpu_torch.data.synthetic import (
 )
 from gpy_dla_detection_tpu_torch.models import lls as TL
 from gpy_dla_detection_tpu_torch.models import selection as TSel
+from gpy_dla_detection_tpu_torch.ops import kernel_config as TK
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "gpy_dla_detection_tpu_torch"
@@ -62,6 +66,12 @@ def test_constants_equal():
     assert names == [n for n in dir(TC) if n.isupper()]
     for n in names:
         assert _equal(getattr(JC, n), getattr(TC, n)), n
+
+
+def test_profile_storage_constant_equal():
+    """The fixed-point scale of int16 profile storage, the port's one copy
+    from the reference's ops/kernel_config.py."""
+    assert TK.ABS_I16_SCALE == JK.ABS_I16_SCALE
 
 
 @pytest.mark.parametrize("num_samples", [64, 10000])
@@ -162,3 +172,45 @@ def test_port_names_no_module_of_the_jax_package():
         or name == "jax" or name.startswith("jax.")
     ]
     assert offenders == []
+
+
+def test_int16_storage_runs_without_jax():
+    """With ``jax`` and the JAX package blocked, the port runs a float32
+    batch with int16 profile storage (the reference's ``i16p`` flag value)
+    in its four configurations, each within the reference's int16 bound
+    (0.02) of its float32 storage."""
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["gpy_dla_detection_tpu"] = None
+sys.path.insert(0, {str(ROOT)!r})
+import numpy as np, torch
+torch.set_num_threads(2)
+from gpy_dla_detection_tpu_torch.params import Parameters
+from gpy_dla_detection_tpu_torch.data.samples import generate_dla_samples, generate_subdla_samples
+from gpy_dla_detection_tpu_torch.data.synthetic import (
+    synthetic_learned_model, synthetic_prior_catalog, synthetic_spectrum)
+from gpy_dla_detection_tpu_torch.models.learned import LearnedModel
+from gpy_dla_detection_tpu_torch.ops.kernel_config import profile_store_dtype
+from gpy_dla_detection_tpu_torch.parallel.batch import process_batch
+params = Parameters(num_dla_samples=64, k=6, min_lambda=1090.0, num_pixels_padded=512)
+learned = synthetic_learned_model(params)
+spectra = [synthetic_spectrum(params, learned, 3.0, seed=2, dlas=[(2.8, 21.0)])]
+module = LearnedModel.from_numpy(learned, "cpu", torch.float32)
+for impl in ("windowed", "windowed_weideman", "exact", "windowed_unfused"):
+    evs = [process_batch(module, spectra, generate_dla_samples(params),
+               generate_subdla_samples(params), synthetic_prior_catalog(params), params,
+               torch.Generator().manual_seed(0), max_dlas=2, voigt_impl=impl,
+               abs_dtype=store)[0].log_evidences_dla
+           for store in (None, profile_store_dtype("i16p"))]
+    assert np.isfinite(evs[1]).all() and np.abs(evs[1] - evs[0]).max() < 0.02, (impl, evs)
+loaded = [m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] in ("jax", "gpy_dla_detection_tpu"))]
+assert loaded == [], loaded
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
