@@ -41,7 +41,8 @@ Phases, one line each; any failure exits non-zero before the result:
      CIV chain (40 walkers x 1,000 steps); posterior evaluations per second
  10. timings: each kernel vs its twin and its bound (K1 also by its device
      time over 50 launches, CUDA events and the profiler, at P = 1,286, with
-     the break at P = 1,670 and with the Weideman window; K2 also beside its
+     the break at P = 1,670 and with the Weideman window; K5 by its device
+     time over 50 launches at 10,000 and 16 rows; K2 also beside its
      library yardstick, the two float32 matmuls on the twin's w and r,
      with its achieved TFLOP/s and share of the bound; K3 also by its device
      time over 50 launches, and beside its library yardstick, the batched
@@ -55,7 +56,11 @@ Phases, one line each; any failure exits non-zero before the result:
      layout, K3 on the packed one), each launch counted and held against
      its twin; the float64 accuracy of full, decoupled and K2 + K3; the
      stage kernel's and the flat chain's times vs twins and bounds, with
-     the SGEMM yardstick beside the matmul stage
+     the SGEMM yardstick beside the matmul stage and the cholesky_ex +
+     solve_triangular yardstick beside the flat chain; device ms of every
+     stage beside K2's and K3's on the same inputs, full against K2 + K3
+     run apart, and the split of the shipped K2 (staging and assembly, FMA
+     loop, stores) that the stage differences give
  12. the CIV QMC head at CIVParameters() (S = 10,000, N = 768) on 8
      synthetic spectra through civ_inference_many (odd ones carry a CIV
      doublet), with launch counts, detections and golden parity with the
@@ -94,6 +99,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # the card's machine has no JAX, and the port stands alone: fail loudly if
@@ -226,28 +232,6 @@ def timed_median(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 50) -> tuple[float, float]:
-    """Milliseconds a call of ``fn()`` over ``reps`` back-to-back calls,
-    after a warm-up: the profiler's kernel time, and the CUDA events' span
-    of the calls.  Where the kernel is shorter than its wrapper's host
-    time, the span measures the host."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-    kernel_us = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type != torch.autograd.DeviceType.CPU)
-    return kernel_us / 1e3 / reps, start.elapsed_time(end) / reps
-
-
 def events_ms(fn, reps: int = 50) -> float:
     """Milliseconds a call of ``fn()`` by CUDA events around ``reps``
     back-to-back calls, after a warm-up: the device time of a kernel that
@@ -367,11 +351,12 @@ def ablation_work(stage: str, S, N, k) -> tuple[float, float]:
     return n_bytes, ops
 
 
-def flat_product_work(S, N, k) -> float:
-    """The flat product w [Mp | M] that the stage kernel computes from
-    matmul on, 2 S N (k^2 + k) operations: the instrument's own work, which
-    the functions do not need."""
-    return 2.0 * S * N * (k * k + k)
+def packed_product_work(S, N, k) -> float:
+    """The packed product w [Mp_packed | M] and its assembly that the stage
+    kernel computes from matmul on, K2's operations (2 S N (k(k+1)/2 + k)
+    + 12 S N): the instrument's own work, which matmul's function does not
+    need."""
+    return k2_work(S, N, k, 0)[1]
 
 
 def flat_chain_work(S, k) -> tuple[float, float]:
@@ -426,12 +411,14 @@ def main() -> None:
     )
     from gpy_dla_detection_tpu_torch.ops import _build
     from gpy_dla_detection_tpu_torch.ops.logmvn_ablate import (
-        logmvn_ablate,
+        logmvn_ablate_packed,
         logmvn_ablate_reference,
+        logmvn_decoupled,
         logmvn_flat_chain,
         logmvn_flat_chain_reference,
     )
     from gpy_dla_detection_tpu_torch.ops.logmvn import decode_profile_store
+    from gpy_dla_detection_tpu_torch.ops.timing import device_ms
     from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
         assemble_reference,
         logmvn_cap,
@@ -478,12 +465,18 @@ def main() -> None:
           f"card {card} | devices {torch.cuda.device_count()} | matmul.allow_tf32 {tf32}")
     check(not tf32, "torch.backends.cuda.matmul.allow_tf32 must be False")
 
-    # 2. kernel build
+    # 2. kernel build: the user paths' library and the ablation's at once
+    # (one nvcc a source), the first timed apart
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.load_library()
-    print(f"[2 build] {time.perf_counter() - t0:.2f} s, nvcc {' '.join(_build.NVCC_FLAGS)} "
-          f"-> {lib_path.relative_to(ROOT)}")
+    with ThreadPoolExecutor(1) as pool:
+        ablate_build = pool.submit(_build.build, "ablate")
+        (main_lib,) = _build.build("kernels")
+        main_s = time.perf_counter() - t0
+        (ablate_lib,) = ablate_build.result()
+    for name in _build.LIBRARIES:
+        _build.load_library(name)
+    print(f"[2 build] {time.perf_counter() - t0:.2f} s, nvcc {' '.join(_build.NVCC_FLAGS)} -> "
+          f"{main_lib.relative_to(ROOT)} in {main_s:.2f} s, {ablate_lib.relative_to(ROOT)}")
 
     # inputs of the main path, at full width
     params = Parameters()
@@ -1008,6 +1001,12 @@ def main() -> None:
             timed_median(lambda: absorption_tail(tau_r, nhi_r)),
             timed_median(lambda: absorption_tail_reference(tau_r, nhi_r)))
     ms["absorption_tail"] = ms[f"absorption_tail_{unit_tau.shape[0]}"]
+    # K5's device time over 50 launches at each row count (the profiler's
+    # kernel time, and the CUDA events' span, which at 16 rows is the
+    # wrapper's host time): the MCMC half-step's 16 rows launch 10,001
+    # times a DLA chain
+    k5_device = {f"absorption_tail_{rows_n}": device_ms(lambda: absorption_tail(tau_r, nhi_r))
+                 for rows_n, (tau_r, nhi_r) in k5_rows.items()}
     cap0 = logmvn_cap(rows, model.M, Mp, A)
     for name, extra in (("logmvn_cap", []), ("logmvn_cap_3", extras3)):
         ms[name] = (timed_median(lambda: logmvn_cap(rows, model.M, Mp, A, extra)),
@@ -1086,6 +1085,9 @@ def main() -> None:
         f"{bounds[n][0] / ev:.1%} of its bound"
         for n, (ev, prof) in k1_device.items())
     timing += "".join(
+        f" | {n}: device {dev:.4f} ms (profiler, 50 launches); CUDA events' span {span:.4f} ms "
+        f"a launch" for n, (dev, span) in k5_device.items())
+    timing += "".join(
         f" | {n}: device {dev:.4f} ms (profiler, 50 launches), {bounds[n][0] / dev:.1%} of its "
         f"bound; CUDA events' span {span:.4f} ms a launch"
         + (f"; library yardstick (cholesky_ex + solve_triangular) {library[n]:.3f} ms"
@@ -1136,8 +1138,11 @@ def main() -> None:
     a0 = a_list[0]
     kernel_rows = []  # (name, ms, plain_ms, (bound, by), launches, library_ms, replaces, err)
     yard = ablate.library_yardsticks(device)
+    # the stage kernel is timed on the packed basis: its own time, without
+    # the gather of the packed columns that the flat-basis entry makes
+    packed_a = packed_pair_basis(M_a)
     for func in ABLATION_FUNCTIONS:
-        ms_k = timed_median(lambda: logmvn_ablate(func, rows_a, M_a, Mp_a, a0))
+        ms_k = timed_median(lambda: logmvn_ablate_packed(func, rows_a, M_a, packed_a, a0))
         ms_t = timed_median(lambda: logmvn_ablate_reference(func, rows_a, M_a, Mp_a, a0))
         names = [st for st in ablate.STAGES if ablate.STAGES[st] == ablate.STAGES[func]]
         kernel_rows.append((
@@ -1160,16 +1165,51 @@ def main() -> None:
             sum(stage_launches[st].get("logmvn_flat_chain", 0) for st in names), None,
             f"{ABLATE}:400" if tr else f"{ABLATE}:235",
             max(abs_errs[st] for st in names)))
-    # the stage kernel's flat product, beside the rows that compute it
-    product_ms = bound(0.0, flat_product_work(ablate.S, ablate.N, ablate.K))[0]
-    row_extra = {f"logmvn_ablate[{func}]": {"flat_product_bound_ms": product_ms}
-                 for func in ("matmul", "full", "chain_nodot")}
+    # device ms (profiler, 50 launches): each stage beside K2 and K3 on the
+    # same inputs, the decoupled split, the flat chain in both layouts, and
+    # the flat chain's library yardstick (on no path): cholesky_ex of I + B
+    # on its own inputs, then solve_triangular of u
+    cap_a = logmvn_cap(rows_a, M_a, packed_a, a0)
+    dev = {f"logmvn_ablate[{func}]": device_ms(
+        lambda: logmvn_ablate_packed(func, rows_a, M_a, packed_a, a0))[0]
+        for func in ABLATION_FUNCTIONS}
+    dev["K2"] = device_ms(lambda: logmvn_cap(rows_a, M_a, packed_a, a0))[0]
+    dev["K3"] = device_ms(lambda: logmvn_chain(*cap_a))[0]
+    dev["decoupled"] = device_ms(lambda: logmvn_decoupled(rows_a, M_a, Mp_a, a0), kernels=2)[0]
+    flat_library = {}
+    for layout in ("row", "transposed"):
+        B_c, u_c, m_c = ablate.chain_inputs(layout, 0, device)
+        tr = layout == "transposed"
+        name = f"logmvn_flat_chain[{layout}]"
+        dev[name] = device_ms(lambda: logmvn_flat_chain(B_c, u_c, m_c, transposed=tr))[0]
+        S_c, k_c = (u_c.shape[1], u_c.shape[0]) if tr else u_c.shape
+        eye = torch.eye(k_c, device=device)
+        full_c = (B_c.T if tr else B_c).reshape(S_c, k_c, k_c) + eye
+        rhs_c = (u_c.T if tr else u_c)[:, :, None].contiguous()
+        flat_library[name] = timed_median(lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky_ex(full_c)[0], rhs_c, upper=False))
+    kernel_rows = [row[:5] + ((flat_library[row[0]],) if row[0] in flat_library else row[5:6])
+                   + row[6:] for row in kernel_rows]
+    # the packed product the stage kernel computes from matmul on
+    product_ms = bound(0.0, packed_product_work(ablate.S, ablate.N, ablate.K))[0]
+    row_extra = {name: {"device_ms": dev[name]} for name, *_ in kernel_rows}
+    for func in ("matmul", "full", "chain_nodot"):
+        row_extra[f"logmvn_ablate[{func}]"]["packed_product_bound_ms"] = product_ms
     ms_stage = " | ".join(
-        f"{name} {k:.3f} ms vs twin {t:.3f} ms, bound {b:.4f} ms ({by}), launches {n}"
-        + (f", SGEMM yardstick {lib:.3f} ms" if lib is not None else "")
+        f"{name} {k:.3f} ms vs twin {t:.3f} ms (device {dev[name]:.4f} ms), bound {b:.4f} ms "
+        f"({by}), launches {n}"
+        + (f", library yardstick {lib:.3f} ms" if lib is not None else "")
         for name, k, t, (b, by), n, lib, _, _ in kernel_rows)
-    ms_stage += (f" | the flat product w [Mp | M] that the stage kernel computes from matmul "
-                 f"on (its own work, not the functions'): bound {product_ms:.4f} ms (operations)")
+    ms_stage += (f" | the packed product w [Mp_packed | M] and its assembly that the stage kernel "
+                 f"computes from matmul on (its own work, not matmul's function): bound "
+                 f"{product_ms:.4f} ms (operations)")
+    el, mm, k2 = (dev["logmvn_ablate[elementwise]"], dev["logmvn_ablate[matmul]"], dev["K2"])
+    ms_stage += (f" | device ms (profiler, 50 launches) on the same inputs: K2 {k2:.4f}, K3 "
+                 f"{dev['K3']:.4f}, decoupled (K2 flat + flat chain) {dev['decoupled']:.4f}; "
+                 f"full {dev['logmvn_ablate[full]']:.4f} vs K2 + K3 run apart "
+                 f"{k2 + dev['K3']:.4f} | the shipped K2 by stage differences: staging and "
+                 f"assembly (elementwise) {el:.4f}, FMA loop (matmul - elementwise) "
+                 f"{mm - el:.4f}, stores (K2 - matmul) {k2 - mm:.4f}")
     print(f"[11 ablation] {card} | S={ablate.S} N={ablate.N} k={ablate.K} via "
           f"{ABLATE_SCRIPT.relative_to(ROOT)} | {len(stage_names)} stages, launches {launches} | "
           f"kernel vs twin max |d|/max|value| "
@@ -1491,6 +1531,8 @@ def main() -> None:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library.get(name),
          **({"device_ms": k3_device[name][0]} if name in k3_device else {}),
+         **({"device_ms_by_rows": {n: d for n, (d, _) in k5_device.items()}}
+            if name == "absorption_tail" else {}),
          **({"device_ms": k1_device[name][0], "device_ms_profiler": k1_device[name][1],
              "device_ms_lls_break": k1_device[f"{name}_lls"][0],
              "bound_ms_lls_break": bounds[f"{name}_lls"][0]} if name in k1_device else {}),

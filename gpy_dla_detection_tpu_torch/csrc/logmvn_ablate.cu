@@ -31,32 +31,54 @@
 // per sample and pixel); Full and ChainNoDot by K2's products on the
 // symmetric basis's triangle, 2 S N (k(k+1)/2 + k) in float32 FMA (5.89
 // GFLOP at k = 20), plus the chain; the flat chain by the bytes of the
-// triangle ((k(k+1)/2 + k + 3) floats per sample, 9.3 MB).  The flat
-// product this kernel computes, 2 S N (k^2 + k) (10.75 GFLOP), is the
-// instrument's work.
+// triangle ((k(k+1)/2 + k + 3) floats per sample, 9.3 MB).
 //
-// Design: the stage kernel is K2's tile (32 samples a block, one thread per
-// 4 samples x 8 columns, the prologue's 32 x 32 chunk in shared memory);
-// the stages stop early by template.  Matmul, Full and ChainNoDot write the
-// block's B and u tiles to shared memory over the prologue's space,
-// sample-fastest (32 x (k^2 + k) x 4 = 53,760 bytes at k = 20), then one
-// thread per sample sums them or runs the chain: 32 of the block's
-// threads.  The flat chain kernel stages 32 samples a block the same way,
-// its loads coalesced in either layout, then one thread per sample.  The
-// chain reads and updates the upper entries (j, a >= j) of the flat matrix
-// only, as K3 does on its packed triangle.  Not tuned.
+// The stage kernel is K2's block (logmvn_cap_block.cuh) at
+// K2's own geometry for the packed basis, cap_geometry(S, N, k, k(k+1)/2),
+// so the stages differ in work and not in occupancy; the stage picks the
+// block's epilogue.  The matrix is symmetric, so every stage from Matmul on
+// computes the packed product, as K2 does: the wrapper gathers the packed
+// columns (j, a >= j) of the flat Mp (flat column j k + a) into the packed
+// basis K2 takes, one index_select a call, so the staging is K2's own.
+// Elementwise and
+// ElementwiseNoLog stage and assemble as K2 does (the w | r tile written as
+// there) with no basis and no FMA loop, summing w + r (and d_inv in place
+// of its log) beside quad0 through the assembly's shuffles.  Matmul runs
+// K2's loop and sums each thread's tile, sum B = sum diag + 2 sum
+// off-diag, across a warp's column groups by shuffles and across the
+// column warps in shared memory; nothing is stored but ll.  Full and
+// ChainNoDot write each thread's tile of B | u and each sample's quad0 and
+// logdet0 to shared memory over the staging buffers, in K3's column-major
+// packed layout (TS (k(k+1)/2 + k + 2) floats, 74,240 bytes at TS = 80, k
+// = 20), then each warp runs K3's warp chain (logmvn_chain_warp.cuh) on
+// its samples in turn: at the main path 10 warps an SM, 8 samples each,
+// where K3 alone runs 32 warps an SM.
+//
+// The flat chain is K3's warp chain too, a warp a sample.  A block takes
+// an even run of consecutive samples (flat_chain_geometry), in chunks that
+// fit its shared memory; each chunk is staged into K3's packed layout (the
+// upper entries (j, a >= j) of the flat B through a table of their flat
+// offsets, then u and misc), the loads ordered so that neighbouring
+// threads read neighbouring addresses in either layout (entry-fastest in
+// the row layout, sample-fastest in the transposed one, where a sample's
+// entries are S floats apart), each sample's buffer an odd number of
+// floats long so that the sample-fastest stores fall in distinct banks.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "logmvn_cap_block.cuh"
+#include "logmvn_chain_warp.cuh"
+
 namespace {
 
-constexpr int kTS = 32;   // samples per block of the stage kernel
-constexpr int kTN = 32;   // pixels per chunk
-constexpr int kSPT = 4;   // samples per thread
-constexpr int kCPT = 8;   // columns per thread
-constexpr int kSampleGroups = kTS / kSPT;
-constexpr int kChainSamples = 32;  // samples per block of the flat chain
-constexpr float kLog2Pi = 1.8378770664093453f;
+using namespace cap_block;
+// The flat chain's warps a block, and its blocks an SM (the launch bound)
+// at row bounds 32 and 64; the launcher refuses a geometry with others.
+using FlatGeometry = k3::GeometryOf<8, 4, 8, 2>;
+
+constexpr int kStageMaxK = 64;  // K3's largest row bound
 
 enum Stage : int {
   kElementwise = 0,
@@ -66,339 +88,289 @@ enum Stage : int {
   kChainNoDot = 4,
 };
 
-__host__ __device__ inline int col_groups(int n) { return (n + kCPT - 1) / kCPT; }
+// the row bound of K3's chain that holds k
+__host__ __device__ inline int row_bound(int k) { return k <= 32 ? 32 : 64; }
 
-__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
-
-// A read-only load the compiler may not sink into a branch: the prologue
-// issues all six of a pixel's loads at once, so the per-pixel rows' latency
-// overlaps the absorption's.  Plain loads let the compiler move y and mu
-// into the valid-pixel branch behind the division in some instantiations
-// (elementwise_nolog), a second round trip behind A's for every element.
-__device__ __forceinline__ float load_now(const float* p) {
-  float x;
-  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(x) : "l"(p));
-  return x;
+// floats of the fused chain's buffer: each sample's triangle, u and misc,
+// and the row bound the rows past k - 1 read beyond the last sample
+__host__ __device__ inline size_t chain_floats(int ts, int k) {
+  return (size_t)ts * (k * (k + 1) / 2 + k + 2) + row_bound(k);
 }
 
-// One sample's chain on I + B: flat entry p = j k + a at t[p * stride], u's
-// entry a at uu[a * stride]; both are overwritten.
-__device__ void flat_chain(float* t, float* uu, int stride, int k, float& quad,
-                           float& logdet) {
-  for (int j = 0; j < k; ++j) t[(j * k + j) * stride] += 1.0f;
-  quad = 0.0f;
-  logdet = 0.0f;
-  for (int j = 0; j < k; ++j) {
-    const int off = j * k;
-    const float dj = t[(off + j) * stride];
-    logdet += logf(dj);
-    const float inv = rsqrtf(dj);
-    for (int a = j + 1; a < k; ++a) t[(off + a) * stride] *= inv;
-    const float tj = uu[j * stride] * inv;
-    quad += tj * tj;
-    for (int a = j + 1; a < k; ++a) uu[a * stride] -= tj * t[(off + a) * stride];
-    // trailing update of rows jj > j:  A[jj, a] -= L[a] L[jj]
-    for (int jj = j + 1; jj < k; ++jj) {
-      const float l_jj = t[(off + jj) * stride];
-      for (int a = jj; a < k; ++a)
-        t[(jj * k + a) * stride] -= t[(off + a) * stride] * l_jj;
-    }
+// (column j, row a >= j) of packed column c (column-major lower triangle)
+__device__ __forceinline__ void packed_coord(int c, int k, int& j, int& a) {
+  int off = 0;
+  j = 0;
+  while (c >= off + k - j) {
+    off += k - j;
+    ++j;
   }
+  a = j + c - off;
 }
 
-// The same chain with the ablation's wrong trailing update: every later
-// row loses col[a]^2 in every column a (col zero below the pivot).  Rows up
-// to j are never read again, so they are left as they are.
-__device__ void flat_chain_nodot(float* t, float* uu, int stride, int k,
-                                 float& quad, float& logdet) {
-  for (int j = 0; j < k; ++j) t[(j * k + j) * stride] += 1.0f;
-  quad = 0.0f;
-  logdet = 0.0f;
-  for (int j = 0; j < k; ++j) {
-    const int off = j * k;
-    const float dj = t[(off + j) * stride];
-    logdet += logf(dj);
-    const float inv = rsqrtf(dj);
-    for (int a = 0; a < k; ++a)
-      t[(off + a) * stride] = a >= j ? t[(off + a) * stride] * inv : 0.0f;
-    const float tj = uu[j * stride] * inv;
-    quad += tj * tj;
-    for (int a = j + 1; a < k; ++a) uu[a * stride] -= tj * t[(off + a) * stride];
-    for (int i = j + 1; i < k; ++i)
-      for (int a = 0; a < k; ++a) {
-        const float c = t[(off + a) * stride];
-        t[(i * k + a) * stride] -= c * c;
-      }
-  }
-}
+template <int kStage, int KMAX = 32>
+struct StageOut {
+  float* ll;
+  static constexpr bool kProducts = kStage >= kMatmul;
+  static constexpr bool kLogDet = kStage != kElementwiseNoLog;
+  static constexpr bool kSumWR = kStage <= kElementwiseNoLog;
 
-template <int kStage>
-__global__ void logmvn_ablate_kernel(const float* __restrict__ rows, int N,
-                                     const float* __restrict__ M, int k,
-                                     const float* __restrict__ Mp,
-                                     const float* __restrict__ A, int S,
-                                     float* __restrict__ ll) {
-  constexpr bool kProducts = kStage >= kMatmul;
-  const int kp = k * k;
-  const int gp = col_groups(kp);
-  const int ng = gp + col_groups(k);
-  const int NC = ng * kCPT;
-  extern __shared__ float4 smem4[];
-  float* W = reinterpret_cast<float*>(smem4);  // [kTN][kTS] w
-  float* R = W + kTN * kTS;                   // [kTN][kTS] r
-  float* Q = R + kTN * kTS;                   // [kTS][kTN + 1] delta^2 d_inv
-  float* LD = Q + kTS * (kTN + 1);            // [kTS][kTN + 1] log d_inv (or d_inv)
-  float* Mc = LD + align4(kTS * (kTN + 1));   // [kTN][NC] Mp | M chunk
-
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;  // kSampleGroups * ng, at least kTS
-  const int cg = tid % ng;
-  const int sg = tid / ng;
-  // threads beyond the 4 x 8 tiles (a narrow basis) only load and sum
-  const bool tiled = sg < kSampleGroups;
-  const int s0 = blockIdx.x * kTS;
-  const float* L = (cg < gp) ? W : R;
-  const float* y = rows;
-  const float* mu = rows + N;
-  const float* omega2 = rows + 2 * N;
-  const float* v = rows + 3 * N;
-  const float* mask = rows + 4 * N;
-
-  float acc[kSPT][kCPT];
+  __device__ __forceinline__ void finish(const Block& b, const float (&acc)[kTile][kTile],
+                                         const double (&q)[kMaxQuads],
+                                         const double (&ld)[kMaxQuads],
+                                         const double (&wr)[kMaxQuads]) const {
+    if constexpr (!kProducts) {
+      if (b.nl_lo != 0) return;
 #pragma unroll
-  for (int i = 0; i < kSPT; ++i)
-#pragma unroll
-    for (int j = 0; j < kCPT; ++j) acc[i][j] = 0.0f;
-  double q_acc = 0.0, ld_acc = 0.0, wr_acc = 0.0;
-  int n_valid = 0;
-
-  for (int n0 = 0; n0 < N; n0 += kTN) {
-    for (int e = tid; e < kTS * kTN; e += nthreads) {
-      const int sl = e / kTN;
-      const int nl = e % kTN;
-      const int s = s0 + sl;
-      const int n = n0 + nl;
-      float w = 0.0f, r = 0.0f, q = 0.0f, ld = 0.0f;
-      if (s < S && n < N) {
-        const float a_raw = load_now(A + (size_t)s * N + n);
-        const float m = load_now(mask + n);
-        const float om = load_now(omega2 + n);
-        const float vn = load_now(v + n);
-        const float yn = load_now(y + n);
-        const float mun = load_now(mu + n);
-        const bool valid = m > 0.0f;
-        const float a = valid ? a_raw : 1.0f;
-        const float d = om * a * a + vn;
-        const float d_inv = m / (valid ? d : 1.0f);
-        const float delta = valid ? yn - mun * a : 0.0f;
-        w = a * a * d_inv;
-        r = a * delta * d_inv;
-        q = delta * delta * d_inv;
-        ld = kStage == kElementwiseNoLog ? d_inv
-                                         : logf(d_inv + (valid ? 0.0f : 1.0f));
+      for (int qi = 0; qi < kMaxQuads; ++qi) {
+        const int quad = b.warp + qi * b.nwarps;
+        const int s = b.s0 + 4 * quad + b.sl_lo;
+        if (quad < b.n_quads && s < b.S)
+          ll[s] = (float)(kLogDet ? q[qi] - ld[qi] + wr[qi] : q[qi] + ld[qi] + wr[qi]);
       }
-      W[nl * kTS + sl] = w;
-      R[nl * kTS + sl] = r;
-      Q[sl * (kTN + 1) + nl] = q;
-      LD[sl * (kTN + 1) + nl] = ld;
-    }
-    if constexpr (kProducts) {
-      for (int e = tid; e < kTN * NC; e += nthreads) {
-        const int nl = e / NC;
-        const int c = e % NC;
-        const int n = n0 + nl;
-        float val = 0.0f;
-        if (n < N) {
-          if (c < gp * kCPT) {
-            if (c < kp) val = Mp[(size_t)n * kp + c];
-          } else {
-            const int j = c - gp * kCPT;
-            if (j < k) val = M[(size_t)n * k + j];
-          }
+    } else if constexpr (kStage == kMatmul) {
+      float* part = b.smem;              // [wc][TS]: each column warp's sums
+      float* base = part + b.wc * b.TS;  // [TS]: quad0 + logdet0
+      float wt[kTile];  // the weight of each of the thread's columns in the sum
+#pragma unroll
+      for (int j = 0; j < kTile; ++j) {
+        const int c = b.cg * kTile + j;
+        if (b.cg < b.gp) {
+          int jj = 0, a = 0;
+          if (c < b.kp) packed_coord(c, b.k, jj, a);
+          wt[j] = c >= b.kp ? 0.0f : a == jj ? 1.0f : 2.0f;
+        } else {
+          wt[j] = c - b.gp * kTile < b.k ? 1.0f : 0.0f;
         }
-        Mc[e] = val;
       }
-    }
-    __syncthreads();
-
-    const int nmax = min(kTN, N - n0);
-    if (tid < kTS) {
-      for (int nl = 0; nl < nmax; ++nl) {
-        q_acc += (double)Q[tid * (kTN + 1) + nl];
-        ld_acc += (double)LD[tid * (kTN + 1) + nl];
-        n_valid += mask[n0 + nl] > 0.0f;
-        if constexpr (!kProducts)
-          wr_acc += (double)W[nl * kTS + tid] + (double)R[nl * kTS + tid];
+      const int lane = threadIdx.x & 31;
+#pragma unroll
+      for (int i = 0; i < kTile; ++i) {
+        float ps = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kTile; ++j) ps += wt[j] * acc[i][j];
+        // the 16 column groups of the warp's half (lanes of one sample group)
+#pragma unroll
+        for (int off = 1; off < kWarpCG; off <<= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+        if (lane % kWarpCG == 0) part[(b.warp % b.wc) * b.TS + b.sg * kTile + i] = ps;
       }
-    }
-    if (kProducts && tiled) {
-      for (int nl = 0; nl < nmax; ++nl) {
-        const float4 lv = *reinterpret_cast<const float4*>(L + nl * kTS + sg * kSPT);
-        const float4 c0 = *reinterpret_cast<const float4*>(Mc + nl * NC + cg * kCPT);
-        const float4 c1 =
-            *reinterpret_cast<const float4*>(Mc + nl * NC + cg * kCPT + 4);
-        const float ls[kSPT] = {lv.x, lv.y, lv.z, lv.w};
-        const float cs[kCPT] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+      if (b.nl_lo == 0) {
 #pragma unroll
-        for (int i = 0; i < kSPT; ++i)
-#pragma unroll
-          for (int j = 0; j < kCPT; ++j) acc[i][j] = fmaf(ls[i], cs[j], acc[i][j]);
+        for (int qi = 0; qi < kMaxQuads; ++qi) {
+          const int quad = b.warp + qi * b.nwarps;
+          if (quad < b.n_quads) base[4 * quad + b.sl_lo] = (float)q[qi] + (float)(-ld[qi]);
+        }
       }
-    }
-    __syncthreads();
-  }
-
-  if constexpr (!kProducts) {
-    if (tid < kTS && s0 + tid < S) {
-      const double sum = kStage == kElementwiseNoLog ? q_acc + ld_acc + wr_acc
-                                                     : q_acc - ld_acc + wr_acc;
-      ll[s0 + tid] = (float)sum;
-    }
-  } else {
-    // the block's B and u tiles, sample-fastest, over the prologue's space
-    float* Bt = reinterpret_cast<float*>(smem4);  // [kp][kTS]
-    float* Ut = Bt + kp * kTS;                    // [k][kTS]
-    if (tiled) {
+      __syncthreads();
+      for (int t = threadIdx.x; t < b.TS; t += blockDim.x) {
+        if (b.s0 + t >= b.S) break;
+        float v = base[t];
+        for (int w = 0; w < b.wc; ++w) v += part[w * b.TS + t];
+        ll[b.s0 + t] = v;
+      }
+    } else {
+      // each sample's packed triangle, u and misc, K3's layout
+      const int stride = b.kp + b.k + 2;
+      float* buf = b.smem;
 #pragma unroll
-      for (int i = 0; i < kSPT; ++i) {
-        const int sl = sg * kSPT + i;
+      for (int i = 0; i < kTile; ++i) {
+        float* row = buf + (b.sg * kTile + i) * stride;
 #pragma unroll
-        for (int j = 0; j < kCPT; ++j) {
-          const int c = cg * kCPT + j;
-          if (cg < gp) {
-            if (c < kp) Bt[c * kTS + sl] = acc[i][j];
+        for (int j = 0; j < kTile; ++j) {
+          const int c = b.cg * kTile + j;
+          if (b.cg < b.gp) {
+            if (c < b.kp) row[c] = acc[i][j];
           } else {
-            const int jj = c - gp * kCPT;
-            if (jj < k) Ut[jj * kTS + sl] = acc[i][j];
+            const int jj = c - b.gp * kTile;  // >= k on the padding groups
+            if (jj < b.k) row[b.kp + jj] = acc[i][j];
           }
         }
       }
-    }
-    __syncthreads();
-    if (tid < kTS && s0 + tid < S) {
-      const float quad0 = (float)q_acc;
-      if constexpr (kStage == kMatmul) {
-        float sb = 0.0f, su = 0.0f;
-        for (int p = 0; p < kp; ++p) sb += Bt[p * kTS + tid];
-        for (int a = 0; a < k; ++a) su += Ut[a * kTS + tid];
-        ll[s0 + tid] = quad0 + (float)(-ld_acc) + sb + su;
-      } else {
-        const float logdet0 = (float)(-ld_acc) + (float)n_valid * kLog2Pi;
-        float quad, logdet;
-        if constexpr (kStage == kFull)
-          flat_chain(Bt + tid, Ut + tid, kTS, k, quad, logdet);
-        else
-          flat_chain_nodot(Bt + tid, Ut + tid, kTS, k, quad, logdet);
-        ll[s0 + tid] = -0.5f * (quad0 - quad + logdet0 + logdet);
+      if (b.nl_lo == 0) {
+#pragma unroll
+        for (int qi = 0; qi < kMaxQuads; ++qi) {
+          const int quad = b.warp + qi * b.nwarps;
+          if (quad < b.n_quads) {
+            float* m = buf + (4 * quad + b.sl_lo) * stride + b.kp + b.k;
+            m[0] = (float)q[qi];
+            m[1] = (float)(-ld[qi]) + (float)b.n_valid * kLog2Pi;
+          }
+        }
+      }
+      __syncthreads();
+      for (int sl = b.warp; sl < b.TS && b.s0 + sl < b.S; sl += b.nwarps) {
+        const float* t = buf + sl * stride;
+        const float v = k3::chain_ll<KMAX, kStage == kChainNoDot>(
+            t, t + b.kp, t[b.kp + b.k], t[b.kp + b.k + 1], b.k);
+        if ((threadIdx.x & 31) == 0) ll[b.s0 + sl] = v;
       }
     }
   }
+};
+
+template <int TN, int VB, class Epi>
+__global__ void __launch_bounds__(kMaxThreads, 1) logmvn_ablate_kernel(
+    const float* __restrict__ rows, int N, const float* __restrict__ M, int k,
+    const float* __restrict__ Mp, const float* __restrict__ A, int S, int TS, Epi epi) {
+  run<TN, VB, float>(rows, N, M, k, Mp, k * (k + 1) / 2, A, nullptr, nullptr, nullptr, 0,
+                     S, TS, epi);
 }
 
-template <int kStage>
-int launch_stage(const float* rows, int N, const float* M, int k, const float* Mp,
-                 const float* A, int S, float* ll, cudaStream_t stream) {
-  const int ng = col_groups(k * k) + col_groups(k);
-  const int tiled = kSampleGroups * ng;
-  const int threads = tiled < kTS ? kTS : tiled;  // kTS threads sum and chain
-  if (threads > 1024) return (int)cudaErrorInvalidValue;
-  size_t floats = 2 * kTN * kTS + kTS * (kTN + 1) + align4(kTS * (kTN + 1));
-  if (kStage >= kMatmul) floats += (size_t)kTN * ng * kCPT;  // >= kTS (k^2 + k)
-  const size_t smem = floats * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(logmvn_ablate_kernel<kStage>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (S + kTS - 1) / kTS;
-  logmvn_ablate_kernel<kStage><<<blocks, threads, smem, stream>>>(rows, N, M, k, Mp,
-                                                                  A, S, ll);
+struct StageArgs {
+  const float* rows;
+  int N;
+  const float* M;
+  int k;
+  const float* Mp;
+  const float* A;
+  int S, ts, threads, smem, grid;
+  float* ll;
+};
+
+template <int TN, int VB, class Epi>
+int launch_stage(const StageArgs& a, cudaStream_t stream) {
+  auto kern = logmvn_ablate_kernel<TN, VB, Epi>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       a.smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<a.grid, a.threads, a.smem, stream>>>(a.rows, a.N, a.M, a.k, a.Mp, a.A, a.S, a.ts,
+                                              Epi{a.ll});
   return (int)cudaGetLastError();
 }
 
-// dst[p * kChainSamples + i] = src[(s0 + i) * ss + p * es] for the block's
-// ns samples and n entries, the loop ordered so that neighbouring threads
-// read neighbouring addresses in either layout.
-__device__ void stage_in(float* dst, const float* __restrict__ src, long long ss,
-                         long long es, int n, int ns, int s0) {
-  const int total = ns * n;
-  if (ss == 1) {
-    for (int e = threadIdx.x; e < total; e += blockDim.x) {
-      const int i = e % ns, p = e / ns;
-      dst[p * kChainSamples + i] = src[(long long)(s0 + i) + p * es];
+template <class Epi>
+int dispatch(const StageArgs& a, int tn, int vb, cudaStream_t stream) {
+  if (tn == 32)
+    return vb == 16 ? launch_stage<32, 16, Epi>(a, stream) : launch_stage<32, 4, Epi>(a, stream);
+  return vb == 16 ? launch_stage<16, 16, Epi>(a, stream) : launch_stage<16, 4, Epi>(a, stream);
+}
+
+// dst[i * stride + e] = entry e of sample c0 + i: the packed triangle (the
+// flat offsets in tbl), then u, then misc
+template <int KMAX>
+__global__ void __launch_bounds__(32 * FlatGeometry::warps(KMAX), FlatGeometry::blocks(KMAX))
+logmvn_flat_chain_kernel(const float* __restrict__ B, long long b_ss, long long b_es,
+                         const float* __restrict__ u, long long u_ss, long long u_es,
+                         const float* __restrict__ misc, long long m_ss, long long m_es,
+                         int S, int k, int chunk, float* __restrict__ ll) {
+  constexpr int kWarps = FlatGeometry::warps(KMAX);
+  extern __shared__ float4 smem4[];
+  const int kp = k * (k + 1) / 2;
+  const int per = kp + k + 2;        // floats of a sample
+  const int stride = per | 1;        // odd: the sample-fastest stores' banks
+  int* tbl = reinterpret_cast<int*>(smem4);           // [kp] flat offsets
+  float* buf = reinterpret_cast<float*>(tbl + kp);    // [chunk][stride] + KMAX
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  for (int j = tid; j < k; j += blockDim.x) {
+    const int off = j * k - j * (j - 1) / 2;
+    for (int a = j; a < k; ++a) tbl[off + a - j] = j * k + a;
+  }
+  // block b of the grid's G takes samples b S / G up to (b + 1) S / G
+  const int first = (int)((long long)blockIdx.x * S / gridDim.x);
+  const int last = (int)((long long)(blockIdx.x + 1) * S / gridDim.x);
+  const bool sample_fastest = b_ss == 1;  // the transposed layout
+  for (int c0 = first; c0 < last; c0 += chunk) {
+    const int ns = min(chunk, last - c0);
+    __syncthreads();  // the table is in; the last chunk's chains are done
+    for (int e = tid; e < ns * per; e += blockDim.x) {
+      const int i = sample_fastest ? e % ns : e / per;
+      const int q = sample_fastest ? e / ns : e % per;
+      const long long s = c0 + i;
+      float v;
+      if (q < kp)
+        v = __ldg(B + s * b_ss + (long long)tbl[q] * b_es);
+      else if (q < kp + k)
+        v = __ldg(u + s * u_ss + (long long)(q - kp) * u_es);
+      else
+        v = __ldg(misc + s * m_ss + (long long)(q - kp - k) * m_es);
+      buf[i * stride + q] = v;
     }
-  } else {
-    for (int e = threadIdx.x; e < total; e += blockDim.x) {
-      const int i = e / n, p = e % n;
-      dst[p * kChainSamples + i] = src[(long long)(s0 + i) * ss + p * es];
+    __syncthreads();
+    for (int i = warp; i < ns; i += kWarps) {
+      const float* t = buf + i * stride;
+      const float v = k3::chain_ll<KMAX, false>(t, t + kp, t[kp + k], t[kp + k + 1], k);
+      if ((tid & 31) == 0) ll[c0 + i] = v;
     }
   }
 }
 
-__global__ void logmvn_flat_chain_kernel(const float* __restrict__ B,
-                                         long long b_ss, long long b_es,
-                                         const float* __restrict__ u,
-                                         long long u_ss, long long u_es,
-                                         const float* __restrict__ misc,
-                                         long long m_ss, long long m_es, int S,
-                                         int k, float* __restrict__ ll) {
-  extern __shared__ float smem[];
-  float* T = smem;                         // [k^2][kChainSamples]
-  float* U = T + k * k * kChainSamples;    // [k][kChainSamples]
-  float* Mi = U + k * kChainSamples;       // [2][kChainSamples]
-  const int s0 = blockIdx.x * kChainSamples;
-  const int ns = min(kChainSamples, S - s0);
-  stage_in(T, B, b_ss, b_es, k * k, ns, s0);
-  stage_in(U, u, u_ss, u_es, k, ns, s0);
-  stage_in(Mi, misc, m_ss, m_es, 2, ns, s0);
-  __syncthreads();
-  const int tid = threadIdx.x;
-  if (tid >= ns) return;
-  float quad, logdet;
-  flat_chain(T + tid, U + tid, kChainSamples, k, quad, logdet);
-  ll[s0 + tid] =
-      -0.5f * (Mi[tid] - quad + Mi[kChainSamples + tid] + logdet);
+template <int KMAX>
+int launch_flat(const float* B, long long b_ss, long long b_es, const float* u,
+                long long u_ss, long long u_es, const float* misc, long long m_ss,
+                long long m_es, int S, int k, int chunk, int smem, int grid, float* ll,
+                cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(logmvn_flat_chain_kernel<KMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  logmvn_flat_chain_kernel<KMAX><<<grid, 32 * FlatGeometry::warps(KMAX), smem, stream>>>(
+      B, b_ss, b_es, u, u_ss, u_es, misc, m_ss, m_es, S, k, chunk, ll);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int logmvn_ablate_launch(int stage, const float* rows, int N,
-                                    const float* M, int k, const float* Mp,
-                                    const float* A, int S, float* ll,
+// Mp: the packed pair basis (N, k(k+1)/2), read from Matmul on.  The
+// geometry (samples a block, pixels a chunk, threads, shared bytes, grid)
+// comes from the caller and must be cap_geometry's for (S, N, k,
+// k(k+1)/2) with no extra stream; Full and ChainNoDot also need the chain's
+// buffers within those shared bytes.  Anything else is refused, as is A
+// not 4-byte aligned.
+extern "C" int logmvn_ablate_launch(int stage, const float* rows, int N, const float* M,
+                                    int k, const float* Mp, const float* A, int S, int ts,
+                                    int tn, int threads, int smem, int grid, float* ll,
                                     void* stream) {
+  if (stage < kElementwise || stage > kChainNoDot || k < 1 || k > kStageMaxK || N < 1 ||
+      S < 1 || !geometry_ok(S, k, k * (k + 1) / 2, 0, 4, ts, tn, threads, smem, grid) ||
+      reinterpret_cast<uintptr_t>(A) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (stage >= kFull && (size_t)smem < sizeof(float) * chain_floats(ts, k))
+    return (int)cudaErrorInvalidValue;
+  const int vb = N % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 ? 16 : 4;
+  const StageArgs a{rows, N, M, k, Mp, A, S, ts, threads, smem, grid, ll};
   cudaStream_t st = (cudaStream_t)stream;
+  const bool wide = row_bound(k) == 64;
   switch (stage) {
     case kElementwise:
-      return launch_stage<kElementwise>(rows, N, M, k, Mp, A, S, ll, st);
+      return dispatch<StageOut<kElementwise>>(a, tn, vb, st);
     case kElementwiseNoLog:
-      return launch_stage<kElementwiseNoLog>(rows, N, M, k, Mp, A, S, ll, st);
+      return dispatch<StageOut<kElementwiseNoLog>>(a, tn, vb, st);
     case kMatmul:
-      return launch_stage<kMatmul>(rows, N, M, k, Mp, A, S, ll, st);
+      return dispatch<StageOut<kMatmul>>(a, tn, vb, st);
     case kFull:
-      return launch_stage<kFull>(rows, N, M, k, Mp, A, S, ll, st);
-    case kChainNoDot:
-      return launch_stage<kChainNoDot>(rows, N, M, k, Mp, A, S, ll, st);
+      return wide ? dispatch<StageOut<kFull, 64>>(a, tn, vb, st)
+                  : dispatch<StageOut<kFull, 32>>(a, tn, vb, st);
     default:
-      return (int)cudaErrorInvalidValue;
+      return wide ? dispatch<StageOut<kChainNoDot, 64>>(a, tn, vb, st)
+                  : dispatch<StageOut<kChainNoDot, 32>>(a, tn, vb, st);
   }
 }
 
-extern "C" int logmvn_flat_chain_launch(const float* B, long long b_ss,
-                                        long long b_es, const float* u,
-                                        long long u_ss, long long u_es,
-                                        const float* misc, long long m_ss,
-                                        long long m_es, int S, int k, float* ll,
+// The geometry (row bound, warps a block, blocks an SM, samples a staged
+// chunk, shared bytes, grid) comes from flat_chain_geometry.  Refused: a
+// row bound that is not compiled or is below k, other warps a block or
+// blocks an SM than the compiled ones, shared memory short of the offset
+// table, a chunk's buffers and the row bound of padding, or beyond 227 KB,
+// an empty chunk or grid.
+extern "C" int logmvn_flat_chain_launch(const float* B, long long b_ss, long long b_es,
+                                        const float* u, long long u_ss, long long u_es,
+                                        const float* misc, long long m_ss, long long m_es,
+                                        int S, int k, int rows, int warps, int per_sm,
+                                        int chunk, int smem, int grid, float* ll,
                                         void* stream) {
-  const size_t smem = (size_t)(k * k + k + 2) * kChainSamples * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        logmvn_flat_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (S + kChainSamples - 1) / kChainSamples;
-  logmvn_flat_chain_kernel<<<blocks, kChainSamples, smem, (cudaStream_t)stream>>>(
-      B, b_ss, b_es, u, u_ss, u_es, misc, m_ss, m_es, S, k, ll);
-  return (int)cudaGetLastError();
+  if (S < 1 || k < 1 || k > rows || (rows != 32 && rows != 64) ||
+      warps != FlatGeometry::warps(rows) || per_sm != FlatGeometry::blocks(rows) ||
+      chunk < 1 || grid < 1 || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const int kp = k * (k + 1) / 2;
+  const long long need = 4LL * (kp + (long long)chunk * ((kp + k + 2) | 1) + rows);
+  if (smem < need) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rows == 32)
+    return launch_flat<32>(B, b_ss, b_es, u, u_ss, u_es, misc, m_ss, m_es, S, k, chunk, smem,
+                           grid, ll, st);
+  return launch_flat<64>(B, b_ss, b_es, u, u_ss, u_es, misc, m_ss, m_es, S, k, chunk, smem,
+                         grid, ll, st);
 }

@@ -16,25 +16,10 @@
 // serial chain per sample, so the design runs many chains at once and keeps
 // shared memory off each chain's critical path.
 //
-// Design: a warp per sample, the triangle in registers.  Lane a owns row a,
-// entries (a, 0..a), and u_a, in arrays indexed only at compile time: the
-// loops are unrolled over a row bound KMAX (32, or 64 with lane a also
-// owning row a + 32), and k <= KMAX is taken at run time by one
-// warp-uniform guard a step.  Step j is left-looking:
-//   - lane j adds the 1 of I to its diagonal; each lane subtracts
-//     l_ac l_jc from its entry (a, j), c = 0..j-1, with l_jc broadcast from
-//     lane j by __shfl_sync; lane j's own entry becomes the pivot d_j;
-//   - d_j is broadcast, lane j keeps it, and every lane scales its entry
-//     (a, j) by rsqrt(d_j);
-//   - t_j = u_j rsqrt(d_j) is broadcast, quad += t_j^2, u_a -= t_j l_aj.
-// After the last step each lane takes logf of its own pivot, and logdet
-// sums them j = 0..k-1 through shuffles (one logf a lane, not one a step).
-// Every entry meets the same FMAs in the same order (c ascending) as in the
-// right-looking rank-1 chain of the one-thread-per-sample kernel this
-// replaces, and quad and logdet are summed j = 0..k-1 as there.  A lane's
-// entries above its diagonal, and the rows past k - 1, hold values that
-// nothing reads.  k(k-1)/2 + 3k shuffles a sample (250 at k = 20), no
-// shared memory in the chain.
+// Design: a warp per sample, the triangle in registers: the warp chain of
+// logmvn_chain_warp.cuh (lane a owns row a; left-looking steps broadcast
+// by __shfl_sync; one logf a lane), which K7's kernels share.  k(k-1)/2 +
+// 3k shuffles a sample (250 at k = 20), no shared memory in the chain.
 //
 // Loads: a warp stages its sample's packed triangle in its own shared
 // buffer with 16-byte loads and stores, the buffer placed at the source's
@@ -55,6 +40,8 @@
 
 #include <cstdint>
 
+#include "logmvn_chain_warp.cuh"
+
 // Warps a block and blocks an SM (the launch bound, which caps a thread's
 // registers) at row bounds 32 and 64, as ops/logmvn_kernels.py's
 // CHAIN_WARPS and CHAIN_BLOCKS_PER_SM give them.  ops/chain_geometry_sweep.py
@@ -65,14 +52,7 @@
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-
-template <int W32, int B32, int W64, int B64>
-struct GeometryOf {
-  __host__ __device__ static constexpr int warps(int kmax) { return kmax == 32 ? W32 : W64; }
-  __host__ __device__ static constexpr int blocks(int kmax) { return kmax == 32 ? B32 : B64; }
-};
-using Geometry = GeometryOf<K3_GEOMETRY>;
+using Geometry = k3::GeometryOf<K3_GEOMETRY>;
 
 template <int KMAX>
 __global__ void __launch_bounds__(32 * Geometry::warps(KMAX), Geometry::blocks(KMAX))
@@ -120,60 +100,11 @@ logmvn_chain_kernel(const float* __restrict__ B, const float* __restrict__ u,
     }
     __syncwarp();
 
-    // rows of B: entry (row, c) at packed index off(c) + row - c, off(c + 1)
-    // = off(c) + k - c.  Entries above a lane's diagonal, and rows past
-    // k - 1, read whatever the buffer holds there (its padding covers
-    // them); nothing reads them back.
     float r[Q][KMAX];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const float* p = dst + q * 32 + a;
-#pragma unroll
-      for (int c = 0; c < (q + 1) * 32; ++c) {
-        r[q][c] = c < k ? *p : 0.0f;
-        p += k - 1 - c;
-      }
-    }
+    k3::load_rows<KMAX>(dst, k, r);
     __syncwarp();  // the buffer is free for the next sample
-
-    float quad = 0.0f;
-    float piv[Q];  // the pivots of the lane's rows
-#pragma unroll
-    for (int q = 0; q < Q; ++q) piv[q] = 1.0f;
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      if (j < k) {
-        const int qj = j / 32;  // lane lj, slot qj holds row j
-        const int lj = j % 32;
-        if (a == lj) r[qj][j] += 1.0f;  // + I, before the column's updates
-#pragma unroll
-        for (int c = 0; c < j; ++c) {
-          const float l = __shfl_sync(kFull, r[qj][c], lj);
-#pragma unroll
-          for (int q = 0; q < Q; ++q)
-            if (j < (q + 1) * 32) r[q][j] -= r[q][c] * l;
-        }
-        const float d = __shfl_sync(kFull, r[qj][j], lj);
-        if (a == lj) piv[qj] = d;
-        const float inv = rsqrtf(d);
-#pragma unroll
-        for (int q = 0; q < Q; ++q)
-          if (j < (q + 1) * 32) r[q][j] *= inv;
-        const float t = __shfl_sync(kFull, uq[qj], lj) * inv;
-        quad += t * t;
-#pragma unroll
-        for (int q = 0; q < Q; ++q)
-          if (j < (q + 1) * 32) uq[q] -= t * r[q][j];
-      }
-    }
-    // one logf a lane, then the pivots' logs summed j = 0..k-1 in order
-    float lg[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) lg[q] = logf(piv[q]);
-    float logdet = 0.0f;
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j)
-      if (j < k) logdet += __shfl_sync(kFull, lg[j / 32], j % 32);
+    float quad, logdet;
+    k3::factor<KMAX, false>(r, uq, k, quad, logdet);
     if (a == 0) ll[s] = -0.5f * (m0 - quad + m1 + logdet);
   }
 }

@@ -1,10 +1,12 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface.  On first use they
-are compiled by ``nvcc`` for ``sm_90a`` (Hopper) into one shared library
-in ``csrc/build/``, named by a hash of the sources and flags, and loaded
-with ``ctypes``.  Nothing is built at import time, and nothing falls
-back: a missing ``nvcc`` or a failed build raises.
+are compiled by ``nvcc`` for ``sm_90a`` (Hopper) into shared libraries in
+``csrc/build/`` (:data:`LIBRARIES`: the kernels of the user paths, and the
+likelihood-ablation instrument apart), each named by a hash of its
+sources, the headers they include and the flags, and loaded with
+``ctypes``.  Nothing is built at import time, and nothing falls back: a
+missing ``nvcc`` or a failed build raises.
 
 Which implementation runs is decided by the tensor alone
 (:func:`use_kernel`): float32 on a CUDA device launches the kernel,
@@ -28,10 +30,14 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (
-    "absorption_all.cu", "absorption_tail.cu", "absorption_windowed.cu",
-    "logmvn_ablate.cu", "logmvn_cap.cu", "logmvn_chain.cu",
-)
+# library -> its sources.  The ablation instrument (on no user path) has
+# its own library: its instantiations of K2's block take a minute of nvcc
+# that the user paths' library does not wait for.
+LIBRARIES = {
+    "kernels": ("absorption_all.cu", "absorption_tail.cu", "absorption_windowed.cu",
+                "logmvn_cap.cu", "logmvn_chain.cu"),
+    "ablate": ("logmvn_ablate.cu",),
+}
 BUILD_DIR = CSRC / "build"
 # each source compiles to an object on its own (all at once), then one link
 NVCC_FLAGS = (
@@ -47,12 +53,13 @@ MAX_DYNAMIC_SHARED_BYTES = 232448
 # kernel name -> launches since the last reset
 launch_counts: Counter = Counter()
 
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_SIGNATURES = {
+# library -> launcher -> argument types
+_SIGNATURES = {"kernels": {
     # wl, P, z, S, nhi, F, num_lines, far_lines, lls_break, poly, store
     # (0 float32, 1 int16), then the geometry (warps a block, shared bytes,
     # grid), out, stream
@@ -72,13 +79,17 @@ _SIGNATURES = {
     # B, u, misc, S, k, then the geometry (row bound, warps a block, shared
     # bytes, grid), ll, stream
     "logmvn_chain_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    # stage, rows, N, M, k, Mp, A, S, ll, stream
-    "logmvn_ablate_launch": [_I, _P, _I, _P, _I, _P, _P, _I, _P, _P],
+}, "ablate": {
+    # stage, rows, N, M, k, Mp, A, S, then K2's geometry (samples a block,
+    # pixels a chunk, threads, shared bytes, grid), ll, stream
+    "logmvn_ablate_launch": [_I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P, _P],
     # B, its sample and entry strides, u, its strides, misc, its strides,
-    # S, k, ll, stream
+    # S, k, then the geometry (row bound, warps a block, blocks an SM,
+    # samples a chunk, shared bytes, grid), ll, stream
     "logmvn_flat_chain_launch": [_P, _L, _L, _P, _L, _L, _P, _L, _L, _I, _I,
-                                 _P, _P],
-}
+                                 _I, _I, _I, _I, _I, _I, _P, _P],
+}}
 
 
 def reset_launch_counts() -> None:
@@ -149,67 +160,80 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
+def headers() -> tuple[str, ...]:
+    """The headers beside the sources (K2's block, K3's warp chain), which
+    every library's name hashes with its sources."""
+    return tuple(sorted(p.name for p in CSRC.glob("*.cuh")))
+
+
+def library_path(name: str = "kernels") -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for src in LIBRARIES[name] + headers():
+        h.update(src.encode())
+        h.update((CSRC / src).read_bytes())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    return BUILD_DIR / f"libgpydla_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libgpydla_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless this exact build exists; returns the
-    library path.  One ``nvcc`` per source runs at the same time, then
-    one link.  The compilers' output (``-Xptxas=-v``: registers and shared
-    memory per kernel) is kept beside the library as ``.log``."""
-    so = library_path()
-    if so.exists():
-        return so
+def build(*names: str) -> list[Path]:
+    """Compile the named libraries (default: every one) unless they exist;
+    returns their paths.  One ``nvcc`` per source of every library to
+    build runs at the same time, then one link a library.  The compilers'
+    output (``-Xptxas=-v``: registers and shared memory per kernel) is kept
+    beside each library as ``.log``."""
+    names = names or tuple(LIBRARIES)
+    paths = [library_path(n) for n in names]
+    todo = [(n, so) for n, so in zip(names, paths) if not so.exists()]
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        objs = [work / f"{Path(name).stem}.o" for name in SOURCES]
-        procs = [
-            subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+        jobs = [(n, src, work / n / f"{Path(src).stem}.o") for n, _ in todo for src in LIBRARIES[n]]
+        procs = []
+        for n, src, obj in jobs:
+            obj.parent.mkdir(exist_ok=True)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-            for name, obj in zip(SOURCES, objs)
-        ]
-        logs, failed = [], []
-        for name, proc in zip(SOURCES, procs):
+            ))
+        logs = {n: [] for n, _ in todo}
+        failed = []
+        for (n, src, _), proc in zip(jobs, procs):
             out, _ = proc.communicate()
-            logs.append(f"== {name}\n{out}")
+            logs[n].append(f"== {src}\n{out}")
             if proc.returncode != 0:
-                failed.append(name)
-        if not failed:
-            tmp = work / so.name
-            link = subprocess.run(
-                [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
-                capture_output=True, text=True,
-            )
-            logs.append(f"== link\n{link.stdout}{link.stderr}")
+                failed.append(src)
+        for n, so in todo:
+            if failed:
+                break
+            tmp = work / n / so.name
+            objs = [str(obj) for m, _, obj in jobs if m == n]
+            link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *objs],
+                                  capture_output=True, text=True)
+            logs[n].append(f"== link\n{link.stdout}{link.stderr}")
             if link.returncode != 0:
-                failed.append("link")
-        so.with_suffix(".log").write_text("".join(logs))
+                failed.append(f"link {n}")
+        for n, so in todo:
+            so.with_suffix(".log").write_text("".join(logs[n]))
         if failed:
-            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n" + "".join(logs))
-        os.replace(tmp, so)
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                               + "".join(x for n, _ in todo for x in logs[n]))
+        for n, so in todo:
+            os.replace(work / n / so.name, so)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return so
+    return paths
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+def load_library(name: str = "kernels") -> ctypes.CDLL:
+    """The kernel library ``name`` (:data:`LIBRARIES`), built on first use."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build(name)[0]))
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]

@@ -156,6 +156,59 @@ def chain_geometry(S: int, k: int, sms: int = H100_SMS) -> ChainGeometry:
                          grid=_chain_grid(S, warps, CHAIN_BLOCKS_PER_SM[rows], sms))
 
 
+# K7's flat chain (csrc/logmvn_ablate.cu, whose launcher checks both): K3's
+# warp chain, a block of warps staging a run of consecutive samples into
+# shared memory; the warps a block, and per row bound the blocks an SM (the
+# launch bound)
+FLAT_CHAIN_WARPS = 8
+FLAT_CHAIN_BLOCKS_PER_SM = {32: 4, 64: 2}
+SM_SHARED_BYTES = 228 * 1024  # an SM's shared memory; 1 KB of it reserved a block
+
+
+class FlatChainGeometry(NamedTuple):
+    """The flat chain's launch: row bound ``rows``, ``warps`` a block,
+    ``blocks_per_sm`` (the launch bound), ``chunk`` samples staged at once,
+    ``shared_bytes`` a block and ``grid`` blocks.  Block b of the grid's G
+    takes the samples ``b * S // G`` up to ``(b + 1) * S // G``, ``chunk``
+    at a time."""
+
+    rows: int
+    warps: int
+    blocks_per_sm: int
+    chunk: int
+    shared_bytes: int
+    grid: int
+
+
+def flat_chain_stride(k: int) -> int:
+    """Floats of a staged sample: its packed triangle, u and misc, made odd
+    (the sample-fastest stores of the transposed layout then fall in
+    distinct banks)."""
+    return (k * (k + 1) // 2 + k + 2) | 1
+
+
+def flat_chain_geometry(S: int, k: int, sms: int = H100_SMS) -> FlatChainGeometry:
+    """The flat chain's launch geometry for S samples of a k x k flat
+    capacitance on ``sms`` SMs: K3's row bound and grid
+    (:func:`_chain_grid`), and the largest chunk of a block's samples whose
+    buffers (the table of the triangle's flat offsets, the chunk, the row
+    bound of padding past the last sample) fit the block's share of an SM
+    at the launch bound's blocks an SM."""
+    if not 1 <= k <= CHAIN_MAX_K:
+        raise ValueError(f"the flat chain takes 1 <= k <= {CHAIN_MAX_K}, got k={k}")
+    if S < 1:
+        raise ValueError(f"the flat chain needs S >= 1, got S={S}")
+    rows = next(b for b in CHAIN_ROW_BOUNDS if k <= b)
+    warps, per_sm = FLAT_CHAIN_WARPS, FLAT_CHAIN_BLOCKS_PER_SM[rows]
+    grid = _chain_grid(S, warps, per_sm, sms)
+    kp = k * (k + 1) // 2
+    budget = min(MAX_DYNAMIC_SHARED_BYTES, SM_SHARED_BYTES // per_sm - 1024)
+    chunk = min(-(-S // grid), (budget // 4 - kp - rows) // flat_chain_stride(k))
+    shared = 16 * -(-(4 * (kp + chunk * flat_chain_stride(k) + rows)) // 16)
+    return FlatChainGeometry(rows=rows, warps=warps, blocks_per_sm=per_sm, chunk=chunk,
+                             shared_bytes=shared, grid=grid)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -172,6 +225,15 @@ def _packed_maps(k: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
             cols.append(j)
             rows.append(a)
     return tuple(cols), tuple(rows)
+
+
+def packed_flat_columns(k: int) -> tuple[int, ...]:
+    """The flat column ``j k + a`` of each packed column (j, a >= j): where
+    a flat (k x k, row-major) capacitance or pair basis holds the packed
+    triangle's entries: the columns K7's stage kernel gathers from the
+    flat pair basis (``ops/logmvn_ablate.py``)."""
+    cols, rows = _packed_maps(k)
+    return tuple(j * k + a for j, a in zip(cols, rows))
 
 
 def packed_pair_basis(M: torch.Tensor) -> torch.Tensor:

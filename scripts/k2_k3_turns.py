@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""K2 and K3 of two checkouts of the repository, in turns on one CUDA card:
+their device times and whether their outputs agree bit for bit, so that a
+change to the kernels' shared code is held to the earlier build on the
+same card in the same call.
+
+Run from the repository root:
+
+    python3 scripts/k2_k3_turns.py BASE CHANGED
+
+BASE and CHANGED are checkouts of the repository (the root itself, or an
+unpacked ``git archive`` of another commit).  The script runs BASE,
+CHANGED, CHANGED, BASE, each in a process of its own that imports that
+checkout's port (building its kernels there) and draws that checkout's
+K2 problem (``ops/cap_geometry_sweep.problem``: S = 10,000, k = 20,
+packed basis, seed 7) at N = 1,280 with 0 and 3 chained streams and at N
+= 1,664, with the profiles as float32 and as int16 codes.  It times K2
+(``logmvn_cap``) at each of the six and K3 (``logmvn_chain``) on K2's
+float32 output at N = 1,280, by the profiler over 50 launches with every
+launch recorded (this checkout's ``ops/timing.py``, loaded on its own).
+It prints each turn's device ms, then for each output whether the two
+checkouts' are equal bit for bit (through a temporary directory, removed
+at the end).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+TIMING = Path(__file__).resolve().parent.parent / "gpy_dla_detection_tpu_torch" / "ops" / "timing.py"
+SHAPES = {"N1280": (1280, 0), "N1280_3streams": (1280, 3), "N1664": (1664, 0)}
+
+
+def worker(root: Path, out: Path) -> None:
+    sys.modules["jax"] = None  # the port stands alone; fail loudly if reached
+    sys.modules["gpy_dla_detection_tpu"] = None
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    from gpy_dla_detection_tpu_torch.ops.cap_geometry_sweep import problem
+    from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import logmvn_cap, logmvn_chain
+    from gpy_dla_detection_tpu_torch.ops.voigt import encode_profile_store
+
+    spec = importlib.util.spec_from_file_location("turns_timing", TIMING)
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+    if not torch.cuda.is_available():
+        raise SystemExit("k2_k3_turns: no CUDA device")
+    device = torch.device("cuda", 0)
+    i16 = lambda x: encode_profile_store(x, torch.int16)
+    times, arrays = {}, {}
+    for name, (N, n_extra) in SHAPES.items():
+        rows, M, Mp, A, extra = problem(N, n_extra, device, np.random.default_rng(7))
+        for store, (a, ex) in (("f32", (A, extra)), ("i16", (i16(A), [i16(e) for e in extra]))):
+            cap = logmvn_cap(rows, M, Mp, a, ex)
+            times[f"K2_{store}_{name}"] = timing.device_ms(lambda: logmvn_cap(rows, M, Mp, a, ex))[0]
+            arrays.update({f"{store}_{name}_{x}": v for x, v in zip(("B", "u", "misc"), cap)})
+            if store == "f32" and name == "N1280":
+                arrays[f"{store}_{name}_ll"] = logmvn_chain(*cap)
+                times["K3_f32_N1280"] = timing.device_ms(lambda: logmvn_chain(*cap))[0]
+    np.savez(out, **{k: v.cpu().numpy() for k, v in arrays.items()})
+    print(json.dumps({"root": str(root), "card": torch.cuda.get_device_name(0), **times}))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("base", type=Path)
+    ap.add_argument("changed", type=Path)
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:  # base is the checkout, changed the output file
+        worker(args.base.resolve(), args.changed)
+        return
+    import numpy as np
+
+    tmp = tempfile.TemporaryDirectory()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card {card}", flush=True)
+    files = {}
+    for turn, (tag, root) in enumerate([("base", args.base), ("changed", args.changed),
+                                        ("changed", args.changed), ("base", args.base)]):
+        out = Path(tmp.name) / f"{turn}_{tag}.npz"
+        res = subprocess.run([sys.executable, __file__, "--worker", str(root), str(out)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise SystemExit(f"k2_k3_turns: {tag} run failed:\n{res.stdout}{res.stderr}")
+        times = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"turn {turn} {tag}: " + ", ".join(
+            f"{n} {v:.4f} ms" for n, v in times.items() if n.startswith("K")), flush=True)
+        files.setdefault(tag, out)
+    base, changed = np.load(files["base"]), np.load(files["changed"])
+    for name in base.files:
+        same = np.array_equal(base[name], changed[name], equal_nan=True)
+        diff = float(np.nanmax(np.abs(base[name].astype(np.float64) - changed[name])))
+        print(f"{name}: bitwise equal {same}, max |d| {diff:.3e}", flush=True)
+    tmp.cleanup()
+
+
+if __name__ == "__main__":
+    main()

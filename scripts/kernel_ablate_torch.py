@@ -20,9 +20,12 @@ no stage: ``elementwise elementwise_nolog matmul full_split2
 chain_xtp2c_2000``, then ``accuracy``.
 
 For each stage it prints ``<stage> <ms> ms/call device``: the kernels'
-device time per call from ``torch.profiler`` (from CUDA events where the
-profiler sees none) over 30 calls cycling through 8 inputs (4 for the
-chain stages), after a warm-up call checked against the stage's twin.
+device time per call from ``torch.profiler`` over 30 calls cycling
+through 8 inputs (4 for the chain stages), after a warm-up call checked
+against the stage's twin, in a window that holds every launch of the
+calls (``ops/timing.py``).  The stage kernel is timed on the packed basis
+(``logmvn_ablate_packed``): its own time, without the gather of the
+packed columns that the flat-basis entry makes from ``matmul`` on.
 Beside ``matmul`` it prints K2's own device time on the same inputs
 (its packed basis, its block), and two library yardsticks, on no path of
 the port: ``torch.matmul`` (cuBLAS SGEMM, float32, TF32 off) of the same
@@ -34,6 +37,7 @@ composition on the card at full width.
 from __future__ import annotations
 
 import functools
+import itertools
 import subprocess
 import sys
 from pathlib import Path
@@ -44,26 +48,26 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
-
 from gpy_dla_detection_tpu_torch.ops.logmvn import LOG_2PI, pair_basis  # noqa: E402
 from gpy_dla_detection_tpu_torch.ops.logmvn_ablate import (  # noqa: E402
     CHAIN_LAYOUTS,
     STAGES,
     ablation_chain,
     logmvn_ablate,
+    logmvn_ablate_packed,
     logmvn_ablate_reference,
     logmvn_decoupled,
     logmvn_flat_chain_reference,
 )
 from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (  # noqa: E402
-    _packed_maps,
     assemble_reference,
     logmvn_cap,
     logmvn_chain,
     logmvn_chain_reference,
+    packed_flat_columns,
     packed_pair_basis,
 )
+from gpy_dla_detection_tpu_torch.ops.timing import device_ms as profiled_ms  # noqa: E402
 
 S, N, K = 10000, 1280, 20
 S_T = 10240  # the transposed layout's padded sample count (the JAX script's)
@@ -110,8 +114,7 @@ def chain_inputs(layout, seed, device):
         mf = np.concatenate([mf, np.zeros((pad, 2), np.float32)])
         Bf, uf, mf = (np.ascontiguousarray(x.T) for x in (Bf, uf, mf))
     elif layout == "packed":
-        cols, rows = _packed_maps(K)
-        Bf = np.ascontiguousarray(Bf[:, [j * K + a for j, a in zip(cols, rows)]])
+        Bf = np.ascontiguousarray(Bf[:, list(packed_flat_columns(K))])
     return tuple(torch.as_tensor(x, device=device) for x in (Bf, uf, mf))
 
 
@@ -150,27 +153,11 @@ def max_rel_diff(got, want):
     return float((got - want)[~nan].abs().max() / want[~nan].abs().max())
 
 
-def device_ms(fn, inputs, reps=REPS):
-    """Device time per call over ``reps`` calls cycling through
-    ``inputs``, after one warm-up call: the profiler's kernel time, or,
-    where the profiler saw no device time, the CUDA events' span of the
-    calls.  Returns (ms, source)."""
-    fn(*inputs[0])
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        start.record()
-        for i in range(reps):
-            fn(*inputs[i % len(inputs)])
-        end.record()
-        torch.cuda.synchronize()
-    total_us = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if e.device_type != torch.autograd.DeviceType.CPU
-    )
-    if total_us > 0:
-        return total_us / 1e3 / reps, "profiler"
-    return start.elapsed_time(end) / reps, "events"
+def device_ms(fn, inputs, kernels=1, reps=REPS):
+    """Device ms per call (the profiler's, ``ops/timing.py``) over ``reps``
+    calls cycling through ``inputs``; ``kernels`` launches a call."""
+    it = itertools.cycle(inputs)
+    return profiled_ms(lambda: fn(*next(it)), kernels=kernels, reps=reps)[0]
 
 
 def library_yardsticks(device):
@@ -182,9 +169,9 @@ def library_yardsticks(device):
     packed = torch.cat([packed_pair_basis(M), M], dim=1).contiguous()
     return {
         f"torch.matmul w [Mp, M] ({flat.shape[1]} columns)":
-            device_ms(lambda w: torch.matmul(w, flat), ws)[0],
+            device_ms(lambda w: torch.matmul(w, flat), ws, kernels=None),
         f"torch.matmul w [Mp_packed, M] ({packed.shape[1]} columns, K2's product)":
-            device_ms(lambda w: torch.matmul(w, packed), ws)[0],
+            device_ms(lambda w: torch.matmul(w, packed), ws, kernels=None),
     }
 
 
@@ -230,8 +217,8 @@ def main(argv):
           f"S={S} N={N} k={K} | TF32 {torch.backends.cuda.matmul.allow_tf32}", flush=True)
     if any(s.startswith(("chain_", "decoupled")) for s in stages):
         print("the <bs> suffix is the TPU's block rows; the CUDA kernels choose their own "
-              "(stage kernel and flat chain 32 samples a block, K2 from cap_geometry, K3 a "
-                  "warp a sample from chain_geometry)", flush=True)
+              "(K2 and the stage kernel from cap_geometry, K3 from chain_geometry and the "
+              "flat chain from flat_chain_geometry, a warp a sample)", flush=True)
     for stage in stages:
         if stage == "accuracy":
             continue  # after the timings, as the JAX script runs it
@@ -244,18 +231,20 @@ def main(argv):
             raise SystemExit(f"{stage}: kernel vs twin max|dll|/max|ll| {err:.3e} > {REL_TWIN}")
         own = next((n for n, c in STAGES.items() if c == STAGES.get(stage)), stage)
         note = f" (on the card the same float32 function as {own})" if own != stage else ""
-        ms, source = device_ms(fn, ins)
-        print(f"{stage:<20} {ms:7.3f} ms/call device ({source}) | vs twin "
+        if stage in STAGES:  # the stage kernel alone, on the packed basis
+            fn = functools.partial(logmvn_ablate_packed, stage)
+            ins = [(r, M, packed_pair_basis(M), a) for r, M, _, a in ins]
+        ms = device_ms(fn, ins, kernels=2 if stage.startswith("decoupled") else 1)
+        print(f"{stage:<20} {ms:7.3f} ms/call device | vs twin "
               f"{err:.2e} of max|ll|{note}", flush=True)
         if STAGES.get(stage) == STAGES["matmul"]:
             # K2 itself on the same inputs: its own block and width, against
             # which the stages' split of the work is read
             rows, M, Mp, a_list = likelihood_inputs(device)
             packed = packed_pair_basis(M)
-            ms, source = device_ms(lambda a: logmvn_cap(rows, M, packed, a),
-                                   [(a,) for a in a_list])
+            ms = device_ms(lambda a: logmvn_cap(rows, M, packed, a), [(a,) for a in a_list])
             print(f"  K2 (logmvn_cap, packed basis, {packed.shape[1] + K} columns) "
-                  f"{ms:7.3f} ms/call device ({source})", flush=True)
+                  f"{ms:7.3f} ms/call device", flush=True)
             for name, ms in library_yardsticks(device).items():
                 print(f"  library yardstick, on no path: {name} {ms:7.3f} ms/call device",
                       flush=True)

@@ -20,11 +20,16 @@ narrow bases k = 1, 4, 5 (packed) and 4 (flat), at S = 1, 79, 81 and
 bounds and of a half warp, k = 1 to 41, at S = 1 to 10,000, and with NaN
 where its twin gives NaN (a capacitance that is not positive definite).  K2 is isolated by passing both
 stage-A outputs through the same (twin) chain, K3 by passing the same
-stage-A outputs through kernel and twin.  K7's kernels (the ablation's
-stage kernel and flat chain, K2 with the flat basis) are held to the same
-1e-6 |ll| where the value is a likelihood, and to 2e-6 of the largest
-|value| for the stages that stop early; ``chain_nodot`` (wrong on purpose)
-must give NaN where its twin does.
+stage-A outputs through kernel and twin; K2 also at the main path's
+shapes, through the block it shares with K7's stage kernel.  K7's kernels
+(the ablation's stage kernel and flat chain, K2 with the flat basis) are
+held to the same 1e-6 |ll| where the value is a likelihood, and to 2e-6
+of the largest |value| for the stages that stop early; ``chain_nodot``
+(wrong on purpose) must give NaN where its twin does.  The stage kernel at
+k = 1, 4, 5, 20, 24 and the largest k its block holds (53 at N = 1,280),
+at S = 1, 79, 80, 81, 1,001 and 10,000, N = 17, 1,280 and 1,281, and its
+refusal one past; the flat chain at k = 1 to 64 in both layouts, with NaN
+where its twin gives NaN, and its refusal at k = 65.
 
 The int16 instantiations (compact profile storage) are held to their twins
 by codes: K1, K5 and K6 to max |dcode| <= 1 (kernel and twin differ by
@@ -46,13 +51,19 @@ from gpy_dla_detection_tpu_torch.models.evidence import single_absorber_profiles
 from gpy_dla_detection_tpu_torch.ops import _build
 from gpy_dla_detection_tpu_torch.ops import logmvn as T
 from gpy_dla_detection_tpu_torch.ops.logmvn_ablate import (
+    FULL,
+    STAGE_MAX_K,
     flat_chain_reference,
     logmvn_ablate,
+    logmvn_ablate_packed,
     logmvn_ablate_reference,
     logmvn_decoupled,
     logmvn_flat_chain,
+    stage_geometry,
 )
 from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
+    cap_geometry,
+    flat_chain_geometry,
     logmvn_cap,
     logmvn_cap_reference,
     logmvn_chain,
@@ -435,35 +446,95 @@ def _rel_err_nan_equal(got, want):
     return float((got - want)[~nan].abs().max() / want[~nan].abs().max())
 
 
-@pytest.mark.parametrize("k", [5, 20])
-@pytest.mark.parametrize("stage", ["elementwise", "elementwise_nolog", "matmul", "full",
-                                   "chain_nodot"])
-def test_ablation_stage_kernel_matches_twin(cuda_device, stage, k):
-    (y, mu, M, omega2, v, mask), A, _ = _problem(cuda_device, k=k, S=1001)
+ABLATION_STAGES = ["elementwise", "elementwise_nolog", "matmul", "full", "chain_nodot"]
+
+
+def _largest_stage_k(N=1280):
+    """The largest k the stage kernel takes at N pixels (K2's block)."""
+    for k in range(STAGE_MAX_K, 0, -1):
+        try:
+            stage_geometry(10_000, N, k, FULL)
+            return k
+        except ValueError:
+            continue
+    raise AssertionError("the stage kernel takes no k")
+
+
+def _check_stage(device, stage, k=20, S=1001, N=1280):
+    (y, mu, M, omega2, v, mask), A, _ = _problem(device, N=N, k=k, S=S)
     rows = torch.stack([y, mu, omega2, v, mask.float()])
     Mp = T.pair_basis(M)
     before = _build.launch_counts["logmvn_ablate"]
     got = logmvn_ablate(stage, rows, M, Mp, A)
     torch.cuda.synchronize()
     assert _build.launch_counts["logmvn_ablate"] == before + 1
-    assert got.shape == (1001,)
+    assert got.shape == (S,)
     tol = REL_K23 if stage == "full" else REL_K7_STAGE
     assert _rel_err_nan_equal(got, logmvn_ablate_reference(stage, rows, M, Mp, A)) <= tol
 
 
-@pytest.mark.parametrize("k", [5, 20])
+# k: a one-column basis, narrow ones, the main path's 20, 24 (three warps
+# across the columns: uneven assembly quads), and the largest the block
+# holds (53 at N = 1,280: the chain's row bound 64)
+@pytest.mark.parametrize("k", [1, 4, 5, 20, 24, "largest"])
+@pytest.mark.parametrize("stage", ABLATION_STAGES)
+def test_ablation_stage_kernel_matches_twin(cuda_device, stage, k):
+    _check_stage(cuda_device, stage, k=_largest_stage_k() if k == "largest" else k)
+
+
+# S: a lone sample, both sides of the 80-sample block, the main path's
+# 10,000; N: an odd count (4-byte staging), one partial chunk
+@pytest.mark.parametrize("S,N", [(1, 1280), (79, 1280), (80, 1280), (81, 1280),
+                                 (10_000, 1280), (1001, 1281), (1001, 17)])
+@pytest.mark.parametrize("stage", ABLATION_STAGES)
+def test_ablation_stage_kernel_over_sample_and_pixel_counts(cuda_device, stage, S, N):
+    _check_stage(cuda_device, stage, S=S, N=N)
+
+
+@pytest.mark.parametrize("stage", ABLATION_STAGES)
+def test_ablation_packed_entry_equals_the_flat_entry(cuda_device, stage):
+    """The stage kernel on the packed basis (what the timings time) gives
+    the flat-basis entry's output bit for bit: the gathered columns are
+    the packed basis's."""
+    (y, mu, M, omega2, v, mask), A, _ = _problem(cuda_device, k=20, S=1001)
+    rows = torch.stack([y, mu, omega2, v, mask.float()])
+    flat = logmvn_ablate(stage, rows, M, T.pair_basis(M), A)
+    packed = logmvn_ablate_packed(stage, rows, M, packed_pair_basis(M), A)
+    assert torch.equal(torch.isnan(flat), torch.isnan(packed))
+    assert torch.equal(flat[~torch.isnan(flat)], packed[~torch.isnan(flat)])
+
+
+def test_ablation_stage_kernel_refuses_k_beyond_the_block(cuda_device):
+    k = _largest_stage_k() + 1
+    (y, mu, M, omega2, v, mask), A, _ = _problem(cuda_device, k=k, S=64)
+    rows = torch.stack([y, mu, omega2, v, mask.float()])
+    before = _build.launch_counts["logmvn_ablate"]
+    with pytest.raises(ValueError):
+        logmvn_ablate("full", rows, M, T.pair_basis(M), A)
+    assert _build.launch_counts["logmvn_ablate"] == before
+
+
+# K2 itself at the main path's shapes (the phase-3 shapes of chip_smoke.py),
+# through the block it shares with the stage kernel
+@pytest.mark.parametrize("n_extra", [0, 3])
+def test_cap_kernel_at_the_main_path_shapes(cuda_device, n_extra):
+    err, scale = _k2_ll_error(cuda_device, 20, "packed", 10_000, 1280, n_extra)
+    assert err <= REL_K23 * scale
+
+
+# k: both sides of the row bound 32 and of a half warp, the main path's 20,
+# the earlier kernel's limit 41, K3's largest row bound 64
+@pytest.mark.parametrize("k", [1, 2, 5, 16, 17, 20, 31, 32, 33, 41, 64])
 def test_flat_basis_cap_and_flat_chain_kernels_match_twins(cuda_device, k):
-    """K2 with the flat k^2 basis (the decoupled split's ka), and the flat
-    chain in the row layout and, in place, the transposed one."""
+    """The flat chain in the row layout and, in place, the transposed one;
+    where K2's block holds the flat k^2 basis, K2 with it (the decoupled
+    split's ka) and the decoupled split."""
     (y, mu, M, omega2, v, mask), A, _ = _problem(cuda_device, k=k, S=1001)
     rows = torch.stack([y, mu, omega2, v, mask.float()])
     Mp = T.pair_basis(M)
-    B, u, misc = logmvn_cap(rows, M, Mp, A)
-    assert B.shape == (1001, k * k)
     Br, ur, miscr = logmvn_cap_reference(rows, M, Mp, A)
     ll_twin = flat_chain_reference(Br, ur, miscr)
     scale = float(ll_twin.abs().max())
-    assert float((flat_chain_reference(B, u, misc) - ll_twin).abs().max()) <= REL_K23 * scale
     before = _build.launch_counts["logmvn_flat_chain"]
     row = logmvn_flat_chain(Br, ur, miscr)
     BT, uT, mT = (torch.cat([x, x[:23]]).T.contiguous() for x in (Br, ur, miscr))
@@ -473,8 +544,61 @@ def test_flat_basis_cap_and_flat_chain_kernels_match_twins(cuda_device, k):
     assert float((row - ll_twin).abs().max()) <= REL_K23 * scale
     assert transposed.shape == (1024,)
     assert float((transposed[:1001] - ll_twin).abs().max()) <= REL_K23 * scale
+    try:
+        cap_geometry(1001, 1280, k, k * k)
+    except ValueError:
+        return  # K2's block does not hold the flat basis at this k
+    B, u, misc = logmvn_cap(rows, M, Mp, A)
+    assert B.shape == (1001, k * k)
+    assert float((flat_chain_reference(B, u, misc) - ll_twin).abs().max()) <= REL_K23 * scale
     dec = logmvn_decoupled(rows, M, Mp, A)
     assert float((dec - ll_twin).abs().max()) <= REL_K23 * scale
+
+
+@pytest.mark.parametrize("k", [5, 20, 41])
+def test_flat_chain_gives_the_twins_nan_where_not_positive_definite(cuda_device, k):
+    """A negative pivot gives NaN in kernel and twin alike, in both
+    layouts."""
+    (y, mu, M, omega2, v, mask), A, _ = _problem(cuda_device, k=k, S=100, seed=k)
+    rows = torch.stack([y, mu, omega2, v, mask.float()])
+    B, u, misc = logmvn_cap_reference(rows, M, T.pair_basis(M), A)
+    B[0, 0] = -2.0
+    B[1, (k // 2) * (k + 1)] = -50.0
+    want = flat_chain_reference(B, u, misc)
+    assert bool(torch.isnan(want[0])) and bool(torch.isnan(want[1]))
+    for got in (logmvn_flat_chain(B, u, misc),
+                logmvn_flat_chain(B.T.contiguous(), u.T.contiguous(), misc.T.contiguous(),
+                                  transposed=True)):
+        assert _rel_err_nan_equal(got, want) <= REL_K23
+
+
+@pytest.mark.parametrize("field,delta", [("warps", 1), ("blocks_per_sm", 1),
+                                         ("blocks_per_sm", -1)])
+def test_flat_chain_launcher_refuses_other_warps_or_blocks(cuda_device, field, delta):
+    """The launcher takes only the warps a block and blocks an SM it was
+    compiled for, the ones flat_chain_geometry gives."""
+    S, k = 100, 20
+    B = torch.zeros((S, k * k), device=cuda_device)
+    u = torch.zeros((S, k), device=cuda_device)
+    misc = torch.zeros((S, 2), device=cuda_device)
+    ll = torch.empty((S,), device=cuda_device)
+    g = flat_chain_geometry(S, k)._asdict()
+    lib = _build.load_library("ablate")
+    P = _build.ptr
+    args = lambda g: (P(B), k * k, 1, P(u), k, 1, P(misc), 2, 1, S, k, g["rows"], g["warps"],
+                      g["blocks_per_sm"], g["chunk"], g["shared_bytes"], g["grid"], P(ll),
+                      _build.stream_ptr(cuda_device))
+    assert lib.logmvn_flat_chain_launch(*args(g)) == 0
+    torch.cuda.synchronize()
+    assert lib.logmvn_flat_chain_launch(*args({**g, field: g[field] + delta})) != 0
+
+
+def test_flat_chain_refuses_k_beyond_its_row_bounds(cuda_device):
+    k = 65
+    with pytest.raises(ValueError):
+        logmvn_flat_chain(torch.zeros((4, k * k), device=cuda_device),
+                          torch.zeros((4, k), device=cuda_device),
+                          torch.zeros((4, 2), device=cuda_device))
 
 
 # ---- compact profile storage: the int16 instantiations against their twins
