@@ -26,7 +26,9 @@ Phases, one line each; any failure exits non-zero before the result:
      unit optical depth + K5 per family) on 4 of those spectra, with its
      launch counts and detections, and its golden parity as in phase 5
   7. the unfused windowed configuration (voigt_impl="windowed_unfused":
-     windowed unit optical depth parts + K6 per family) likewise
+     windowed unit optical depth parts + K6 per family) likewise; then its
+     golden parity once more without the two-tier window (window_tier=False,
+     the reference's GPY_DLA_WINDOW_TIER=0)
   8. the LLS search at the width of run_find_lls.py (S = 10,000, 850 A
      window, N = 1,664, max_lya = 4, BOSS mean flux) on 8 synthetic
      spectra through lls_inference_many (odd ones carry an LLS of logNHI
@@ -84,6 +86,28 @@ Phases, one line each; any failure exits non-zero before the result:
      golden parity; then each int16 kernel's times beside the float32 one's
      (interleaved), the chained-row gather, the default slice's device time
      and peak memory per 16 spectra, and its spectra/s, in each storage
+ 15. K5 and K6, the streaming absorption tail (csrc/absorption_stencil.cuh),
+     at every shape the paths give them: 1, 16, 20 and 10,000 rows; K5 at
+     P = 774 (the CIV head's row), 1,286 and 1,670; K6 on the main path's
+     parts (10,000 x 1,408 padded, P = 1,286, L = 3), with 8 lines
+     (overlapping windows) and with redshifts at the grid's red end
+     (windows clipped at the row's P); each in float32 (within 1e-6 of the
+     twin) and int16 (codes within 1); then a 1 GiB device copy's rate, and
+     K5's and K6's device ms (profiler, 50 calls) at 10,000 and 16 rows in
+     both storages and at P = 1,670 and 774, each beside its bound and the
+     share of that copy rate (K6's bound by the bytes its function needs:
+     far's first P pixels and the window pixels below P; the earlier
+     padded count beside it)
+ 16. wide GP bases (k = 54, one column past one K2 block at N = 1,280,
+     and 65, one past K3's row bounds; S = 10,000, 3 chained streams, on
+     the seeded construction tests/test_torch_kernels_gpu.py holds the
+     budget on): the likelihood runs K2 in column slices and K3 (its wide
+     chain at k = 65), counted; each kernel against its twin (|dll| <=
+     1e-6 max|ll|); the likelihood against the CPU float64 value of the
+     first 2,000 samples within the reference's float32 budget (median
+     |dll| 7.4e-4, max 3.8e-3); device ms beside the bounds, the wide
+     chain's row of the kernels line.  No phase runs the likelihood's
+     plain composition (checked in every counted run)
 Every other phase asserts that the Weideman window is never launched, and
 every phase before 14 that no int16 instantiation is.
 Then a JSON line of the kernels, the card line, and the result line.
@@ -130,6 +154,10 @@ DLA_CHAIN = (32, 5000)  # walkers, steps (the reference's)
 CIV_CHAIN = (40, 1000)
 ODD_K = 21
 NARROW_K = 5  # a GP basis narrower than the old K2 block took
+WIDE_KS = (54, 65)  # one column past one K2 block at N = 1,280, one past K3's row bounds
+WIDE_F64 = 2000  # samples of the wide bases held to the CPU float64 value
+TAIL_ROWS = (1, 16, 20, 10_000)  # K5's and K6's row counts on the paths
+CIV_PIXELS = 774  # the CIV head's padded row (CIVParameters)
 CHAIN_KS = (1, 2, 8, 16, 17, 31, 32, 33, 41)  # K3 on both sides of its row bound 32
 
 TOL_K1 = 2e-6  # absolute, kernel vs twin (measured 2.4e-7)
@@ -144,6 +172,10 @@ REL_K23 = 1e-6  # |dll| <= REL_K23 * max|ll|, kernel vs twin (measured 3.7e-7)
 REL_K7 = 2e-6  # |d| <= REL_K7 * max|value|, the ablation's kernels vs twins
 REL_GOLDEN_EVIDENCE = 1e-4  # of the largest |log evidence|, float32 vs float64 JAX
 MAX_DCODE = 1  # int16 codes, kernel vs twin: a ~3e-7 float32 difference moves a code by one
+# the float32 likelihood against float64: the reference kernel's budget on
+# |ll| ~ 1.1e4 (gpy_dla_detection_tpu/ops/logmvn_pallas.py:206-210)
+MEDIAN_VS_F64 = 7.4e-4
+MAX_VS_F64 = 3.8e-3
 ABS_GOLDEN_P_DLA = 1e-3
 
 # published H100 SXM peaks (NVIDIA data sheet; 700 W): HBM3 bytes/s and
@@ -175,6 +207,11 @@ KERNELS = {
         f"{LOGMVN}:238",
     ),
     "logmvn_chain": (
+        "gpy_dla_detection_tpu_torch/csrc/logmvn_chain.cu",
+        f"{LOGMVN}:497",
+    ),
+    # K3's wide chain, for k beyond the warp chain's row bounds (phase 16)
+    "logmvn_chain_wide": (
         "gpy_dla_detection_tpu_torch/csrc/logmvn_chain.cu",
         f"{LOGMVN}:497",
     ),
@@ -320,11 +357,25 @@ def k5_work(S, P, elem=4) -> tuple[float, float]:
     return 4.0 * (S * P + S + 7) + elem * S * (P - 6), ops
 
 
-def k6_work(S, P_pad, P, L, elem=4) -> tuple[float, float]:
-    """256 adds per line window, an exp and a product per used pixel, 7
-    FMAs per output pixel (with int16 codes a product and a conversion
-    more); reads far, corr, c0 (int32), nhi and the taps, writes the profile
-    at ``elem`` bytes an output."""
+def k6_work(parts, elem=4) -> tuple[float, float]:
+    """What K6's function needs on these parts: far's first P pixels, the
+    window pixels below P (from this run's window starts c0), c0 (int32),
+    nhi and the taps read once, the profile written at ``elem`` bytes an
+    output; an add per window pixel below P, an exp and a product per
+    pixel, 7 FMAs per output pixel (with int16 codes a product and a
+    conversion more)."""
+    S, P, L = parts.far.shape[0], parts.num_pixels, parts.c0.shape[1]
+    window = float(torch.clamp(P - 128 * parts.c0.long(), 0, 256).sum())
+    n_bytes = 4.0 * (S * P + window + S * L + S + 7) + elem * S * (P - 6)
+    ops = window + S * (2.0 * P + 14.0 * (P - 6) + (2.0 * (P - 6) if elem == 2 else 0.0))
+    return n_bytes, ops
+
+
+def k6_work_padded(parts, elem=4) -> tuple[float, float]:
+    """K6's work by the earlier count: the whole padded far field and every
+    window pixel (what the earlier design read), printed beside the count
+    of what the function needs."""
+    S, P_pad, P, L = parts.far.shape[0], parts.far.shape[1], parts.num_pixels, parts.c0.shape[1]
     n_bytes = 4.0 * (S * P_pad + S * L * 256 + S * L + S + 7) + elem * S * (P - 6)
     ops = S * (256.0 * L + 2.0 * P + 14.0 * (P - 6) + (2.0 * (P - 6) if elem == 2 else 0.0))
     return n_bytes, ops
@@ -417,7 +468,7 @@ def main() -> None:
         logmvn_flat_chain,
         logmvn_flat_chain_reference,
     )
-    from gpy_dla_detection_tpu_torch.ops.logmvn import decode_profile_store
+    from gpy_dla_detection_tpu_torch.ops.logmvn import batched_log_mvnpdf, decode_profile_store
     from gpy_dla_detection_tpu_torch.ops.timing import device_ms
     from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
         assemble_reference,
@@ -707,11 +758,13 @@ def main() -> None:
           f"{k1w[2]:.3e} / {k1w_lls[2]:.3e} | K1 at S={min(S, 1001)} max|d| "
           + ", ".join(f"{c}: {e:.2e}" for c, e in k1_cases.items()))
 
-    def run_slice(base_inds=None, batch=spectra, voigt_impl="windowed", abs_dtype=None):
+    def run_slice(base_inds=None, batch=spectra, voigt_impl="windowed", abs_dtype=None,
+                  window_tier=True):
         return process_batch(
             learned, batch, dla_samples, sub_samples, prior, params,
             torch.Generator(device=device).manual_seed(1), MAX_DLAS,
             base_inds_override=base_inds, voigt_impl=voigt_impl, abs_dtype=abs_dtype,
+            window_tier=window_tier,
         )
 
     def check_detections(results, batch_truths, label):
@@ -735,7 +788,8 @@ def main() -> None:
     def count_launches(fn, int16=False):
         """Run ``fn`` with the launch counts set to 0 just before; the
         counts just after.  Unless ``int16``, no int16 instantiation may
-        launch (float32 storage is every entry point's default)."""
+        launch (float32 storage is every entry point's default); the
+        likelihood's plain composition (the CPU path) never runs."""
         _build.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
@@ -743,6 +797,8 @@ def main() -> None:
         if not int16:
             i16 = {n: c for n, c in counts.items() if n.endswith("_i16")}
             check(not i16, f"an int16 instantiation launched on a float32 path: {i16}")
+        check(counts.get("logmvn_composition", 0) == 0,
+              f"the likelihood's composition ran on the card: {counts}")
         return out, counts
 
     path_launches = {}
@@ -770,15 +826,19 @@ def main() -> None:
                                         g["dla_z"], g["dla_log_nhi"])
     ]
 
-    def golden_parity(voigt_impl, abs_dtype=None, want_fixture=g):
+    def golden_parity(voigt_impl, abs_dtype=None, want_fixture=g, window_tier=True):
         """The fixture's spectra with its resampling indices (the int16
         fixture's are the float64 one's) against ``want_fixture``; where it
         holds evidences only (the int16 fixture), its p_dla and posteriors
         come from the port's model selection (models.selection, equal to
-        the reference's) on those evidences."""
-        gres = run_slice(g["base_inds"].astype(np.int64), golden_spectra, voigt_impl, abs_dtype)
+        the reference's) on those evidences.  The launches are counted, so
+        the composition-free check covers the golden runs too."""
+        gres, _ = count_launches(lambda: run_slice(
+            g["base_inds"].astype(np.int64), golden_spectra, voigt_impl, abs_dtype, window_tier),
+            int16=abs_dtype is not None)
         worst_rel, worst_dp = 0.0, 0.0
-        label = f"{voigt_impl}{'' if abs_dtype is None else ' int16'}"
+        label = (f"{voigt_impl}{'' if abs_dtype is None else ' int16'}"
+                 f"{'' if window_tier else ' without the window tier'}")
         for i, (res, spec) in enumerate(zip(gres, golden_spectra)):
             want_ev = (want_fixture["log_evidence_null"][i], want_fixture["log_evidence_subdla"][i],
                        want_fixture["log_evidences_dla"][i])
@@ -835,7 +895,9 @@ def main() -> None:
     print(f"[7 unfused] {NUM_UNFUSED} spectra, voigt_impl=windowed_unfused | launches "
           f"{launches} (absorption_windowed 2 per spectrum: one per family) | "
           f"{check_detections(results, truths[:NUM_UNFUSED], 'unfused')} | "
-          f"golden: {golden_parity('windowed_unfused')}")
+          f"golden: {golden_parity('windowed_unfused')} || without the two-tier window "
+          f"(window_tier=False, the reference's GPY_DLA_WINDOW_TIER=0), golden: "
+          f"{golden_parity('windowed_unfused', window_tier=False)}")
 
     # 8. the LLS search: one K1 launch (with the break, F = 1) and max_lya
     # likelihood levels per spectrum; then the unfused windowed
@@ -1060,7 +1122,7 @@ def main() -> None:
     work = {
         "absorption_all": k1_work(wl, z_s, 2, consts, min(params.num_lines, FAR_FIELD_LINES)),
         "absorption_tail": k5_work(*unit_tau.shape),
-        "absorption_windowed": k6_work(S, parts.far.shape[1], wl.shape[0], parts.c0.shape[1]),
+        "absorption_windowed": k6_work(parts),
         "absorption_all_lls": k1_work(wl_lls, z_lls, 1, consts,
                                       min(params.num_lines, FAR_FIELD_LINES), lls_break=True),
         "absorption_all_weideman": k1_work(wl, z_s, 2, consts,
@@ -1397,11 +1459,13 @@ def main() -> None:
 
     # times: each int16 kernel beside its float32 instantiation, in turns
     # (f32, i16, i16, f32), device ms by CUDA events over 50 launches (K2
-    # by the profiler); host-synchronised medians as in phase 10
+    # by the profiler; K5 and K6 in phase 15); host-synchronised medians as
+    # in phase 10
     def turns(fn32, fn16, timer):
         a, b, c, d = timer(fn32), timer(fn16), timer(fn16), timer(fn32)
         return (a + d) / 2, (b + c) / 2
 
+    profiler_ms = lambda fn: device_ms(fn)[0]
     out_2_16 = torch.empty((2, S, wl.shape[0] - 6), dtype=i16, device=device)
     out_1_16 = torch.empty((1, z_lls.shape[0], wl_lls.shape[0] - 6), dtype=i16, device=device)
     dev_pairs = {
@@ -1415,14 +1479,7 @@ def main() -> None:
         "absorption_all_weideman_i16": turns(
             lambda: launch_absorption_all(wl, z_s, nhi_2, out_2, poly=False),
             lambda: launch_absorption_all(wl, z_s, nhi_2, out_2_16, poly=False), events_ms),
-        "absorption_tail_i16": turns(
-            lambda: absorption_tail(*k5_rows[S]), lambda: absorption_tail(*k5_rows[S], i16),
-            events_ms),
-        "absorption_windowed_i16": turns(
-            lambda: absorption_windowed(parts, nhis[0]),
-            lambda: absorption_windowed(parts, nhis[0], i16), events_ms),
     }
-    profiler_ms = lambda fn: device_ms(fn)[0]
     for name, (r_, M_, Mp_, a32, ex32, a16, ex16) in (
             ("logmvn_cap_i16", (rows, model.M, Mp, A, [], A16, [])),
             ("logmvn_cap_i16_3", (rows, model.M, Mp, A, extras3, A16, extras16)),
@@ -1466,8 +1523,7 @@ def main() -> None:
                                                min(params.num_lines, FAR_FIELD_LINES),
                                                poly=False, elem=2),
         "absorption_tail_i16": k5_work(*unit_tau.shape, elem=2),
-        "absorption_windowed_i16": k6_work(S, parts.far.shape[1], wl.shape[0],
-                                           parts.c0.shape[1], elem=2),
+        "absorption_windowed_i16": k6_work(parts, elem=2),
         "logmvn_cap_i16": k2_work(S, A.shape[1], model.M.shape[1], 0, elem=2),
         "logmvn_cap_i16_3": k2_work(S, A.shape[1], model.M.shape[1], 3, elem=2),
         "logmvn_cap_i16_N1664": k2_work(S, A_lls.shape[1], lls_model.M.shape[1], 0, elem=2),
@@ -1499,7 +1555,7 @@ def main() -> None:
     rates["f32_again"] = slice_rate(spectra, "windowed")
     A_bytes = lambda t: t.numel() * t.element_size() / 2**20
     print(f"[14 int16 timing] {card} | device ms float32 -> int16 (CUDA events over 50 launches, "
-          f"in turns f32, i16, i16, f32; K2 by the profiler): "
+          f"in turns f32, i16, i16, f32; K2 by the profiler; K5 and K6 in phase 15): "
           + ", ".join(f"{n} {a:.4f} -> {b:.4f}" for n, (a, b) in dev_pairs.items())
           + " | bounds at int16 bytes: "
           + ", ".join(f"{n} {bounds[n][0]:.4f} ms ({bounds[n][1]})"
@@ -1517,6 +1573,202 @@ def main() -> None:
           f"runs of {NUM_SPECTRA}): f32 {rates['f32']:.2f} / {rates['f32_again']:.2f}, int16 "
           f"{rates['i16']:.2f}")
 
+    # 15. K5 and K6 (the streaming tail, csrc/absorption_stencil.cuh) at
+    # every shape the paths give them, against their twins in both
+    # storages; then their device ms beside the bound and the copy rate
+    # measured here
+    wl_civ = wl[:CIV_PIXELS].contiguous()  # the CIV head's row width
+    tail_units = {P_: u for P_, u in (
+        (wl.shape[0], unit_tau),
+        (wl_lls.shape[0], unit_lyman_optical_depth(wl_lls, z_lls, params.num_lines)),
+        (CIV_PIXELS, unit_lyman_optical_depth(wl_civ, z_s, params.num_lines)))}
+    tail_nhi = {wl.shape[0]: nhis[0], wl_lls.shape[0]: nhi_lls[0], CIV_PIXELS: nhis[0]}
+    tail_err, tail_codes, tail_cases = 0.0, 0, 0
+
+    def tail_check(got32, want32, got16, want16, label):
+        e = float((got32 - want32).abs().max())
+        check(e <= TOL_K5, f"{label} vs twin {e:.3e} > {TOL_K5}")
+        m, _ = check_codes(got16, want16, f"{label} int16")
+        return e, m
+
+    for P_, unit_ in tail_units.items():
+        for rows_n in TAIL_ROWS:
+            u_, n_ = unit_[:rows_n].contiguous(), tail_nhi[P_][:rows_n].contiguous()
+            e, m = tail_check(absorption_tail(u_, n_), absorption_tail_reference(u_, n_),
+                              absorption_tail(u_, n_, i16), absorption_tail_reference(u_, n_, i16),
+                              f"K5 {rows_n}x{P_}")
+            tail_err, tail_codes, tail_cases = max(tail_err, e), max(tail_codes, m), tail_cases + 1
+    # K6: the main path's parts (L = 3), 8 lines (overlapping windows), and
+    # redshifts at the grid's red end (windows clipped at the row's P)
+    red = float(wl[-1]) / 1215.67 - 1.0
+    z_red = red - 0.05 + 0.07 * torch.rand(S, generator=gen, device=device)
+    k6_parts = {"L=3": parts, "L=8": windowed_tau_parts(wl, z_s, 8),
+                "red end": windowed_tau_parts(wl, z_red, params.num_lines)}
+    nc_pad = parts.far.shape[1] // 128
+    clipped = int((k6_parts["red end"].c0 == nc_pad - 2).any(dim=1).sum())
+    check(clipped > 0, "K6: no window reached the last chunk pair")
+    k6_err, k6_codes = 0.0, 0
+    for label, pt in k6_parts.items():
+        for rows_n in TAIL_ROWS:
+            sub = type(pt)(pt.far[:rows_n].contiguous(), pt.corr[:rows_n].contiguous(),
+                           pt.c0[:rows_n].contiguous(), pt.num_pixels)
+            n_ = nhis[0][:rows_n].contiguous()
+            e, m = tail_check(absorption_windowed(sub, n_), absorption_windowed_reference(sub, n_),
+                              absorption_windowed(sub, n_, i16),
+                              absorption_windowed_reference(sub, n_, i16),
+                              f"K6 {label} {rows_n}x{pt.num_pixels}")
+            k6_err, k6_codes, tail_cases = max(k6_err, e), max(k6_codes, m), tail_cases + 1
+    err["absorption_tail"] = max(err["absorption_tail"], tail_err)
+    err["absorption_windowed"] = max(err["absorption_windowed"], k6_err)
+    note_codes("absorption_tail_i16", tail_codes, codes_share.get("absorption_tail_i16", 0.0))
+    note_codes("absorption_windowed_i16", k6_codes,
+               codes_share.get("absorption_windowed_i16", 0.0))
+    for name in ("absorption_tail_i16", "absorption_windowed_i16"):
+        err[name] = codes_err[name] / 32767.0
+    # the copy rate here: a 1 GiB device-to-device copy, read and written
+    copy_src = torch.empty(2**28, device=device)
+    copy_dst = torch.empty_like(copy_src)
+    copy_gbs = 2 * copy_src.numel() * 4 / (events_ms(lambda: copy_dst.copy_(copy_src), 20)
+                                          * 1e-3) / 1e9
+    del copy_src, copy_dst
+    # device ms by the profiler over 50 calls (the wrapper's host time is
+    # longer than the 16-row kernel), each int16 instantiation beside the
+    # float32 one in turns (f32, i16, i16, f32), as phase 14 times the others
+    tail_pairs = {
+        "absorption_tail": lambda dt=None: absorption_tail(*k5_rows[S], dt),
+        "absorption_tail_16": lambda dt=None: absorption_tail(*k5_rows[DLA_CHAIN[0] // 2], dt),
+        "absorption_windowed": lambda dt=None: absorption_windowed(parts, nhis[0], dt),
+    }
+    tail_dev = {}
+    for n, fn in tail_pairs.items():
+        tail_dev[n], tail_dev[f"{n}_i16"] = turns(fn, lambda: fn(i16), profiler_ms)
+    for n in ("absorption_tail", "absorption_windowed"):
+        dev_pairs[f"{n}_i16"] = (tail_dev[n], tail_dev[f"{n}_i16"])
+    tail_dev["absorption_tail_1670"] = profiler_ms(
+        lambda: absorption_tail(tail_units[wl_lls.shape[0]], nhi_lls[0]))
+    tail_dev["absorption_tail_774"] = profiler_ms(
+        lambda: absorption_tail(tail_units[CIV_PIXELS], nhis[0]))
+    rows16 = DLA_CHAIN[0] // 2
+    tail_work = {
+        "absorption_tail": k5_work(*unit_tau.shape),
+        "absorption_tail_i16": k5_work(*unit_tau.shape, elem=2),
+        "absorption_tail_16": k5_work(rows16, unit_tau.shape[1]),
+        "absorption_tail_16_i16": k5_work(rows16, unit_tau.shape[1], elem=2),
+        "absorption_tail_1670": k5_work(S, wl_lls.shape[0]),
+        "absorption_tail_774": k5_work(S, CIV_PIXELS),
+        "absorption_windowed": k6_work(parts),
+        "absorption_windowed_i16": k6_work(parts, elem=2),
+    }
+    tail_bound = {n: bound(*w) for n, w in tail_work.items()}
+    k6_old = {n: bound(*k6_work_padded(parts, elem=e))[0]
+              for n, e in (("absorption_windowed", 4), ("absorption_windowed_i16", 2))}
+    tail_share = {n: (tail_bound[n][0] / d, tail_work[n][0] / (d * 1e-3) / 1e9 / copy_gbs)
+                  for n, d in tail_dev.items()}
+    print(f"[15 tail] {card} | K5 and K6 vs twins in {tail_cases} cases (rows "
+          f"{', '.join(map(str, TAIL_ROWS))}; K5 at P = {', '.join(map(str, tail_units))}; K6 at "
+          f"{S}x{parts.far.shape[1]} padded, P = {wl.shape[0]}, L = 3 and 8, and with windows "
+          f"clipped at the row's end in {clipped} rows): float32 max|d| K5 {tail_err:.3e}, K6 "
+          f"{k6_err:.3e} (tol {TOL_K5}); int16 max |dcode| K5 {tail_codes}, K6 {k6_codes} (tol "
+          f"{MAX_DCODE}) | copy rate here {copy_gbs:.1f} GB/s (1 GiB device copy, CUDA events) | "
+          f"device ms (profiler, 50 calls), share of the bound, share of the copy rate: "
+          + ", ".join(f"{n} {d:.4f} ({tail_share[n][0]:.1%} of {tail_bound[n][0]:.4f} ms, "
+                      f"{tail_share[n][1]:.1%} of the copy rate)" for n, d in tail_dev.items())
+          + " | K6 bound by the padded count: "
+          + ", ".join(f"{n} {b:.4f} ms" for n, b in k6_old.items()))
+
+    # 16. wide GP bases through the kernels: K2 in column slices (k = 54
+    # and 65, one past one block and one past K3's row bounds) and K3's wide
+    # chain (k = 65), on the construction the reference's float32 budget is
+    # held on in tests/test_torch_kernels_gpu.py (seeded, N = 1,280, 3
+    # chained streams): the path's counts, each kernel against its twin, the
+    # likelihood against the CPU float64 value of its first WIDE_F64
+    # samples within the budget as it stands (no scaling)
+    def wide_problem(k):
+        rng = np.random.default_rng(k)
+        n_ = 1280
+        M_ = (rng.normal(size=(n_, k)) / np.sqrt(k) * 0.1).astype(np.float32)
+        y_ = (1 + 0.1 * rng.normal(size=n_)).astype(np.float32)
+        mu_ = np.ones(n_, np.float32)
+        om_ = rng.uniform(0.01, 0.05, n_).astype(np.float32)
+        v_ = rng.uniform(0.02, 0.1, n_).astype(np.float32)
+        mask_ = rng.uniform(size=n_) > 0.1
+        A_ = np.exp(-rng.random((S, n_))).astype(np.float32)
+        ex_ = [np.exp(-0.3 * rng.random((S, n_))).astype(np.float32) for _ in range(3)]
+        put = lambda x: torch.as_tensor(x, device=device)
+        return [put(x) for x in (y_, mu_, M_, om_, v_, mask_)], put(A_), [put(e) for e in ex_]
+
+    wide = {k_: wide_problem(k_) for k_ in WIDE_KS}
+    lls_wide, launches = count_launches(
+        lambda: {k_: batched_log_mvnpdf(*b_, a_, extra=e_) for k_, (b_, a_, e_) in wide.items()})
+    path_launches["wide_basis"] = launches
+    need = {"logmvn_cap": len(WIDE_KS), "logmvn_chain": sum(k_ <= 64 for k_ in WIDE_KS),
+            "logmvn_chain_wide": sum(k_ > 64 for k_ in WIDE_KS)}
+    check(launches == need, f"wide bases: launches {launches} != {need}")
+    cpu64 = lambda x: x.cpu().double() if x.is_floating_point() else x.cpu()
+    wide_f64, wide_twin, wide_dev = {}, {}, {}
+    for k_, (b_, a_, e_) in wide.items():
+        ll_ = lls_wide[k_]
+        check(bool(torch.isfinite(ll_).all()), f"k={k_}: non-finite likelihood")
+        ll64_ = batched_log_mvnpdf(*[cpu64(x) for x in b_], cpu64(a_[:WIDE_F64]),
+                                   extra=[cpu64(e[:WIDE_F64]) for e in e_])
+        d_ = (ll_[:WIDE_F64].cpu().double() - ll64_).abs()
+        wide_f64[k_] = (float(d_.median()), float(d_.max()), float(ll64_.abs().max()))
+        check(wide_f64[k_][0] <= MEDIAN_VS_F64 and wide_f64[k_][1] <= MAX_VS_F64,
+              f"k={k_} vs float64: median |dll| {wide_f64[k_][0]:.3e} (budget "
+              f"{MEDIAN_VS_F64}), max {wide_f64[k_][1]:.3e} (budget {MAX_VS_F64})")
+        # each kernel against its twin: K2 through the twin chain, K3 on the
+        # twin's products
+        r_ = torch.stack([b_[0], b_[1], b_[3], b_[4], b_[5].float()])
+        M_ = b_[2]
+        Mp_ = packed_pair_basis(M_)
+        cap_t = logmvn_cap_reference(r_, M_, Mp_, a_, e_)
+        ll_t = logmvn_chain_reference(*cap_t)
+        scale_ = float(ll_t.abs().max())
+        cap_k = logmvn_cap(r_, M_, Mp_, a_, e_)
+        e2 = float((logmvn_chain_reference(*cap_k) - ll_t).abs().max())
+        e3 = float((logmvn_chain(*cap_t) - ll_t).abs().max())
+        check(e2 <= REL_K23 * scale_ and e3 <= REL_K23 * scale_,
+              f"k={k_}: K2 |dll| {e2:.3e}, K3 |dll| {e3:.3e} > {REL_K23} x {scale_:.4g}")
+        err["logmvn_cap"] = max(err["logmvn_cap"], e2)
+        chain_name = "logmvn_chain_wide" if k_ > 64 else "logmvn_chain"
+        err[chain_name] = max(err.get(chain_name, 0.0), e3)
+        wide_twin[k_] = (e2 / scale_, e3 / scale_)
+        wide_dev[f"K2 k={k_}"] = (device_ms(lambda: logmvn_cap(r_, M_, Mp_, a_, e_))[0],
+                                  bound(*k2_work(S, M_.shape[0], k_, 3))[0])
+        if k_ > 64:
+            # the wide chain's row of the kernels line
+            name = "logmvn_chain_wide"
+            ms[name] = (timed_median(lambda: logmvn_chain(*cap_t)),
+                        timed_median(lambda: logmvn_chain_reference(*cap_t)))
+            bounds[name] = bound(*k3_work(S, k_))
+            full_, rhs_ = unpack_capacitance(cap_t[0], k_), cap_t[1][:, :, None].contiguous()
+            library[name] = timed_median(lambda: torch.linalg.solve_triangular(
+                torch.linalg.cholesky_ex(full_)[0], rhs_, upper=False))
+            k3_device[name] = device_ms(lambda: logmvn_chain(*cap_t))
+            wide_dev[f"K3 wide k={k_}"] = (k3_device[name][0], bounds[name][0])
+    print(f"[16 wide bases] S={S} N=1280, 3 chained streams, k = "
+          f"{', '.join(map(str, WIDE_KS))}: launches {launches} (K2 in column slices, K3's warp "
+          f"chain at k <= 64 and its wide chain beyond; no composition) | vs CPU float64 (first "
+          f"{WIDE_F64} samples; budget median {MEDIAN_VS_F64}, max {MAX_VS_F64}): "
+          + ", ".join(f"k={k_} median |dll| {m_:.3e}, max {x_:.3e} (max|ll| {sc_:.4g})"
+                      for k_, (m_, x_, sc_) in wide_f64.items())
+          + f" | kernel vs twin, |dll| / max|ll| (tol {REL_K23}): "
+          + ", ".join(f"k={k_} K2 {a_:.2e}, K3 {b_:.2e}" for k_, (a_, b_) in wide_twin.items())
+          + " | device ms (profiler, 50 calls) and bound: "
+          + ", ".join(f"{n} {d:.4f} (bound {b:.4f})" for n, (d, b) in wide_dev.items())
+          + f" | wide chain {ms['logmvn_chain_wide'][0]:.3f} ms vs twin "
+          f"{ms['logmvn_chain_wide'][1]:.3f} ms, library yardstick "
+          f"{library['logmvn_chain_wide']:.3f} ms | every phase took the kernels (no composition)")
+
+    # phase 15's numbers beside each K5 and K6 row of the kernels line
+    tail_extra = {n: {"device_ms_profiler": tail_dev[n], "bound_share": tail_share[n][0],
+                      "copy_rate_share": tail_share[n][1], "copy_rate_gbs": copy_gbs,
+                      **({"bound_ms_padded_count": k6_old[n]} if n in k6_old else {}),
+                      **({"device_ms_16_rows": tail_dev[f"{n.replace('_i16', '')}_16"
+                                                        + ("_i16" if n.endswith("_i16") else "")]}
+                         if n.startswith("absorption_tail") else {})}
+                  for n in ("absorption_tail", "absorption_tail_i16", "absorption_windowed",
+                            "absorption_windowed_i16")}
     total = {name: sum(p.get(name, 0) for p in path_launches.values())
              for name in list(KERNELS) + list(KERNELS_I16)}
     also_ablate = {
@@ -1537,7 +1789,8 @@ def main() -> None:
              "device_ms_lls_break": k1_device[f"{name}_lls"][0],
              "bound_ms_lls_break": bounds[f"{name}_lls"][0]} if name in k1_device else {}),
          **({"branch": "poly=False (voigt_pallas.py:357)"}
-            if name == "absorption_all_weideman" else {})}
+            if name == "absorption_all_weideman" else {}),
+         **tail_extra.get(name, {})}
         for name, (src, rep) in KERNELS.items()
     ] + [
         {"name": name, "route": "cuda", "source": ABLATE_SOURCE, "replaces": rep,
@@ -1551,7 +1804,8 @@ def main() -> None:
          "plain_ms": ms[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library.get(name), "device_ms": dev_pairs[name][1],
          "device_ms_float32": dev_pairs[name][0],
-         **({"max_dcode": codes_err[name]} if name in codes_err else {})}
+         **({"max_dcode": codes_err[name]} if name in codes_err else {}),
+         **tail_extra.get(name, {})}
         for name, (src, rep, branch) in KERNELS_I16.items()
     ]}))
     print(card)

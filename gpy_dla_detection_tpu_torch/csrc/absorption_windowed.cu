@@ -8,104 +8,75 @@
 // i < 256; then, for the first P pixels,
 //   out[s, p] = sum_{k<7} taps[k] * exp(-nhi[s] * tau[p + k])   (p < P - 6).
 //
-// Bound on the card: device-memory bytes.  Each row reads P_pad + 256 L
-// floats, L ints and nhi, and writes P - 6 floats; the arithmetic is 256 L
-// adds, one exp and 7 FMAs per pixel.  At the unfused configuration's
-// S = 10,000, P_pad = 1,408, L = 3 that is ~138 MB, ~41 us at 3.35 TB/s.
+// Bound on the card: device-memory bytes.  The function needs far's first
+// P pixels, the window pixels below P, L ints and nhi a row, and writes
+// P - 6 outputs; the arithmetic is an add per window pixel, one exp and 7
+// FMAs per pixel.  At the unfused configuration's S = 10,000, P = 1,286,
+// L = 3 that is ~133 MB, ~40 us at 3.35 TB/s.
 //
 // Design: the TPU kernel tiled each half-window across all chunks
 // (pltpu.repeat) and selected by chunk id, because Mosaic cannot slice
-// lanes at a row-dependent offset.  Here one block per sample row loads the
-// far field into dynamic shared memory (5.6 KB at P_pad = 1,408) and adds
-// each line's 256 corrections at its own offset.  Windows of different
-// lines may overlap (higher Lyman lines crowd together), so the lines are
-// added one after another with a barrier between them.  exp(-nhi * tau)
-// overwrites tau in place, and the 7-tap stencil reads it from shared
-// memory, so neither the placed tau nor the raw profile reaches device
-// memory.  A window pixel outside [0, P_pad) is dropped, as the reference's
-// chunk-id select drops it; c0 is clipped to [0, nc - 2] by construction.
+// lanes at a row-dependent offset; the earlier CUDA design loaded the far
+// field into shared memory and added the windows line by line with a block
+// barrier after each.  Here the placement is a gather a pixel, inside the
+// shared streaming tail of csrc/absorption_stencil.cuh: for a lane's run of
+// pixels p,
+//   tau = far[p], then for l = 0 .. L - 1 in order,
+//   if ((unsigned)(p - 128 c0[l]) < 256) tau += corr[l][p - 128 c0[l]],
+// so overlapping windows (higher Lyman lines crowd together) add in the
+// twin's order (ops/voigt.place_windows) and give its bits.  A lane's run
+// lies wholly inside or outside a window (runs and window starts are
+// multiples of 4 pixels), so a window is one or two float4 loads.  Only
+// pixels below P are read: far[P:P_pad] and the window pixels beyond P
+// never are.  c0 is clipped to [0, nc - 2] by construction.
 //
 // Storage: float32, or int16 fixed-point codes round(a * 32767) (the
 // reference's GPY_DLA_ABS_DTYPE=i16 / i16p, its _encode_store), an
 // instantiation of its own that differs only at the store, as K5's.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "absorption_stencil.cuh"
 
 namespace {
 
-constexpr int kTaps = 7;
-constexpr int kChunk = 128;
-constexpr int kWindow = 256;
-constexpr int kThreads = 256;
-constexpr float kI16Scale = 32767.0f;  // ABS_I16_SCALE
+constexpr int kWindowChunk = 128;  // ops/voigt.CHUNK
+constexpr int kWindow = 256;       // ops/voigt.FAST_WINDOW
+static_assert(kWindowChunk % stencil::kPix == 0 && kWindow % stencil::kPix == 0,
+              "a lane's run lies wholly inside or outside a window");
 
-__device__ __forceinline__ void put(float* o, float a) { *o = a; }
-__device__ __forceinline__ void put(int16_t* o, float a) {
-  *o = static_cast<int16_t>(__float2int_rn(__fmul_rn(a, kI16Scale)));
-}
+struct WindowedSource {
+  const float* far;
+  const float* corr;
+  const int* c0;
+  int P_pad, L;
 
-template <typename OutT>
-__global__ void absorption_windowed_kernel(
-    const float* __restrict__ far, const float* __restrict__ corr,
-    const int* __restrict__ c0, const float* __restrict__ nhi, int P_pad,
-    int P, int L, const float* __restrict__ taps, OutT* __restrict__ out) {
-  extern __shared__ float tau[];  // [P_pad]
-  __shared__ float tp[kTaps];
-  const int s = blockIdx.x;
-  const int n_out = P - (kTaps - 1);
-  if (threadIdx.x < kTaps) tp[threadIdx.x] = taps[threadIdx.x];
-  const float* row = far + (size_t)s * P_pad;
-  for (int p = threadIdx.x; p < P_pad; p += blockDim.x) tau[p] = row[p];
-  __syncthreads();
-
-  for (int l = 0; l < L; ++l) {
-    const int start = c0[(size_t)s * L + l] * kChunk;
-    const float* cw = corr + ((size_t)s * L + l) * kWindow;
-    for (int i = threadIdx.x; i < kWindow; i += blockDim.x) {
-      const int p = start + i;
-      if (p >= 0 && p < P_pad) tau[p] += cw[i];
+  __device__ __forceinline__ void load(int s, int p0, int n,
+                                       float (&v)[stencil::kPix]) const {
+    stencil::load_run(far + (size_t)s * P_pad + p0, n, v);
+    if (n <= 0) return;
+    for (int l = 0; l < L; ++l) {
+      const int off = p0 - kWindowChunk * __ldg(c0 + (size_t)s * L + l);
+      if ((unsigned)off < (unsigned)kWindow) {
+        float w[stencil::kPix];
+        stencil::load_run(corr + ((size_t)s * L + l) * kWindow + off, n, w);
+#pragma unroll
+        for (int j = 0; j < stencil::kPix; ++j) v[j] = v[j] + w[j];
+      }
     }
-    __syncthreads();  // the next line's window may overlap this one
   }
-
-  const float nh = nhi[s];
-  for (int p = threadIdx.x; p < P; p += blockDim.x) tau[p] = expf(-nh * tau[p]);
-  __syncthreads();
-  OutT* o = out + (size_t)s * n_out;
-  for (int p = threadIdx.x; p < n_out; p += blockDim.x) {
-    float acc = tp[0] * tau[p];
-    for (int k = 1; k < kTaps; ++k) acc = acc + tp[k] * tau[p + k];
-    put(o + p, acc);
-  }
-}
-
-template <typename OutT>
-int launch(const float* far, const float* corr, const int* c0, const float* nhi, int S,
-           int P_pad, int P, int L, const float* taps, void* out, cudaStream_t stream) {
-  const size_t smem = (size_t)P_pad * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        absorption_windowed_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  absorption_windowed_kernel<OutT><<<S, kThreads, smem, stream>>>(
-      far, corr, c0, nhi, P_pad, P, L, taps, static_cast<OutT*>(out));
-  return (int)cudaGetLastError();
-}
+};
 
 }  // namespace
 
-// store 0 writes float32, 1 int16 codes.
+// The geometry (warps a block, shared bytes, grid) comes from
+// ops/voigt_kernels.tail_geometry at P; store 0 writes float32, 1 int16
+// codes.  Refused besides the tail's refusals: P_pad short of P or no
+// multiple of 128, L < 1.
 extern "C" int absorption_windowed_launch(const float* far, const float* corr,
                                           const int* c0, const float* nhi,
                                           int S, int P_pad, int P, int L,
-                                          const float* taps, int store, void* out,
-                                          void* stream) {
-  if (store != 0 && store != 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return store ? launch<int16_t>(far, corr, c0, nhi, S, P_pad, P, L, taps, out, st)
-               : launch<float>(far, corr, c0, nhi, S, P_pad, P, L, taps, out, st);
+                                          const float* taps, int store, int warps, int smem,
+                                          int grid, void* out, void* stream) {
+  if (P_pad < P || P_pad % kWindowChunk || L < 1) return (int)cudaErrorInvalidValue;
+  return stencil::launch(WindowedSource{far, corr, c0, P_pad, L}, nhi, taps, S, P, store,
+                         warps, smem, grid, out, (cudaStream_t)stream);
 }

@@ -35,6 +35,19 @@
 // 32 and 64 (the launch bounds' limits), 20 and 28 bytes of spills.  The
 // chain is latency-bound: more warps an SM beat fewer registers
 // (ops/chain_geometry_sweep.py; PERF.md, PR 7).
+//
+// The wide chain, for k beyond the warp chain's row bounds (k > 64): a
+// block of 128 threads per sample, the triangle in shared memory (or, past
+// the block's shared bytes, in a global workspace of the block's own),
+// right-looking with one barrier a step.  Step j: every thread reads the
+// pivot d_j = the diagonal (I added when the triangle is staged, before
+// any update, as the twin adds it) and u_j, and takes inv = rsqrt(d_j) and
+// t_j = u_j inv; thread 0 sums log d_j and t_j^2 j = 0..k-1; column j is
+// scaled on the fly (l_aj = entry (a, j) inv, rounded as the stored
+// product would be), u_a -= t_j l_aj, and the trailing entries (a, c), a >=
+// c > j, -= l_aj l_cj, a warp a column and a lane a row (consecutive
+// floats).  Column j is read and never written in step j, so the
+// barrier at the step's end is the only one.  Geometry: wide_chain_geometry.
 
 #include <cuda_runtime.h>
 
@@ -122,7 +135,85 @@ int launch(const float* B, const float* u, const float* misc, int S, int k, int 
   return (int)cudaGetLastError();
 }
 
+constexpr int kWideThreads = 128;
+
+// kGlobal: the triangle and u live in work (the block's kp + k floats)
+// instead of shared memory
+template <bool kGlobal>
+__global__ void __launch_bounds__(kWideThreads) logmvn_chain_wide_kernel(
+    const float* __restrict__ B, const float* __restrict__ u,
+    const float* __restrict__ misc, int S, int k, float* __restrict__ work,
+    float* __restrict__ ll) {
+  extern __shared__ float4 smem4[];
+  const int kp = k * (k + 1) / 2;
+  float* T = reinterpret_cast<float*>(smem4);
+  if constexpr (kGlobal) T = work + (size_t)blockIdx.x * (kp + k);
+  float* const uu = T + kp;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  constexpr int kWarps = kWideThreads / 32;
+
+  for (int s = blockIdx.x; s < S; s += gridDim.x) {
+    const float* src = B + (size_t)s * kp;
+    for (int e = tid; e < kp; e += kWideThreads) T[e] = __ldg(src + e);
+    for (int a = tid; a < k; a += kWideThreads) uu[a] = __ldg(u + (size_t)s * k + a);
+    __syncthreads();
+    for (int c = tid; c < k; c += kWideThreads) T[c * k - c * (c - 1) / 2] += 1.0f;  // + I
+    __syncthreads();
+    float quad = 0.0f, logdet = 0.0f;  // thread 0's
+    for (int j = 0; j < k; ++j) {
+      const float* cj = T + j * k - j * (j - 1) / 2 - j;  // entry (a, j) at cj[a]
+      const float d = cj[j];
+      const float inv = rsqrtf(d);
+      const float t = uu[j] * inv;
+      if (tid == 0) {
+        logdet += logf(d);
+        quad += t * t;
+      }
+      for (int a = j + 1 + tid; a < k; a += kWideThreads) uu[a] -= t * (cj[a] * inv);
+      for (int c = j + 1 + warp; c < k; c += kWarps) {
+        const float lc = cj[c] * inv;
+        float* col = T + c * k - c * (c - 1) / 2 - c;
+        for (int a = c + lane; a < k; a += 32) col[a] -= (cj[a] * inv) * lc;
+      }
+      __syncthreads();
+    }
+    if (tid == 0)
+      ll[s] = -0.5f * (__ldg(misc + 2 * (size_t)s) - quad + __ldg(misc + 2 * (size_t)s + 1) +
+                       logdet);
+  }
+}
+
 }  // namespace
+
+// The wide chain's launch (wide_chain_geometry): 128 threads, the grid, and
+// either shared bytes for the triangle and u (work null) or a workspace of
+// grid x (k(k+1)/2 + k) floats (no shared bytes).  Refused: any other
+// block, an empty grid, shared bytes short of the triangle and u, both or
+// neither of the two homes.
+extern "C" int logmvn_chain_wide_launch(const float* B, const float* u, const float* misc,
+                                        int S, int k, int threads, int smem, int grid,
+                                        float* work, float* ll, void* stream) {
+  const long long need = 4LL * (k * (long long)(k + 1) / 2 + k);
+  if (S < 1 || k < 1 || threads != kWideThreads || grid < 1 || smem < 0 ||
+      smem > 227 * 1024 || (work == nullptr) == (smem == 0) ||
+      (work == nullptr && smem < need))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (work != nullptr) {
+    logmvn_chain_wide_kernel<true><<<grid, kWideThreads, 0, st>>>(B, u, misc, S, k, work, ll);
+    return (int)cudaGetLastError();
+  }
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(logmvn_chain_wide_kernel<false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  logmvn_chain_wide_kernel<false><<<grid, kWideThreads, smem, st>>>(B, u, misc, S, k, nullptr,
+                                                                   ll);
+  return (int)cudaGetLastError();
+}
 
 // The geometry (row bound, warps a block, shared bytes, grid) comes from
 // chain_geometry.  Refused: a row bound that is not compiled or is below k,

@@ -69,10 +69,15 @@ def civ_null_log_evidence(model: SpectrumModel) -> torch.Tensor:
 
 
 def civ_qmc_log_evidence(
-    model: SpectrumModel, samples: CIVSamples, params: CIVParameters
+    model: SpectrumModel, samples: CIVSamples, params: CIVParameters,
+    use_kernels: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """log p(D | 1 CIV) by QMC over (z, logN, sigma), on the model's device
     and dtype; the samples may be numpy arrays or tensors there.
+
+    :param use_kernels: the float32 likelihood's route (None: K2 and K3;
+        False: the plain composition, on the CPU only; see
+        ``ops.logmvn.batched_log_mvnpdf``).
 
     :return: (evidence, (S,) per-sample log-likelihoods with the 1/S Occam
         factor).
@@ -89,7 +94,7 @@ def civ_qmc_log_evidence(
     )
     lls = batched_log_mvnpdf(
         model.y, model.mu, model.M, torch.zeros_like(model.v), model.v, model.mask,
-        absorption, likelihood_pair_basis(model.M),
+        absorption, likelihood_pair_basis(model.M), use_kernels=use_kernels,
     ) - math.log(S)
     max_ll = torch.max(lls)
     evidence = max_ll + torch.log(torch.mean(torch.exp(lls - max_ll)))
@@ -119,12 +124,15 @@ def civ_spectrum_model(
 
 
 def civ_log_evidences(
-    learned: LearnedModel, spec: Spectrum, samples: CIVSamples, params: CIVParameters
+    learned: LearnedModel, spec: Spectrum, samples: CIVSamples, params: CIVParameters,
+    use_kernels: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(null, CIV) log evidences of one spectrum, on the learned model's
-    device and dtype (the reference's ``_civ_step``)."""
+    device and dtype (the reference's ``_civ_step``; ``use_kernels`` as
+    for :func:`civ_qmc_log_evidence`)."""
     model = civ_spectrum_model(learned, spec, params)
-    return civ_null_log_evidence(model), civ_qmc_log_evidence(model, samples, params)[0]
+    return (civ_null_log_evidence(model),
+            civ_qmc_log_evidence(model, samples, params, use_kernels)[0])
 
 
 def civ_inference_many(
@@ -134,6 +142,7 @@ def civ_inference_many(
     params: CIVParameters,
     p_civ_prior: float = 0.5,
     batch_size: int = 16,
+    use_kernels: bool | None = None,
 ) -> list[tuple[float, float, float]]:
     """CIV detection over many spectra.  Each batch of ``batch_size``
     spectra is stacked, moved to the device and modelled in one pass; the
@@ -141,6 +150,7 @@ def civ_inference_many(
     read back once.
 
     :param specs: any iterable of preprocessed spectra.
+    :param use_kernels: as for :func:`civ_qmc_log_evidence`.
     :return: per spectrum (p_civ, log_evidence_null, log_evidence_civ).
     """
     device, dtype = learned.mu.device, learned.mu.dtype
@@ -151,7 +161,8 @@ def civ_inference_many(
         models = civ_spectrum_model(learned, stack(batch), params)
         null = civ_null_log_evidence(models)
         civ = torch.stack([
-            civ_qmc_log_evidence(SpectrumModel(*[f[i] for f in models]), sample_t, params)[0]
+            civ_qmc_log_evidence(SpectrumModel(*[f[i] for f in models]), sample_t, params,
+                                 use_kernels)[0]
             for i in range(len(batch))
         ])
         null_np, civ_np = torch.stack([null, civ]).detach().cpu().numpy()

@@ -55,6 +55,7 @@ def single_absorber_profiles(
     voigt_impl: str = "windowed",
     profile: str = "dla",
     out_dtype: torch.dtype | None = None,
+    window_tier: bool = True,
 ) -> tuple[torch.Tensor, ...]:
     """(S, N) broadened absorption of one absorber per sample for every
     column-density family sharing the redshift samples.
@@ -80,6 +81,11 @@ def single_absorber_profiles(
         dtype; ``torch.int16`` stores fixed-point codes, encoded at the
         store of K1, K5 or K6 on float32 and after the exact profiles on
         float64 (:func:`profile_store`).
+    :param window_tier: the two-tier window of ``"windowed_unfused"``'s
+        parts (the reference's ``GPY_DLA_WINDOW_TIER``, on by default);
+        False evaluates the Weideman rational and the full continued
+        fraction over the whole window, in both profiles.  The reference
+        reads the flag nowhere else, so the other configurations ignore it.
     """
     if voigt_impl not in VOIGT_IMPLS:
         raise ValueError(f"voigt_impl must be one of {VOIGT_IMPLS}, got {voigt_impl!r}")
@@ -91,7 +97,7 @@ def single_absorber_profiles(
         return absorption_all(wavelengths, z_samples, nhis, num_lines, lls_break=lls,
                               poly=voigt_impl == "windowed", out_dtype=store)
     if wavelengths.dtype == torch.float32 and voigt_impl == "windowed_unfused":
-        parts = windowed_tau_parts(wavelengths, z_samples, num_lines)
+        parts = windowed_tau_parts(wavelengths, z_samples, num_lines, window_tier)
         if not lls:
             return tuple(absorption_windowed(parts, nhi, store) for nhi in nhis)
         unit = place_windows(parts) + lyman_limit_unit_tau(wavelengths, z_samples)
@@ -154,6 +160,8 @@ def qmc_log_evidences(
     voigt_impl: str = "windowed",
     profile: str = "dla",
     abs_dtype: torch.dtype | None = None,
+    window_tier: bool = True,
+    use_kernels: bool | None = None,
 ) -> QMCEvidenceResult:
     """Marginalize the k-absorber models over the QMC sample set.
 
@@ -177,6 +185,13 @@ def qmc_log_evidences(
         card, float64 on the CPU conformance path); ``torch.int16`` stores
         fixed-point codes in every ``voigt_impl`` and profile (the
         reference's ``GPY_DLA_ABS_DTYPE=i16`` or ``i16p``).
+    :param window_tier: the reference's ``GPY_DLA_WINDOW_TIER`` for
+        ``voigt_impl="windowed_unfused"`` (see
+        :func:`single_absorber_profiles`); ignored by the others.
+    :param use_kernels: the float32 likelihood's route (the reference's
+        ``use_pallas``; see ``ops.logmvn.batched_log_mvnpdf``): None takes
+        K2 and K3 at any GP basis width; False the plain composition, on
+        the CPU only.
     """
     S = offset_samples.shape[0]
     dtype, device = model.y.dtype, model.y.device
@@ -187,7 +202,7 @@ def qmc_log_evidences(
     if A_override is None:
         (A,) = single_absorber_profiles(
             model.padded_wavelengths, z_samples, (nhi_samples,), params.num_lines,
-            voigt_impl, profile, out_dtype=abs_dtype,
+            voigt_impl, profile, out_dtype=abs_dtype, window_tier=window_tier,
         )
     else:
         A = A_override
@@ -220,7 +235,7 @@ def qmc_log_evidences(
         ll = (
             batched_log_mvnpdf(
                 model.y, model.mu, model.M, model.omega2, model.v, model.mask,
-                A, M_pair, extra=extra,
+                A, M_pair, extra=extra, use_kernels=use_kernels,
             )
             - log_S
         )

@@ -138,6 +138,8 @@ def lls_log_evidences(
     base_inds_override=None,
     voigt_impl: str = "windowed",
     abs_dtype: torch.dtype | None = None,
+    window_tier: bool = True,
+    use_kernels: bool | None = None,
 ) -> tuple[torch.Tensor, QMCEvidenceResult]:
     """(null evidence, QMC result for 1..max_lya absorbers) for one
     spectrum with the LLS-break profile, on the learned model's device and
@@ -152,6 +154,10 @@ def lls_log_evidences(
         ``models.evidence.single_absorber_profiles``).
     :param abs_dtype: storage of the profiles, None (the model's dtype) or
         ``torch.int16`` (see ``models.evidence.qmc_log_evidences``).
+    :param window_tier: the reference's ``GPY_DLA_WINDOW_TIER`` for
+        ``"windowed_unfused"``; ignored by the other configurations.
+    :param use_kernels: the float32 likelihood's route (see
+        ``ops.logmvn.batched_log_mvnpdf``).
     """
     device, dtype = learned.mu.device, learned.mu.dtype
     model = build_spectrum_model(learned, to_torch(spec, device, dtype), params)
@@ -162,7 +168,7 @@ def lls_log_evidences(
     result = qmc_log_evidences(
         model, *sample_tensors(samples, device, dtype), generator, max_lya, params,
         base_inds_override=base_inds_override, voigt_impl=voigt_impl, profile="lls",
-        abs_dtype=abs_dtype,
+        abs_dtype=abs_dtype, window_tier=window_tier, use_kernels=use_kernels,
     )
     return null_log_evidence(model), result
 
@@ -257,6 +263,8 @@ def lls_inference_many(
     voigt_impl: str = "windowed",
     base_inds_override=None,
     abs_dtype: torch.dtype | None = None,
+    window_tier: bool = True,
+    use_kernels: bool | None = None,
 ) -> list[tuple[float, QMCEvidenceResult]]:
     """The LLS search over many spectra.  Each batch of ``batch_size``
     spectra is stacked, moved to the device and modelled in one pass; the
@@ -269,7 +277,7 @@ def lls_inference_many(
     :param voigt_impl: as for :func:`lls_log_evidences`.
     :param base_inds_override: optional (n_spectra, max_lya - 1, S)
         resampling indices replacing the draws, in the order of ``specs``.
-    :param abs_dtype: storage of the profiles, as for
+    :param abs_dtype, window_tier, use_kernels: as for
         :func:`lls_log_evidences`.
     :return: per spectrum (null evidence, QMC result as numpy arrays).
     """
@@ -289,7 +297,7 @@ def lls_inference_many(
             qmc_log_evidences(
                 SpectrumModel(*[f[i] for f in models]), *sample_t, generator,
                 max_lya, params, voigt_impl=voigt_impl, profile="lls",
-                abs_dtype=abs_dtype,
+                abs_dtype=abs_dtype, window_tier=window_tier, use_kernels=use_kernels,
                 base_inds_override=(
                     None if base_inds_override is None else base_inds_override[first + i]
                 ),

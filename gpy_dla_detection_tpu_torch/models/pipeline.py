@@ -63,6 +63,8 @@ def compute_evidences(
     base_inds_override: torch.Tensor | None = None,
     voigt_impl: str = "windowed",
     abs_dtype: torch.dtype | None = None,
+    window_tier: bool = True,
+    use_kernels: bool | None = None,
 ) -> EvidenceOutputs:
     """All model evidences for one tensor spectrum.
 
@@ -74,6 +76,11 @@ def compute_evidences(
     :param abs_dtype: storage of the absorption profiles, None (the
         model's dtype) or ``torch.int16`` (see
         ``models.evidence.qmc_log_evidences``).
+    :param window_tier: the reference's ``GPY_DLA_WINDOW_TIER`` for
+        ``"windowed_unfused"``; ignored by the other configurations.
+    :param use_kernels: the float32 likelihood's route (None: K2 and K3;
+        False: the plain composition, on the CPU only; see
+        ``ops.logmvn.batched_log_mvnpdf``).
     """
     model = build_spectrum_model(learned, spec, params)
     return EvidenceOutputs(
@@ -81,11 +88,11 @@ def compute_evidences(
         dla=qmc_log_evidences(
             model, *dla, generator, max_dlas, params,
             base_inds_override=base_inds_override, voigt_impl=voigt_impl,
-            abs_dtype=abs_dtype,
+            abs_dtype=abs_dtype, window_tier=window_tier, use_kernels=use_kernels,
         ),
         subdla=qmc_log_evidences(
             model, *sub, generator, 1, params, voigt_impl=voigt_impl,
-            abs_dtype=abs_dtype,
+            abs_dtype=abs_dtype, window_tier=window_tier, use_kernels=use_kernels,
         ),
     )
 
@@ -158,10 +165,12 @@ def process_spectrum(
     base_inds_override: np.ndarray | None = None,
     voigt_impl: str = "windowed",
     abs_dtype: torch.dtype | None = None,
+    window_tier: bool = True,
+    use_kernels: bool | None = None,
 ) -> SpectrumResult:
     """Full Bayesian model selection for one preprocessed spectrum, on the
-    learned model's device and dtype (``voigt_impl`` and ``abs_dtype`` as
-    in :func:`compute_evidences`)."""
+    learned model's device and dtype (``voigt_impl``, ``abs_dtype``,
+    ``window_tier`` and ``use_kernels`` as in :func:`compute_evidences`)."""
     device, dtype = learned.mu.device, learned.mu.dtype
     out = compute_evidences(
         learned,
@@ -178,6 +187,8 @@ def process_spectrum(
         ),
         voigt_impl=voigt_impl,
         abs_dtype=abs_dtype,
+        window_tier=window_tier,
+        use_kernels=use_kernels,
     )
     host = lambda t: t.detach().cpu().numpy()
     return spectrum_result(

@@ -67,18 +67,25 @@ _SIGNATURES = {"kernels": {
                               _I, _I, _I, _P, _P],
     # the line table: host floats, their count, stream
     "absorption_all_upload": [_P, _I, _P],
-    # unit_tau, nhi, S, P, taps, store, out, stream
-    "absorption_tail_launch": [_P, _P, _I, _I, _P, _I, _P, _P],
-    # far, corr, c0, nhi, S, P_pad, P, L, taps, store, out, stream
-    "absorption_windowed_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P],
+    # unit_tau, nhi, S, P, taps, store, then the geometry (warps a block,
+    # shared bytes, grid), out, stream
+    "absorption_tail_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P],
+    # far, corr, c0, nhi, S, P_pad, P, L, taps, store, then the geometry,
+    # out, stream
+    "absorption_windowed_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I,
+                                   _P, _P],
     # rows, N, M, k, Mp, kp, A, e0, e1, e2, n_extra, store (of A and the
     # streams: 0 float32, 1 int16), S, then the geometry (samples a block,
-    # pixels a chunk, threads, shared bytes, grid), B, u, misc, stream
+    # pixels a chunk, padded columns a slice, slices, threads, shared bytes,
+    # grid), B, u, misc, stream
     "logmvn_cap_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _P, _P, _P, _P],
+                          _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # B, u, misc, S, k, then the geometry (row bound, warps a block, shared
     # bytes, grid), ll, stream
     "logmvn_chain_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # B, u, misc, S, k, then the geometry (threads, shared bytes, grid),
+    # the workspace (or null), ll, stream
+    "logmvn_chain_wide_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }, "ablate": {
     # stage, rows, N, M, k, Mp, A, S, then K2's geometry (samples a block,
     # pixels a chunk, threads, shared bytes, grid), ll, stream
@@ -161,8 +168,8 @@ def _nvcc() -> str:
 
 
 def headers() -> tuple[str, ...]:
-    """The headers beside the sources (K2's block, K3's warp chain), which
-    every library's name hashes with its sources."""
+    """The headers beside the sources (K2's block, K3's warp chain, K5's and
+    K6's tail), which every library's name hashes with its sources."""
     return tuple(sorted(p.name for p in CSRC.glob("*.cuh")))
 
 

@@ -8,10 +8,13 @@ in O(n k^2) through the rank-k capacitance matrix ``I + M^T D^-1 M``,
 masked (invalid pixels enter with ``1/d = 0``) and batched over the
 absorption profiles of the QMC samples.
 
-``batched_log_mvnpdf`` picks the implementation from its inputs: float32
-runs the two-stage kernels K2 and K3 (``ops/logmvn_kernels.py``; on the
-CPU their plain twins), float64 runs the plain composition below, which
-is the conformance path and exists on the CPU only.
+``batched_log_mvnpdf`` picks the implementation from its inputs and
+``use_kernels`` (the reference's ``use_pallas``): float32 runs the
+two-stage kernels K2 and K3 (``ops/logmvn_kernels.py``; on the CPU their
+plain twins) at any GP basis width, and, on CPU tensors with
+``use_kernels=False``, the plain composition below (the reference's XLA
+path); float64 runs the plain composition, the conformance path, on the
+CPU only.
 """
 
 from __future__ import annotations
@@ -163,6 +166,7 @@ def _batched_log_mvnpdf_plain(y, mu, M, omega2, v, mask, absorption, M_pair, ext
 def batched_log_mvnpdf(
     y, mu, M, omega2, v, mask, absorption, M_pair=None,
     extra: Sequence[torch.Tensor] = (),
+    use_kernels: bool | None = None,
 ):
     """log N(y; mu a_s, (M a_s)(M a_s)^T + diag(omega2 a_s^2 + v)) for a
     batch of absorption profiles ``a_s = absorption[s] * prod(extra)[s]``.
@@ -176,12 +180,18 @@ def batched_log_mvnpdf(
     :param extra: chained-absorber profile rows, each (S, N) and stored as
         ``absorption`` is, multiplied into the absorption (inside K2 on the
         float32 path, which also decodes them).
+    :param use_kernels: float32 route: None or True takes K2 then K3 (the
+        CUDA kernels at any k, or on the CPU their twins); False the plain
+        composition, on CPU tensors only (on the card the likelihood runs
+        the kernels, and False raises ``ValueError``).  Each float32
+        composition adds one to ``launch_counts["logmvn_composition"]``.
+        float64 is always the composition, and refuses True.
     :return: (S,) log densities.
     """
     if M_pair is None:
         M_pair = likelihood_pair_basis(M)
     if y.dtype == torch.float64:
-        if y.device.type != "cpu":
+        if y.device.type != "cpu" or use_kernels:
             raise TypeError(
                 "the float64 likelihood is the CPU conformance path; the "
                 "CUDA kernels take float32"
@@ -189,8 +199,24 @@ def batched_log_mvnpdf(
         return _batched_log_mvnpdf_plain(
             y, mu, M, omega2, v, mask, absorption, M_pair, extra
         )
+    from ._build import launch_counts
     from .logmvn_kernels import logmvn_cap, logmvn_chain
 
+    if use_kernels is False:
+        if y.device.type != "cpu":
+            raise ValueError(
+                "the plain composition is the CPU path; on the card the "
+                "likelihood runs K2 and K3"
+            )
+        k = M.shape[-1]
+        if k > 1 and M_pair.shape[-1] == k * (k + 1) // 2:
+            # a packed basis reached the composition: rebuild the flat
+            # layout, as the reference does
+            M_pair = pair_basis(M)
+        launch_counts["logmvn_composition"] += 1
+        return _batched_log_mvnpdf_plain(
+            y, mu, M, omega2, v, mask, absorption, M_pair, extra
+        )
     rows = torch.stack([y, mu, omega2, v, mask.to(y.dtype)])
     B, u, misc = logmvn_cap(rows, M, M_pair, absorption, extra)
     return logmvn_chain(B, u, misc)

@@ -5,7 +5,11 @@ model per sample and forms the packed capacitance products; stage B (K3,
 ``logmvn_chain``, ``csrc/logmvn_chain.cu``) runs the k x k Cholesky with
 the forward substitution and emits the per-sample log-likelihood.  Each
 wrapper launches its kernel on float32 CUDA tensors and runs its plain
-twin (``*_reference``) on float32 CPU tensors.  K2 also takes the
+twin (``*_reference``) on float32 CPU tensors.  Both take a GP basis of
+any width: K2 cuts a basis wider than one block holds into column slices
+(:func:`k2_geometry`), and K3 runs the k > 64 its warp chain's row bounds
+end at on its wide chain (counted as ``logmvn_chain_wide``;
+:func:`k3_geometry`).  K2 also takes the
 profiles as int16 codes (``ops/kernel_config.py``), which an
 instantiation of its own decodes as it assembles (counted as
 ``logmvn_cap_i16``); its twin decodes with
@@ -52,7 +56,9 @@ H100_SMS = 132
 class CapGeometry(NamedTuple):
     """K2's launch: ``samples`` a block, ``pixels`` a chunk, ``threads``
     a block (whole warps), ``columns`` (both products, padded to whole
-    warps), ``shared_bytes`` a block and ``grid`` blocks."""
+    warps), ``shared_bytes`` a block and ``grid`` blocks of samples; each
+    takes ``slice_columns`` of the padded columns, one of ``slices``
+    column slices (the grid's y)."""
 
     samples: int
     pixels: int
@@ -60,6 +66,8 @@ class CapGeometry(NamedTuple):
     columns: int
     shared_bytes: int
     grid: int
+    slice_columns: int
+    slices: int
 
 
 def _cap_shared_bytes(ts: int, tn: int, ncp: int, n_extra: int, elem: int = 4) -> int:
@@ -69,28 +77,48 @@ def _cap_shared_bytes(ts: int, tn: int, ncp: int, n_extra: int, elem: int = 4) -
     return elem * 2 * (1 + n_extra) * ts * (tn + 8) + 4 * (2 * tn * ncp + 4 * tn * (ts + 4))
 
 
+def _cap_fits(ts: int, tn: int, k: int, kp: int, n_extra: int, elem: int) -> bool:
+    """Whether K2's block of ``ts`` samples and ``tn``-pixel chunks holds a
+    GP basis of k columns and a pair basis of kp: its threads and its
+    shared memory."""
+    groups = -(-kp // CAP_TILE) + -(-k // CAP_TILE)
+    ncp = CAP_WARP_COLUMNS * -(-groups * CAP_TILE // CAP_WARP_COLUMNS)
+    return (32 * (ncp // CAP_WARP_COLUMNS) * ts // CAP_WARP_SAMPLES <= CAP_MAX_THREADS
+            and _cap_shared_bytes(ts, tn, ncp, n_extra, elem) <= MAX_DYNAMIC_SHARED_BYTES)
+
+
+def _cap_chunk(N: int, k: int, kp: int, n_extra: int = 0, elem: int = 4) -> int | None:
+    """K2's pixel chunk: 32 wide, 16 where N <= 16 or 32 does not fit in
+    shared memory; None where the block cannot hold the basis at all."""
+    return next((tn for tn in ((16,) if N <= 16 else (32, 16))
+                 if _cap_fits(CAP_WARP_SAMPLES, tn, k, kp, n_extra, elem)), None)
+
+
+def _padded_columns(k: int, kp: int) -> int:
+    groups = -(-kp // CAP_TILE) + -(-k // CAP_TILE)
+    return CAP_WARP_COLUMNS * -(-groups * CAP_TILE // CAP_WARP_COLUMNS)
+
+
 def cap_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
                  sms: int = H100_SMS, elem: int = 4) -> CapGeometry:
     """K2's launch geometry for S samples, N pixels, a GP basis of k
     columns, a pair basis of kp and sample streams of ``elem`` bytes an
-    element (4 float32, 2 int16 codes): the fewest waves over ``sms``
-    blocks at once, each wave as even as the block allows.  Pixel chunks
-    are 32 wide, 16 where N <= 16 or 32 does not fit in shared memory."""
-    groups = -(-kp // CAP_TILE) + -(-k // CAP_TILE)
-    ncp = CAP_WARP_COLUMNS * -(-groups * CAP_TILE // CAP_WARP_COLUMNS)
+    element (4 float32, 2 int16 codes), where one block holds every
+    column: the fewest waves over ``sms`` blocks at once, each wave as
+    even as the block allows.  Pixel chunks are 32 wide, 16 where N <= 16
+    or 32 does not fit in shared memory.  Raises ``ValueError`` where the
+    block cannot hold the bases (:func:`sliced_cap_geometry` can)."""
+    ncp = _padded_columns(k, kp)
     warps_across = ncp // CAP_WARP_COLUMNS
 
     def threads_of(ts):
         return 32 * warps_across * ts // CAP_WARP_SAMPLES
 
     def fits(ts, tn):
-        return (threads_of(ts) <= CAP_MAX_THREADS
-                and _cap_shared_bytes(ts, tn, ncp, n_extra, elem) <= MAX_DYNAMIC_SHARED_BYTES)
+        return _cap_fits(ts, tn, k, kp, n_extra, elem)
 
-    for tn in ((16,) if N <= 16 else (32, 16)):
-        if fits(CAP_WARP_SAMPLES, tn):
-            break
-    else:
+    tn = _cap_chunk(N, k, kp, n_extra, elem)
+    if tn is None:
         raise ValueError(f"K2's block cannot hold k={k}, basis width {kp}")
     waves = 1
     while True:
@@ -102,7 +130,50 @@ def cap_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
     return CapGeometry(
         samples=ts, pixels=tn, threads=threads_of(ts), columns=ncp,
         shared_bytes=_cap_shared_bytes(ts, tn, ncp, n_extra, elem), grid=-(-S // ts),
+        slice_columns=ncp, slices=1,
     )
+
+
+def sliced_cap_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
+                        elem: int = 4) -> CapGeometry:
+    """K2's launch geometry for bases one block cannot hold: the padded
+    columns cut into the fewest even slices of at most 12 warps across
+    (the thread bound at one warp of sample groups), each slice's block
+    the most samples (whole warps of sample groups, no more than S needs)
+    whose threads and shared bytes fit, in 16-pixel chunks (the sliced
+    instantiation's: a slice of 7 to 12 warps across holds no 32-pixel
+    basis chunk)."""
+    if S < 1 or N < 1 or k < 1:
+        raise ValueError(f"empty problem: S={S}, N={N}, k={k}")
+    ncp = _padded_columns(k, kp)
+    warps = ncp // CAP_WARP_COLUMNS
+    across = CAP_MAX_THREADS // 32
+    slices = -(-warps // across)
+    ncb = CAP_WARP_COLUMNS * -(-warps // slices)
+
+    def fits(ts, tn):
+        return (32 * (ncb // CAP_WARP_COLUMNS) * ts // CAP_WARP_SAMPLES <= CAP_MAX_THREADS
+                and _cap_shared_bytes(ts, tn, ncb, n_extra, elem) <= MAX_DYNAMIC_SHARED_BYTES)
+
+    tn = 16
+    ts = CAP_WARP_SAMPLES
+    while ts < S and fits(ts + CAP_WARP_SAMPLES, tn):
+        ts += CAP_WARP_SAMPLES
+    return CapGeometry(
+        samples=ts, pixels=tn, threads=32 * (ncb // CAP_WARP_COLUMNS) * ts // CAP_WARP_SAMPLES,
+        columns=ncp, shared_bytes=_cap_shared_bytes(ts, tn, ncb, n_extra, elem),
+        grid=-(-S // ts), slice_columns=ncb, slices=-(-ncp // ncb),
+    )
+
+
+def k2_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
+                sms: int = H100_SMS, elem: int = 4) -> CapGeometry:
+    """The geometry K2's wrapper launches: :func:`cap_geometry` where one
+    block holds the bases (k <= 53 packed at N = 1,280), else
+    :func:`sliced_cap_geometry`."""
+    if _cap_chunk(N, k, kp, n_extra, elem) is not None:
+        return cap_geometry(S, N, k, kp, n_extra, sms, elem)
+    return sliced_cap_geometry(S, N, k, kp, n_extra, elem)
 
 
 # K3's block (csrc/logmvn_chain.cu, K3_GEOMETRY): a warp per sample; per
@@ -207,6 +278,52 @@ def flat_chain_geometry(S: int, k: int, sms: int = H100_SMS) -> FlatChainGeometr
     shared = 16 * -(-(4 * (kp + chunk * flat_chain_stride(k) + rows)) // 16)
     return FlatChainGeometry(rows=rows, warps=warps, blocks_per_sm=per_sm, chunk=chunk,
                              shared_bytes=shared, grid=grid)
+
+
+# K3's wide chain (csrc/logmvn_chain.cu): a block of 128 threads a
+# sample, for k beyond the warp chain's row bounds; at most 16 blocks an SM
+WIDE_CHAIN_THREADS = 128
+WIDE_CHAIN_BLOCKS_PER_SM = 16
+
+
+class WideChainGeometry(NamedTuple):
+    """The wide chain's launch: ``threads`` a block, ``shared_bytes`` a
+    block (0 where the triangle lives in the workspace), ``workspace``
+    floats a block in global memory (0 where it lives in shared memory)
+    and ``grid`` blocks; block b takes the samples b, b + grid, ..."""
+
+    threads: int
+    shared_bytes: int
+    workspace: int
+    grid: int
+
+
+def wide_chain_geometry(S: int, k: int, sms: int = H100_SMS) -> WideChainGeometry:
+    """The wide chain's launch geometry for S samples of a k x k
+    capacitance (k > CHAIN_MAX_K) on ``sms`` SMs: the triangle and u in
+    shared memory where they fit a block, else in a global workspace; as
+    many blocks an SM as the shared bytes allow (at most 16), and no more
+    blocks than samples."""
+    if k <= CHAIN_MAX_K:
+        raise ValueError(f"the wide chain takes k > {CHAIN_MAX_K}, got k={k}")
+    if S < 1:
+        raise ValueError(f"K3 needs S >= 1, got S={S}")
+    floats = k * (k + 1) // 2 + k
+    shared = 16 * -(-4 * floats // 16)
+    if shared <= MAX_DYNAMIC_SHARED_BYTES:
+        per_sm = min(WIDE_CHAIN_BLOCKS_PER_SM, SM_SHARED_BYTES // (shared + 1024))
+        return WideChainGeometry(WIDE_CHAIN_THREADS, shared, 0, min(S, sms * per_sm))
+    return WideChainGeometry(WIDE_CHAIN_THREADS, 0, floats,
+                             min(S, sms * WIDE_CHAIN_BLOCKS_PER_SM))
+
+
+def k3_geometry(S: int, k: int, sms: int = H100_SMS) -> ChainGeometry | WideChainGeometry:
+    """The geometry K3's wrapper launches: the warp chain's
+    (:func:`chain_geometry`) for k <= CHAIN_MAX_K, else the wide chain's
+    (:func:`wide_chain_geometry`)."""
+    if k > CHAIN_MAX_K:
+        return wide_chain_geometry(S, k, sms)
+    return chain_geometry(S, k, sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -331,9 +448,10 @@ def logmvn_cap(
 ):
     """Stage A of the Woodbury likelihood: K2 on CUDA, its twin on the
     CPU (float32 ``rows``).  Same contract as :func:`logmvn_cap_reference`:
-    the kernel takes a basis of any width, the packed one on the catalog
-    paths and the flat k^2 one in the ablation's decoupled split, and the
-    profiles as float32 or, all alike, as int16 codes (launched as
+    the kernel takes a basis of any width (in column slices where one
+    block cannot hold it, :func:`k2_geometry`), the packed one on the
+    catalog paths and the flat k^2 one in the ablation's decoupled split,
+    and the profiles as float32 or, all alike, as int16 codes (launched as
     ``logmvn_cap_i16``)."""
     extra = tuple(extra)
     store = check_store_dtype(absorption.dtype)
@@ -376,7 +494,7 @@ def logmvn_cap(
     if S == 0 or N == 0 or k == 0:
         raise ValueError(f"empty problem: S={S}, N={N}, k={k}")
     i16 = store == torch.int16
-    g = cap_geometry(S, N, k, kp, len(extra), _sm_count(device), elem=2 if i16 else 4)
+    g = k2_geometry(S, N, k, kp, len(extra), _sm_count(device), elem=2 if i16 else 4)
     B = torch.empty((S, kp), dtype=torch.float32, device=device)
     u = torch.empty((S, k), dtype=torch.float32, device=device)
     misc = torch.empty((S, 2), dtype=torch.float32, device=device)
@@ -386,7 +504,7 @@ def logmvn_cap(
         err = lib.logmvn_cap_launch(
             ptr(rows), N, ptr(M), k, ptr(M_pair), kp, ptr(absorption),
             ptr(e[0]), ptr(e[1]), ptr(e[2]), len(extra), int(i16), S,
-            g.samples, g.pixels, g.threads, g.shared_bytes, g.grid,
+            g.samples, g.pixels, g.slice_columns, g.slices, g.threads, g.shared_bytes, g.grid,
             ptr(B), ptr(u), ptr(misc), stream_ptr(device),
         )
     name = store_name("logmvn_cap", store)
@@ -397,8 +515,9 @@ def logmvn_cap(
 
 def logmvn_chain(B: torch.Tensor, u: torch.Tensor, misc: torch.Tensor):
     """Stage B of the Woodbury likelihood: K3 on CUDA, its twin on the
-    CPU (float32).  Returns the (S,) per-sample log-likelihoods.  The
-    kernel takes 1 <= k <= ``CHAIN_MAX_K``."""
+    CPU (float32).  Returns the (S,) per-sample log-likelihoods.  The warp
+    chain takes 1 <= k <= ``CHAIN_MAX_K``, the wide chain (counted as
+    ``logmvn_chain_wide``) any wider k."""
     if not use_kernel(B):
         return logmvn_chain_reference(B, u, misc)
     device = B.device
@@ -409,9 +528,19 @@ def logmvn_chain(B: torch.Tensor, u: torch.Tensor, misc: torch.Tensor):
             f"shape mismatch: B {tuple(B.shape)}, u {tuple(u.shape)}, "
             f"misc {tuple(misc.shape)}"
         )
-    g = chain_geometry(S, k, _sm_count(device))
+    g = k3_geometry(S, k, _sm_count(device))
     ll = torch.empty((S,), dtype=torch.float32, device=device)
     lib = load_library()
+    if isinstance(g, WideChainGeometry):
+        work = (torch.empty((g.grid, g.workspace), dtype=torch.float32, device=device)
+                if g.workspace else None)
+        with torch.cuda.device(device):
+            err = lib.logmvn_chain_wide_launch(
+                ptr(B), ptr(u), ptr(misc), S, k, g.threads, g.shared_bytes, g.grid,
+                ptr(work), ptr(ll), stream_ptr(device))
+        check_launch("logmvn_chain_wide", err)
+        launch_counts["logmvn_chain_wide"] += 1
+        return ll
     with torch.cuda.device(device):
         err = lib.logmvn_chain_launch(
             ptr(B), ptr(u), ptr(misc), S, k, g.rows, g.warps, g.shared_bytes, g.grid,

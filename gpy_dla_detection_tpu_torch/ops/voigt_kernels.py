@@ -23,7 +23,8 @@ tensors and runs ``absorption_tail_reference`` on float32 CPU tensors; it
 replaces ``voigt_pallas.py:_abs_tail_kernel``.  ``absorption_windowed``
 launches ``csrc/absorption_windowed.cu`` and runs
 ``absorption_windowed_reference`` likewise; it replaces
-``voigt_pallas.py:_abs_windowed_kernel``.
+``voigt_pallas.py:_abs_windowed_kernel``.  Both kernels are the streaming
+tail of ``csrc/absorption_stencil.cuh``, launched at :func:`tail_geometry`.
 
 Each takes ``out_dtype``: float32 (``None``) or int16, the fixed-point
 codes of compact profile storage (``ops/kernel_config.py``), which each
@@ -47,7 +48,6 @@ import torch
 from .. import constants as C
 
 from ._build import (
-    MAX_DYNAMIC_SHARED_BYTES,
     check_cuda_f32,
     check_launch,
     check_store_dtype,
@@ -103,11 +103,24 @@ _TAB_TAPS, _TAB_WEI = 8, 16  # the 7 instrument taps, the 20 Weideman coefficien
 _LINE_DISK, _LINE_WING = 9, 26  # a line record's 17 disk and 11 wing coefficients
 
 
+# K5's and K6's launch (csrc/absorption_stencil.cuh, K56_GEOMETRY): a lane
+# owns K56_PIXELS consecutive pixels, so a warp steps through a row
+# K56_CHUNK pixels at a time, with K56_DEPTH items' loads in flight;
+# K56_WARPS warps a block, K56_BLOCKS_PER_SM blocks an SM (the launch
+# bound).  A warp keeps a ring of two chunks of exp(-nhi tau) in shared
+# memory.
+K56_PIXELS = 8
+K56_DEPTH = 2
+K56_WARPS = 8
+K56_BLOCKS_PER_SM = 4
+K56_CHUNK = 32 * K56_PIXELS
+
+
 class AbsorptionGeometry(NamedTuple):
-    """K1's launch: ``warps`` a block, ``shared_bytes`` a block (the warps'
-    rings) and ``grid`` blocks.  The rows' nc chunks each form one sequence
-    of C = S nc chunks, row by row; warp w of the grid's T takes chunks
-    ``w * C // T`` up to ``(w + 1) * C // T``."""
+    """K1's, K5's and K6's launch: ``warps`` a block, ``shared_bytes`` a
+    block (the warps' rings) and ``grid`` blocks.  The rows' nc chunks each
+    form one sequence of C = S nc chunks, row by row; warp w of the grid's
+    T takes chunks ``w * C // T`` up to ``(w + 1) * C // T``."""
 
     warps: int
     shared_bytes: int
@@ -132,6 +145,41 @@ def k1_geometry(S: int, P: int, F: int, sms: int = H100_SMS) -> AbsorptionGeomet
     return AbsorptionGeometry(
         warps=K1_WARPS, shared_bytes=4 * F * K1_WARPS * 2 * K1_CHUNK,
         grid=_chain_grid(S * k1_chunks(P), K1_WARPS, K1_BLOCKS_PER_SM, sms),
+    )
+
+
+def tail_chunks(P: int) -> int:
+    """Chunks of K56_CHUNK output pixels a K5 or K6 row of P pixels takes."""
+    return -(-(P - 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH) // K56_CHUNK)
+
+
+def tail_items(k0: int, k1: int, P: int) -> list[tuple[int, int, bool]]:
+    """The items a K5 or K6 warp walks for its run of output chunks [k0, k1)
+    of the rows' sequence, as ``csrc/absorption_stencil.cuh``'s Cursor
+    does: per row piece (s, c0 .. c1 - 1) the full items (s, c) and then
+    the halo item (s, c1, True), the first 6 pixels of chunk c1."""
+    nc = tail_chunks(P)
+    items = []
+    for k in range(k0, k1):
+        s, c = divmod(k, nc)
+        items.append((s, c, False))
+        if k + 1 == k1 or c + 1 == nc:
+            items.append((s, c + 1, True))
+    return items
+
+
+def tail_geometry(S: int, P: int, sms: int = H100_SMS) -> AbsorptionGeometry:
+    """K5's and K6's launch geometry for S rows of P used pixels on ``sms``
+    SMs: K3's grid rule (``_chain_grid``) over the S nc output chunks, so
+    every warp takes an even share of them in one wave."""
+    if S < 1 or P <= 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH:
+        raise ValueError(f"K5 and K6 need S >= 1 and P > 6, got S={S}, P={P}")
+    chunks = S * tail_chunks(P)
+    if chunks >= 2**31:
+        raise ValueError(f"S x chunks a row = {chunks} does not fit the kernels' int index")
+    return AbsorptionGeometry(
+        warps=K56_WARPS, shared_bytes=4 * K56_WARPS * 2 * K56_CHUNK,
+        grid=_chain_grid(chunks, K56_WARPS, K56_BLOCKS_PER_SM, sms),
     )
 
 
@@ -445,7 +493,8 @@ def absorption_tail_reference(unit_tau: torch.Tensor, nhi: torch.Tensor,
 def absorption_tail(unit_tau: torch.Tensor, nhi: torch.Tensor,
                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Broadened absorption from a unit optical depth: K5 on CUDA, its
-    twin on the CPU (float32).  Any row count; one block per row.
+    twin on the CPU (float32).  Any row count and any P (up to the
+    kernel's int index, :func:`tail_geometry`).
 
     :param unit_tau: (S, P) float32, contiguous.
     :param nhi: (S,) float32.
@@ -464,13 +513,7 @@ def absorption_tail(unit_tau: torch.Tensor, nhi: torch.Tensor,
             f"{tuple(unit_tau.shape)}, {tuple(nhi.shape)}"
         )
     S, P = unit_tau.shape
-    if S == 0 or P <= 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH:
-        raise ValueError(f"empty problem: S={S}, P={P}")
-    if P * 4 > MAX_DYNAMIC_SHARED_BYTES:
-        raise ValueError(
-            f"absorption_tail keeps a row of P={P} floats in shared memory; "
-            f"at most {MAX_DYNAMIC_SHARED_BYTES // 4} fit"
-        )
+    g = tail_geometry(S, P, _sm_count(device))
     out = torch.empty(
         (S, P - 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH), dtype=out_dtype, device=device
     )
@@ -478,7 +521,8 @@ def absorption_tail(unit_tau: torch.Tensor, nhi: torch.Tensor,
     with torch.cuda.device(device):
         err = lib.absorption_tail_launch(
             ptr(unit_tau), ptr(nhi), S, P, ptr(_device_taps(device)),
-            int(out_dtype == torch.int16), ptr(out), stream_ptr(device),
+            int(out_dtype == torch.int16), g.warps, g.shared_bytes, g.grid, ptr(out),
+            stream_ptr(device),
         )
     name = store_name("absorption_tail", out_dtype)
     check_launch(name, err)
@@ -502,7 +546,7 @@ def absorption_windowed_reference(parts: WindowedTauParts, nhi: torch.Tensor,
 def absorption_windowed(parts: WindowedTauParts, nhi: torch.Tensor,
                         out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Broadened absorption from the unplaced windowed unit optical depth:
-    K6 on CUDA, its twin on the CPU (float32).  One block per row.
+    K6 on CUDA, its twin on the CPU (float32), at :func:`tail_geometry`.
 
     :param parts: far (S, P_pad) with P_pad a multiple of 128, corr
         (S, L * 256), c0 (S, L) int32 in [0, P_pad / 128 - 2], num_pixels P.
@@ -530,13 +574,9 @@ def absorption_windowed(parts: WindowedTauParts, nhi: torch.Tensor,
             f"{FAST_WINDOW}), c0 (S, L), nhi (S,); got {tuple(far.shape)}, "
             f"{tuple(corr.shape)}, {tuple(c0.shape)}, {tuple(nhi.shape)}"
         )
-    if S == 0 or not 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH < P <= P_pad:
-        raise ValueError(f"empty problem or bad pixel count: S={S}, P={P}, P_pad={P_pad}")
-    if P_pad * 4 > MAX_DYNAMIC_SHARED_BYTES:
-        raise ValueError(
-            f"absorption_windowed keeps a row of P_pad={P_pad} floats in shared "
-            f"memory; at most {MAX_DYNAMIC_SHARED_BYTES // 4} fit"
-        )
+    if P > P_pad or L == 0:
+        raise ValueError(f"bad pixel or line count: P={P}, P_pad={P_pad}, L={L}")
+    g = tail_geometry(S, P, _sm_count(device))
     out = torch.empty(
         (S, P - 2 * C.INSTRUMENT_PROFILE_HALF_WIDTH), dtype=out_dtype, device=device
     )
@@ -544,8 +584,8 @@ def absorption_windowed(parts: WindowedTauParts, nhi: torch.Tensor,
     with torch.cuda.device(device):
         err = lib.absorption_windowed_launch(
             ptr(far), ptr(corr), ptr(c0), ptr(nhi), S, P_pad, P, L,
-            ptr(_device_taps(device)), int(out_dtype == torch.int16), ptr(out),
-            stream_ptr(device),
+            ptr(_device_taps(device)), int(out_dtype == torch.int16), g.warps,
+            g.shared_bytes, g.grid, ptr(out), stream_ptr(device),
         )
     name = store_name("absorption_windowed", out_dtype)
     check_launch(name, err)

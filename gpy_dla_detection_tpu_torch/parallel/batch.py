@@ -63,6 +63,8 @@ def batch_evidences(
     base_inds_override: torch.Tensor | None = None,
     voigt_impl: str = "windowed",
     abs_dtype: torch.dtype | None = None,
+    window_tier: bool = True,
+    use_kernels: bool | None = None,
 ) -> EvidenceOutputs:
     """Evidences for a batch of tensor spectra (leading axis).
 
@@ -77,6 +79,10 @@ def batch_evidences(
     :param abs_dtype: storage of the profiles: None keeps the model's
         dtype, ``torch.int16`` stores fixed-point codes (see
         ``models.evidence.qmc_log_evidences``).
+    :param window_tier: the reference's ``GPY_DLA_WINDOW_TIER`` for
+        ``"windowed_unfused"``; ignored by the other configurations.
+    :param use_kernels: the float32 likelihood's route (see
+        ``ops.logmvn.batched_log_mvnpdf``).
     """
     models = build_spectrum_model(learned, specs, params)
     null = null_log_evidence(models)
@@ -89,7 +95,7 @@ def batch_evidences(
             A_dla, A_sub = single_absorber_profiles(
                 model.padded_wavelengths, z,
                 (dla.nhi_samples, sub.nhi_samples), params.num_lines,
-                voigt_impl, out_dtype=abs_dtype,
+                voigt_impl, out_dtype=abs_dtype, window_tier=window_tier,
             )
         dla_out.append(
             qmc_log_evidences(
@@ -100,12 +106,15 @@ def batch_evidences(
                 A_override=A_dla,
                 voigt_impl=voigt_impl,
                 abs_dtype=abs_dtype,
+                window_tier=window_tier,
+                use_kernels=use_kernels,
             )
         )
         sub_out.append(
             qmc_log_evidences(
                 model, *sub, generator, 1, params, A_override=A_sub,
-                voigt_impl=voigt_impl, abs_dtype=abs_dtype,
+                voigt_impl=voigt_impl, abs_dtype=abs_dtype, window_tier=window_tier,
+                use_kernels=use_kernels,
             )
         )
     return EvidenceOutputs(null, _stack_results(dla_out), _stack_results(sub_out))
@@ -122,6 +131,8 @@ def dispatch_batch(
     base_inds_override: np.ndarray | None = None,
     voigt_impl: str = "windowed",
     abs_dtype: torch.dtype | None = None,
+    window_tier: bool = True,
+    use_kernels: bool | None = None,
 ) -> EvidenceOutputs:
     """Enqueue one batch's evidence computation on the learned model's
     device and dtype, and return the device outputs without waiting.
@@ -132,6 +143,7 @@ def dispatch_batch(
         ``"windowed_weideman"``, ``"exact"`` or ``"windowed_unfused"``.
     :param abs_dtype: profile storage, None (the model's dtype) or
         ``torch.int16``.
+    :param window_tier, use_kernels: as for :func:`batch_evidences`.
     """
     device, dtype = learned.mu.device, learned.mu.dtype
     shared = np.array_equal(
@@ -154,6 +166,8 @@ def dispatch_batch(
         ),
         voigt_impl=voigt_impl,
         abs_dtype=abs_dtype,
+        window_tier=window_tier,
+        use_kernels=use_kernels,
     )
 
 
@@ -197,6 +211,8 @@ def process_batch(
     base_inds_override: np.ndarray | None = None,
     voigt_impl: str = "windowed",
     abs_dtype: torch.dtype | None = None,
+    window_tier: bool = True,
+    use_kernels: bool | None = None,
 ) -> list[SpectrumResult]:
     """Full model selection for a list of spectra: dispatch + finalize.
 
@@ -214,9 +230,15 @@ def process_batch(
         keeps the model's dtype; ``torch.int16`` stores fixed-point codes
         (the reference's ``GPY_DLA_ABS_DTYPE=i16`` or ``i16p``; see
         ``ops.kernel_config.profile_store_dtype``).
+    :param window_tier: the two-tier window of ``"windowed_unfused"`` (the
+        reference's ``GPY_DLA_WINDOW_TIER``, on by default); ignored by the
+        other configurations.
+    :param use_kernels: the float32 likelihood's route (the reference's
+        ``use_pallas``): None (default) takes K2 and K3 at any GP basis
+        width; False the plain composition, on the CPU only.
     """
     out = dispatch_batch(
         learned, spectra, dla_samples, subdla_samples, params, generator,
-        max_dlas, base_inds_override, voigt_impl, abs_dtype,
+        max_dlas, base_inds_override, voigt_impl, abs_dtype, window_tier, use_kernels,
     )
     return finalize_batch(out, spectra, subdla_samples, prior, max_dlas)

@@ -12,7 +12,11 @@ and without the Lyman-limit break, at 1, 3, 8 and 31 lines, P = 7 to 1,670,
 F = 1 to 7 and S = 1 to 10,000; K1 with poly=False (the Weideman window)
 <= 5e-4 absolute and, against the float64 exact profile, within 1.5x the
 twin's own error or 1e-4; K5 and K6 <= 1e-6 absolute (K5
-measured 2.4e-7); K2 and K3 |dll| <= 1e-6 |ll|, with
+measured 2.4e-7), at 1, 16, 20, 1,001 and 10,000 rows, K5 at P = 7 to
+1,670 (the CIV head's 774, the catalog's 1,286, the LLS search's 1,670,
+rows aligned to 16, 8 and 4 bytes) and beyond a block's shared memory, K6
+with 3 and 8 lines and with windows clipped at the row's end; K2 and K3
+|dll| <= 1e-6 |ll|, with
 |ll| the largest magnitude of the sample set, at the main path's even
 k = 20 and at odd k (the rank-1 chain variant's case); K2 also at the
 narrow bases k = 1, 4, 5 (packed) and 4 (flat), at S = 1, 79, 81 and
@@ -29,14 +33,21 @@ of the largest |value| for the stages that stop early; ``chain_nodot``
 k = 1, 4, 5, 20, 24 and the largest k its block holds (53 at N = 1,280),
 at S = 1, 79, 80, 81, 1,001 and 10,000, N = 17, 1,280 and 1,281, and its
 refusal one past; the flat chain at k = 1 to 64 in both layouts, with NaN
-where its twin gives NaN, and its refusal at k = 65.
+where its twin gives NaN, and its refusal at k = 65.  Wide GP bases: K2
+in column slices (k = 54, 65, 100 and 341 packed, 40 flat) and K3's wide
+chain (k = 65, 100, 339 in shared memory, 340 and 341 in its global
+workspace; NaN where its twin gives NaN) to the same 1e-6 |ll|; the
+likelihood at k = 54 and 65 runs K2 and K3 (never the composition, which
+refuses a card tensor) within the reference's float32 budget (median
+|dll| 7.4e-4, max 3.8e-3) of the CPU float64 value, in both storages, as
+k = 20 does.
 
 The int16 instantiations (compact profile storage) are held to their twins
 by codes: K1, K5 and K6 to max |dcode| <= 1 (kernel and twin differ by
 ~3e-7 in float32; a code moves where a value sits near a half-step of the
 1/32767 grid), K1 at 1, 3, 8 and 31 lines, P = 7 to 1,670 with and without
-the break, F = 1 and 3, both windows, and at the main path; K5 at 16 and
-10,000 rows; K6 at the main path; K2 on int16 codes to 1e-6 |ll| at N =
+the break, F = 1 and 3, both windows, and at the main path; K5 and K6 at
+every shape of their float32 tests; K2 on int16 codes to 1e-6 |ll| at N =
 1,280, 1,664, 768, 512 and the odd 1,281, S = 72, 1,001 and 10,000, k = 5
 and 20, 0-3 streams, also on rows aligned to 2 and 4 bytes only, and
 against K2 fed the same codes decoded to float32 (printed: whether they
@@ -63,6 +74,7 @@ from gpy_dla_detection_tpu_torch.ops.logmvn_ablate import (
 )
 from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
     cap_geometry,
+    chain_geometry,
     flat_chain_geometry,
     logmvn_cap,
     logmvn_cap_reference,
@@ -174,6 +186,72 @@ def test_likelihood_kernels_match_twins(cuda_device, n_extra, S):
     assert float((ll_kernel - ll_twin).abs().max()) <= REL_K23 * scale
 
 
+# the float32 likelihood against float64: the reference kernel's budget on
+# |ll| ~ 1.1e4 (ops/logmvn_pallas.py:206-210; tests/test_torch_logmvn.py)
+MEDIAN_VS_F64 = 7.4e-4
+MAX_VS_F64 = 3.8e-3
+
+
+def _route_problem(device, k, S, n_extra, store):
+    """A likelihood problem at the catalog's N = 1,280 with the profiles on
+    ``device`` in ``store``, and the CPU float64 value of the same inputs."""
+    (y, mu, M, omega2, v, mask), A, extra = _problem("cpu", k=k, S=S, n_extra=n_extra, seed=k)
+    if store == torch.int16:
+        A, extra = (torch.round(A * 32767.0).to(torch.int16),
+                    [torch.round(e * 32767.0).to(torch.int16) for e in extra])
+    f64 = T.batched_log_mvnpdf(*[x.double() if x.is_floating_point() else x
+                                 for x in (y, mu, M, omega2, v, mask)],
+                               T.decode_profile_store(A, torch.float64),
+                               extra=[T.decode_profile_store(e, torch.float64) for e in extra])
+    put = lambda x: x.to(device)
+    return [put(x) for x in (y, mu, M, omega2, v, mask)], put(A), [put(e) for e in extra], f64
+
+
+# k = 54: one past one K2 block at N = 1,280; 65: one past K3's row bound
+@pytest.mark.parametrize("store", [torch.float32, torch.int16])
+@pytest.mark.parametrize("n_extra", [0, 3])
+@pytest.mark.parametrize("k", [54, 65])
+def test_likelihood_takes_the_kernels_for_a_wide_basis(cuda_device, k, n_extra, store):
+    """A GP basis wider than one K2 block holds runs K2 in column slices
+    and then K3 (its wide chain past k = 64), never the composition,
+    within the float32 budget of the CPU float64 path; the composition
+    refuses the card's tensors."""
+    base, A, extra, f64 = _route_problem(cuda_device, k, 2000, n_extra, store)
+    cap = "logmvn_cap_i16" if store == torch.int16 else "logmvn_cap"
+    chain = "logmvn_chain_wide" if k > 64 else "logmvn_chain"
+    before = dict(_build.launch_counts)
+    ll = T.batched_log_mvnpdf(*base, A, extra=extra)
+    torch.cuda.synchronize()
+    after = dict(_build.launch_counts)
+    assert after.get("logmvn_composition", 0) == before.get("logmvn_composition", 0)
+    for name in (cap, chain):
+        assert after.get(name, 0) == before.get(name, 0) + 1
+    d = (ll.cpu().double() - f64).abs()
+    assert torch.isfinite(ll).all()
+    assert float(d.median()) <= MEDIAN_VS_F64 and float(d.max()) <= MAX_VS_F64
+    with pytest.raises(ValueError):
+        T.batched_log_mvnpdf(*base, A, extra=extra, use_kernels=False)
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.int16])
+def test_likelihood_main_path_takes_the_kernels(cuda_device, store):
+    """At the main path's k = 20 the route is K2 then K3, never the
+    composition, which refuses the card's tensors."""
+    base, A, extra, f64 = _route_problem(cuda_device, 20, 2000, 3, store)
+    name = "logmvn_cap_i16" if store == torch.int16 else "logmvn_cap"
+    before = dict(_build.launch_counts)
+    ll = T.batched_log_mvnpdf(*base, A, extra=extra)
+    torch.cuda.synchronize()
+    after = dict(_build.launch_counts)
+    assert after.get("logmvn_composition", 0) == before.get("logmvn_composition", 0)
+    assert after[name] == before.get(name, 0) + 1
+    assert after["logmvn_chain"] == before.get("logmvn_chain", 0) + 1
+    d = (ll.cpu().double() - f64).abs()
+    assert float(d.median()) <= MEDIAN_VS_F64 and float(d.max()) <= MAX_VS_F64
+    with pytest.raises(ValueError):
+        T.batched_log_mvnpdf(*base, A, extra=extra, use_kernels=False)
+
+
 def _k2_ll_error(device, k, basis, S, N, n_extra, seed=7):
     """K2 against its twin through the same (twin) chain: max |dll| and
     the largest |ll|; also checks the launch count."""
@@ -204,6 +282,21 @@ def test_cap_kernel_takes_a_narrow_basis(cuda_device, k, basis, n_extra):
 # assemble unequal numbers of sample quads
 def test_cap_kernel_with_uneven_assembly_quads(cuda_device):
     err, scale = _k2_ll_error(cuda_device, 24, "packed", 1001, 1280, 3)
+    assert err <= REL_K23 * scale
+
+
+# bases one block cannot hold: column slices (2, 2, 4 and 39 of them; the
+# flat k = 40 basis 2), a lone sample and an uneven count
+@pytest.mark.parametrize("S", [1, 1001])
+@pytest.mark.parametrize("n_extra", [0, 3])
+@pytest.mark.parametrize("k,basis", [(54, "packed"), (65, "packed"), (100, "packed"),
+                                     (341, "packed"), (40, "flat")])
+def test_cap_kernel_in_column_slices_matches_twin(cuda_device, k, basis, n_extra, S):
+    kp = k * (k + 1) // 2 if basis == "packed" else k * k
+    with pytest.raises(ValueError):
+        cap_geometry(S, 1280, k, kp, n_extra)  # one block cannot hold it
+    err, scale = _k2_ll_error(cuda_device, k, basis, min(S, 64) if k > 300 else S, 1280,
+                              n_extra)
     assert err <= REL_K23 * scale
 
 
@@ -240,27 +333,50 @@ def test_float64_on_card_raises(cuda_device):
         )
 
 
-# 16 and 20: the MCMC half-steps of 32 DLA and 40 CIV walkers; 1001: a
-# catalog-sized row count that is no multiple of anything
-@pytest.mark.parametrize("S", [16, 20, 1001])
-def test_absorption_tail_kernel_matches_twin(cuda_device, S):
-    grids, z, nhis = _grids_and_samples(S=S)
-    wl = torch.as_tensor(grids[0].astype(np.float32), device=cuda_device)
-    unit = unit_lyman_optical_depth(wl, torch.as_tensor(z, device=cuda_device), 3)
-    nhi = torch.as_tensor(nhis[0], device=cuda_device)
+# K5's and K6's rows: 1; 16 and 20, the MCMC half-steps of 32 DLA and 40
+# CIV walkers; 1001, a catalog-sized count that is no multiple of anything;
+# the catalog's 10,000.  K5's P: the CIV head's 774, the catalog's 1,286
+# (rows 8-byte aligned every other row), the LLS search's 1,670, one output
+# pixel (7), a row of one 128-pixel and of one 256-pixel chunk and its halo
+# (134, 262), and the odd 1,287 (4-byte aligned rows: scalar loads)
+TAIL_ROWS = (1, 16, 20, 1001, 10_000)
+TAIL_PIXELS = (7, 134, 262, 774, 1286, 1287, 1670)
+
+
+def _tail_inputs(device, S, P):
+    grids, z, nhis = _grids_and_samples(P=max(P, 8), S=S)
+    wl = torch.as_tensor(grids[0][:P].astype(np.float32), device=device)
+    unit = unit_lyman_optical_depth(wl, torch.as_tensor(z, device=device), 3)
+    return unit, torch.as_tensor(nhis[0], device=device)
+
+
+@pytest.mark.parametrize("P", TAIL_PIXELS)
+@pytest.mark.parametrize("S", TAIL_ROWS)
+def test_absorption_tail_kernel_matches_twin(cuda_device, S, P):
+    unit, nhi = _tail_inputs(cuda_device, S, P)
     before = _build.launch_counts["absorption_tail"]
     got = absorption_tail(unit, nhi)
     torch.cuda.synchronize()
     assert _build.launch_counts["absorption_tail"] == before + 1
-    assert got.shape == (S, wl.shape[0] - 6)
+    assert got.shape == (S, P - 6)
     assert float((got - absorption_tail_reference(unit, nhi)).abs().max()) <= TOL_K5
 
 
-def test_absorption_tail_rejects_rows_beyond_shared_memory(cuda_device):
+def test_absorption_tail_takes_rows_beyond_shared_memory(cuda_device):
+    """The streaming tail keeps nothing of a row in shared memory, so a row
+    longer than a block's 227 KB of it runs (the earlier design refused it)."""
     P = _build.MAX_DYNAMIC_SHARED_BYTES // 4 + 1
-    with pytest.raises(ValueError):
-        absorption_tail(torch.zeros((2, P), device=cuda_device),
-                        torch.ones(2, device=cuda_device))
+    rng = np.random.default_rng(9)
+    unit = torch.as_tensor((rng.random((3, P)) * 3e-21).astype(np.float32), device=cuda_device)
+    nhi = torch.as_tensor(np.array([1e20, 1e21, 3e21], np.float32), device=cuda_device)
+    for dtype in (None, torch.int16):
+        got = absorption_tail(unit, nhi, dtype)
+        want = absorption_tail_reference(unit, nhi, dtype)
+        torch.cuda.synchronize()
+        if dtype is None:
+            assert float((got - want).abs().max()) <= TOL_K5
+        else:
+            assert _dcode(got, want) <= MAX_DCODE
 
 
 def _chain_inputs(device, k, S):
@@ -307,28 +423,103 @@ def test_chain_kernel_gives_the_twins_nan_where_not_positive_definite(cuda_devic
 
 
 def test_chain_kernel_refuses_k_beyond_its_row_bounds(cuda_device):
+    """The warp chain's geometry and launcher refuse k = 65; the wrapper
+    takes it to the wide chain instead."""
     k = 65
     B = torch.zeros((4, k * (k + 1) // 2), device=cuda_device)
+    u = torch.zeros((4, k), device=cuda_device)
+    misc = torch.zeros((4, 2), device=cuda_device)
+    ll = torch.empty((4,), device=cuda_device)
     with pytest.raises(ValueError):
-        logmvn_chain(B, torch.zeros((4, k), device=cuda_device),
-                     torch.zeros((4, 2), device=cuda_device))
+        chain_geometry(4, k)
+    g = chain_geometry(4, 64)
+    err = _build.load_library().logmvn_chain_launch(
+        _build.ptr(B), _build.ptr(u), _build.ptr(misc), 4, k, g.rows, g.warps,
+        g.shared_bytes, g.grid, _build.ptr(ll), _build.stream_ptr(cuda_device))
+    assert err != 0
+    before = _build.launch_counts["logmvn_chain_wide"]
+    logmvn_chain(B, u, misc)
+    assert _build.launch_counts["logmvn_chain_wide"] == before + 1
 
 
+# k: one past the warp chain's row bounds, wider, the widest whose triangle
+# a block's shared memory holds (339), and two in the global workspace
+@pytest.mark.parametrize("S", [1, 1001])
+@pytest.mark.parametrize("k", [65, 100, 339, 340, 341])
+def test_wide_chain_kernel_matches_twin(cuda_device, k, S):
+    B, u, misc = _chain_inputs(cuda_device, k, S if k < 300 else min(S, 64))
+    before = _build.launch_counts["logmvn_chain_wide"]
+    ll_kernel = logmvn_chain(B, u, misc)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["logmvn_chain_wide"] == before + 1
+    ll_twin = logmvn_chain_reference(B, u, misc)
+    assert torch.isfinite(ll_kernel).all()
+    assert float((ll_kernel - ll_twin).abs().max()) <= REL_K23 * float(ll_twin.abs().max())
+
+
+@pytest.mark.parametrize("k", [65, 340])
+def test_wide_chain_gives_the_twins_nan_where_not_positive_definite(cuda_device, k):
+    B, u, misc = _chain_inputs(cuda_device, k, 40)
+    diag = [j * k - j * (j - 1) // 2 for j in range(k)]  # packed (j, j)
+    B[0, diag[0]] = -2.0
+    B[1, diag[k // 2]] = -50.0
+    ll_kernel = logmvn_chain(B, u, misc)
+    ll_twin = logmvn_chain_reference(B, u, misc)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ll_twin)
+    assert bool(nan[0]) and bool(nan[1])
+    assert torch.equal(torch.isnan(ll_kernel), nan)
+    ok = ~nan
+    assert float((ll_kernel[ok] - ll_twin[ok]).abs().max()) <= (
+        REL_K23 * float(ll_twin[ok].abs().max()))
+
+
+@pytest.mark.parametrize("S", TAIL_ROWS)
 @pytest.mark.parametrize("num_lines", [3, 8])  # 8: overlapping windows
 @pytest.mark.parametrize("grid_index", [0, 1])
-def test_absorption_windowed_kernel_matches_twin(cuda_device, grid_index, num_lines):
-    grids, z, nhis = _grids_and_samples(S=1001)
+def test_absorption_windowed_kernel_matches_twin(cuda_device, grid_index, num_lines, S):
+    grids, z, nhis = _grids_and_samples(S=S)
     wl = torch.as_tensor(grids[grid_index].astype(np.float32), device=cuda_device)
     parts = windowed_tau_parts(wl, torch.as_tensor(z, device=cuda_device), num_lines)
     assert parts.far.shape[1] == 1408
     before = _build.launch_counts["absorption_windowed"]
     for nhi in nhis:
         nt = torch.as_tensor(nhi, device=cuda_device)
+        for dtype in (None, torch.int16):
+            got = absorption_windowed(parts, nt, dtype)
+            want = absorption_windowed_reference(parts, nt, dtype)
+            torch.cuda.synchronize()
+            assert got.shape == (z.shape[0], wl.shape[0] - 6)
+            if dtype is None:
+                assert float((got - want).abs().max()) <= TOL_K6
+            else:
+                assert _dcode(got, want) <= MAX_DCODE
+    assert _build.launch_counts["absorption_windowed"] == before + len(nhis)
+    assert _build.launch_counts["absorption_windowed_i16"] >= len(nhis)
+
+
+@pytest.mark.parametrize("num_lines", [3, 8])
+@pytest.mark.parametrize("P", [1286, 1281, 1407])
+def test_absorption_windowed_kernel_clips_windows_at_the_rows_end(cuda_device, P, num_lines):
+    """Line centres near the grid's red end put windows at the last chunk
+    pair, past the row's P pixels (P = 1,286 and 1,281 of 1,408 padded, and
+    1,407: one pixel short), overlapping each other at 8 lines."""
+    grids, _, nhis = _grids_and_samples(P=P, S=1001)
+    wl = torch.as_tensor(grids[0].astype(np.float32), device=cuda_device)
+    red = float(wl[-1]) / 1215.67 - 1.0
+    rng = np.random.default_rng(P)
+    z = torch.as_tensor(rng.uniform(red - 0.05, red + 0.02, 1001).astype(np.float32),
+                        device=cuda_device)
+    parts = windowed_tau_parts(wl, z, num_lines)
+    nc = parts.far.shape[1] // 128
+    assert parts.far.shape[1] == 1408 and int((parts.c0 == nc - 2).sum()) > 100
+    for nhi in nhis:
+        nt = torch.as_tensor(nhi, device=cuda_device)
         got = absorption_windowed(parts, nt)
         torch.cuda.synchronize()
-        assert got.shape == (z.shape[0], wl.shape[0] - 6)
         assert float((got - absorption_windowed_reference(parts, nt)).abs().max()) <= TOL_K6
-    assert _build.launch_counts["absorption_windowed"] == before + len(nhis)
+        got16 = absorption_windowed(parts, nt, torch.int16)
+        assert _dcode(got16, absorption_windowed_reference(parts, nt, torch.int16)) <= MAX_DCODE
 
 
 def test_absorption_kernel_with_lyman_limit_break_matches_twin(cuda_device):
@@ -645,12 +836,10 @@ def test_absorption_kernel_int16_at_the_main_path(cuda_device, F, poly):
         assert _dcode(g, torch.round(g32 * 32767.0).to(torch.int16)) <= MAX_DCODE
 
 
-@pytest.mark.parametrize("S", [16, 10_000])
-def test_absorption_tail_kernel_int16_matches_twin(cuda_device, S):
-    grids, z, nhis = _grids_and_samples(S=S)
-    wl = torch.as_tensor(grids[0].astype(np.float32), device=cuda_device)
-    unit = unit_lyman_optical_depth(wl, torch.as_tensor(z, device=cuda_device), 3)
-    nhi = torch.as_tensor(nhis[0], device=cuda_device)
+@pytest.mark.parametrize("P", TAIL_PIXELS)
+@pytest.mark.parametrize("S", TAIL_ROWS)
+def test_absorption_tail_kernel_int16_matches_twin(cuda_device, S, P):
+    unit, nhi = _tail_inputs(cuda_device, S, P)
     before = _build.launch_counts["absorption_tail_i16"]
     got = absorption_tail(unit, nhi, torch.int16)
     torch.cuda.synchronize()

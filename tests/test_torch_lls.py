@@ -54,6 +54,8 @@ from gpy_dla_detection_tpu_torch.ops.voigt import voigt_absorption_lls
 from gpy_dla_detection_tpu_torch.ops.voigt_kernels import absorption_all_reference
 from gpy_dla_detection_tpu_torch.params import Parameters
 
+from .test_torch_windowed_parts import record_window_tier
+
 torch.set_num_threads(2)
 
 TOL_JAX_KERNEL = 1e-6
@@ -199,12 +201,13 @@ def _port_learned(arrays, dtype):
     return TL.with_boss_meanflux(LearnedModel.from_numpy(arrays, "cpu", dtype))
 
 
-def _run_single(lls_inputs, dtype, voigt_impl):
+def _run_single(lls_inputs, dtype, voigt_impl, window_tier=True):
     params, arrays, samples, specs, base, _ = lls_inputs
     learned = _port_learned(arrays, dtype)
     return [
         TL.lls_log_evidences(learned, spec, samples, torch.Generator().manual_seed(0),
-                             MAX_LYA, params, base_inds_override=b, voigt_impl=voigt_impl)
+                             MAX_LYA, params, base_inds_override=b, voigt_impl=voigt_impl,
+                             window_tier=window_tier)
         for spec, b in zip(specs, base)
     ]
 
@@ -268,6 +271,28 @@ def test_lls_inference_many_windowed_weideman_matches_jax_float64(lls_inputs):
     _assert_lls_float32_matches_float64(
         [(null_ev, res._replace(log_evidences=torch.as_tensor(res.log_evidences)))
          for null_ev, res in outs], jax_results)
+
+
+@pytest.mark.parametrize("entry", ["single", "many"])
+def test_lls_without_window_tier_float32_matches_jax_float64(lls_inputs, entry, monkeypatch):
+    """The unfused configuration without the two-tier window (the
+    reference's GPY_DLA_WINDOW_TIER=0, patched on the JAX side too),
+    float32, through ``lls_log_evidences`` and ``lls_inference_many`` with
+    the JAX run's resampling indices, against the JAX float64 run."""
+    monkeypatch.setattr(JV, "WINDOW_TIER", False)
+    seen = record_window_tier(monkeypatch)
+    params, arrays, samples, specs, base, jax_results = lls_inputs
+    if entry == "single":
+        results = _run_single(lls_inputs, torch.float32, "windowed_unfused", window_tier=False)
+    else:
+        outs = TL.lls_inference_many(
+            _port_learned(arrays, torch.float32), iter(specs), samples,
+            torch.Generator().manual_seed(0), MAX_LYA, params, batch_size=2,
+            voigt_impl="windowed_unfused", base_inds_override=base, window_tier=False)
+        results = [(null_ev, res._replace(log_evidences=torch.as_tensor(res.log_evidences)))
+                   for null_ev, res in outs]
+    assert seen == [False] * len(specs)  # one parts build a spectrum, without the tier
+    _assert_lls_float32_matches_float64(results, jax_results)
 
 
 def test_lls_inference_many_matches_single_path(lls_inputs):

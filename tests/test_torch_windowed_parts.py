@@ -45,6 +45,7 @@ from gpy_dla_detection_tpu_torch.data.synthetic import (
     synthetic_prior_catalog,
     synthetic_spectrum,
 )
+from gpy_dla_detection_tpu_torch.models import evidence as evidence_module
 from gpy_dla_detection_tpu_torch.models.evidence import single_absorber_profiles
 from gpy_dla_detection_tpu_torch.models.learned import LearnedModel
 from gpy_dla_detection_tpu_torch.ops import _build
@@ -193,13 +194,14 @@ def slice_inputs():
     return params, learned, spectra, base, jax_results
 
 
-def _run_unfused(slice_inputs, dtype):
+def _run_unfused(slice_inputs, dtype, window_tier=True):
     params, learned, spectra, base, _ = slice_inputs
     return process_batch(
         LearnedModel.from_numpy(learned, "cpu", dtype), spectra,
         generate_dla_samples(params), generate_subdla_samples(params),
         synthetic_prior_catalog(params), params, torch.Generator().manual_seed(0),
         max_dlas=MAX_DLAS, base_inds_override=base, voigt_impl="windowed_unfused",
+        window_tier=window_tier,
     )
 
 
@@ -216,11 +218,19 @@ def test_unfused_configuration_float64_matches_jax(slice_inputs):
         np.testing.assert_allclose(g, w, rtol=REL_F64, atol=0)
 
 
-def test_unfused_configuration_float32_matches_jax_float64(slice_inputs):
-    """float32: the windowed parts and K6's twin per family, against the
-    JAX float64 run (which off the TPU is the exact configuration)."""
+@pytest.mark.parametrize("window_tier", [True, False])
+def test_unfused_configuration_float32_matches_jax_float64(slice_inputs, window_tier,
+                                                           monkeypatch):
+    """float32: the windowed parts (with the two-tier window, and without
+    it: the reference's GPY_DLA_WINDOW_TIER=0, patched on the JAX side
+    too) and K6's twin per family, through ``process_batch``, against the
+    JAX float64 run (which off the TPU is the exact configuration) on the
+    same resampling indices."""
+    monkeypatch.setattr(JV, "WINDOW_TIER", window_tier)
+    seen = record_window_tier(monkeypatch)
     names = ("log_evidence_null", "log_evidences_dla", "log_evidence_subdla")
-    results = _run_unfused(slice_inputs, torch.float32)
+    results = _run_unfused(slice_inputs, torch.float32, window_tier)
+    assert seen and set(seen) == {window_tier}  # one parts build a spectrum
     for got, want in zip(results, slice_inputs[-1]):
         scale = max(np.abs(np.asarray(getattr(want, n))).max() for n in names)
         for name in names:
@@ -232,3 +242,45 @@ def test_unfused_configuration_float32_matches_jax_float64(slice_inputs):
         assert np.argmax(got.selection.model_posteriors) == np.argmax(
             want.selection.model_posteriors
         )
+
+
+def record_window_tier(monkeypatch):
+    """The ``window_tier`` of every ``windowed_tau_parts`` call the catalog
+    and the LLS search make (``models/evidence.py``), recorded around the
+    real function (also used by tests/test_torch_lls.py)."""
+    seen = []
+
+    def parts(wavelengths, z_absorber, num_lines=3, window_tier=True):
+        seen.append(window_tier)
+        return TV.windowed_tau_parts(wavelengths, z_absorber, num_lines, window_tier)
+
+    monkeypatch.setattr(evidence_module, "windowed_tau_parts", parts)
+    return seen
+
+
+@pytest.mark.parametrize("window_tier", [True, False])
+def test_window_tier_reaches_the_unfused_profiles(window_tier, monkeypatch):
+    """``window_tier`` reaches ``windowed_tau_parts`` in both profiles of
+    the unfused configuration: each family's profile equals K6's twin (DLA)
+    or K5's twin (LLS) on the parts made with the switch.  (In float32 the
+    two-tier window gives the full window's bits on these grids: the
+    2-term continued fraction off the strip rounds as the 5-term one; the
+    switch moves the cost.)  The other configurations never build parts."""
+    grids, z, nhi = _grids_and_redshifts(S=64)
+    wl = torch.as_tensor(grids["jittered"].astype(np.float32))
+    z32, nhi32 = torch.as_tensor(z.astype(np.float32)), torch.as_tensor(nhi.astype(np.float32))
+    seen = record_window_tier(monkeypatch)
+    for profile in ("dla", "lls"):
+        (got,) = single_absorber_profiles(wl, z32, (nhi32,), 3, "windowed_unfused", profile,
+                                          window_tier=window_tier)
+        parts = TV.windowed_tau_parts(wl, z32, 3, window_tier)
+        if profile == "dla":
+            want = absorption_windowed_reference(parts, nhi32)
+        else:
+            want = TV.absorption_from_unit_tau(
+                TV.place_windows(parts) + TV.lyman_limit_unit_tau(wl, z32), nhi32)
+        assert torch.equal(got, want)
+    assert seen == [window_tier, window_tier]
+    for impl in ("windowed", "exact", "windowed_weideman"):
+        single_absorber_profiles(wl, z32, (nhi32,), 3, impl, window_tier=window_tier)
+    assert len(seen) == 2
