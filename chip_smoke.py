@@ -108,6 +108,23 @@ Phases, one line each; any failure exits non-zero before the result:
      |dll| 7.4e-4, max 3.8e-3); device ms beside the bounds, the wide
      chain's row of the kernels line.  No phase runs the likelihood's
      plain composition (checked in every counted run)
+ 17. the CLIs through the entry points a user calls: 32
+     synthetic spectra written as speclite FITS files (odd ones with a DLA
+     at z_qso - 0.3, logNHI 21.2) through run_bayes_select.run at
+     Parameters(), float32, --batch-size 8 --inflight 3 --checkpoint, with
+     its launch counts (K1 32, K2 and K3 160, no composition), detections
+     and peak memory; its arrays against process_batch on the same spectra
+     read back through the port's read_spec and preprocess with the same
+     per-batch generators, bit for bit; dispatch_batch under CUDA's sync
+     debug mode (no synchronising call); a rerun after deleting one part
+     file, bit for bit; --no-sample-lls, the evidences, MAPs and
+     posteriors bit for bit and the three per-sample datasets absent;
+     GPY_DLA_RESAMPLER=systematic, its detections and its evidences within
+     the resampler tests' tolerance of the multinomial run (10x the spread
+     of another seed's, or 0.5); a profiled run for the device's share of
+     the wall; then run_find_lls.run and run_civ.run on 8 FITS spectra each
+     with launch counts and detections; the catalog CLI's steady-state
+     spectra/s from its .metrics.jsonl (the first batch skipped)
 Every other phase asserts that the Weideman window is never launched, and
 every phase before 14 that no int16 instantiation is.
 Then a JSON line of the kernels, the card line, and the result line.
@@ -118,11 +135,16 @@ blocked before the port is imported.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -146,7 +168,11 @@ NUM_UNFUSED = 4
 NUM_WEIDEMAN = 4
 NUM_LLS = 8
 NUM_I16 = 4  # spectra of each configuration in int16 storage (phase 14)
+NUM_CLI = 32  # FITS spectra through the catalog CLI (phase 17)
+CLI_BATCH = 8
 MAX_DLAS = 4
+ENSEMBLE_SEEDS = 24  # multinomial seeds whose spread holds the third chained level
+SYSTEMATIC_SEEDS = 8  # more systematic runs, printed
 MAX_LYA = 4
 LLS_PARAMS = dict(num_dla_samples=10000, min_lambda=850.0, num_pixels_padded=1664)
 LLS_LOG_NHI = 18.5
@@ -252,6 +278,44 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def write_speclite(path: Path, wavelengths, flux, noise_variance, pixel_mask) -> str:
+    """An SDSS speclite FITS file: an empty primary HDU and one COADD
+    binary table of flux, loglam, ivar and and_mask (BRIGHTSKY, bit 24,
+    where ``pixel_mask``), big-endian, in 2,880-byte blocks."""
+    def card(key, value):
+        if isinstance(value, str):
+            return f"{key:<8}= '{value:<8}'".ljust(80)
+        text = ("T" if value else "F") if isinstance(value, bool) else str(value)
+        return f"{key:<8}= {text:>20}".ljust(80)
+
+    def block(cards):
+        text = "".join(cards) + "END".ljust(80)
+        return (text + " " * (-len(text) % 2880)).encode("ascii")
+
+    rec = np.zeros(len(flux), dtype=[("flux", ">f4"), ("loglam", ">f4"), ("ivar", ">f4"),
+                                     ("and_mask", ">i4")])
+    rec["flux"], rec["loglam"] = flux, np.log10(wavelengths)
+    rec["ivar"], rec["and_mask"] = 1.0 / noise_variance, np.where(pixel_mask, 1 << 24, 0)
+    columns = [card(f"{k}{i}", v) for i, (name, form) in enumerate(
+        (("flux", "E"), ("loglam", "E"), ("ivar", "E"), ("and_mask", "J")), 1)
+        for k, v in (("TTYPE", name), ("TFORM", form))]
+    data = rec.tobytes()
+    with open(path, "wb") as f:
+        f.write(block([card("SIMPLE", True), card("BITPIX", 8), card("NAXIS", 0)]))
+        f.write(block([card("XTENSION", "BINTABLE"), card("BITPIX", 8), card("NAXIS", 2),
+                       card("NAXIS1", rec.dtype.itemsize), card("NAXIS2", len(rec)),
+                       card("PCOUNT", 0), card("GCOUNT", 1), card("TFIELDS", 4), *columns,
+                       card("EXTNAME", "COADD")]))
+        f.write(data + b"\x00" * (-len(data) % 2880))
+    return str(path)
+
+
+def same_bits(got: dict, want: dict, names) -> list[str]:
+    """The names whose arrays differ in dtype, shape or any bit."""
+    return [n for n in names if got[n].dtype != want[n].dtype or got[n].shape != want[n].shape
+            or got[n].tobytes() != want[n].tobytes()]
 
 
 def timed_median(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -1759,6 +1823,319 @@ def main() -> None:
           + f" | wide chain {ms['logmvn_chain_wide'][0]:.3f} ms vs twin "
           f"{ms['logmvn_chain_wide'][1]:.3f} ms, library yardstick "
           f"{library['logmvn_chain_wide']:.3f} ms | every phase took the kernels (no composition)")
+
+    # 17. the CLIs through their run(), on FITS files written
+    # here; their own per-spectrum prints are kept out of this output
+    from gpy_dla_detection_tpu_torch import run_bayes_select, run_find_lls
+    from gpy_dla_detection_tpu_torch import run_civ as civ_cli
+    from gpy_dla_detection_tpu_torch.catalog_io import results_to_arrays
+    from gpy_dla_detection_tpu_torch.data.fits import read_spec
+    from gpy_dla_detection_tpu_torch.data.spectrum import preprocess
+    from gpy_dla_detection_tpu_torch.data.synthetic import (
+        civ_doublet_transmission,
+        synthetic_observation,
+    )
+    from gpy_dla_detection_tpu_torch.parallel.batch import device_put_inputs, dispatch_batch
+    from gpy_dla_detection_tpu_torch.utils.metrics import read_metrics
+
+    def quiet(fn):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn()
+
+    per_sample = ("sample_log_likelihoods_dla", "sample_log_likelihoods_lls", "base_sample_inds")
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
+        work = Path(work)
+        z_cli = [float(z) for z in np.linspace(2.6, 3.4, NUM_CLI)]
+        truths_cli = [(z - 0.3, 21.2) if i % 2 else None for i, z in enumerate(z_cli)]
+        files = [
+            write_speclite(work / f"spec-0001-55555-{i:04d}.fits", *synthetic_observation(
+                params, arrays, z, seed=1000 + i, dlas=None if tr is None else [tr]))
+            for i, (z, tr) in enumerate(zip(z_cli, truths_cli))
+        ]
+        out_full = work / "catalog.h5"
+
+        def cli_argv(output, *extra):
+            return ["--qso_list", *files, "--z_qso_list", *map(repr, z_cli), "--max_dlas",
+                    str(MAX_DLAS), "--batch-size", str(CLI_BATCH), "--inflight", "3",
+                    "--output", str(output), *extra]
+
+        def run_cli(*args):
+            return quiet(lambda: run_bayes_select.run(cli_argv(*args)))
+
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_cli = time.perf_counter()
+        cat, launches = count_launches(lambda: run_cli(out_full, "--checkpoint"))
+        cli_s = time.perf_counter() - t_cli
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        path_launches["cli_catalog"] = launches
+        need = {"absorption_all": NUM_CLI, "logmvn_cap": 5 * NUM_CLI,
+                "logmvn_chain": 5 * NUM_CLI, "absorption_all_weideman": 0,
+                "absorption_tail": 0, "absorption_windowed": 0}
+        for name, n in need.items():
+            check(launches.get(name, 0) == n,
+                  f"catalog CLI: {name} launched {launches.get(name, 0)} != {n}")
+        check(cat.qso_list == files and not cat.all_exceptions, "catalog CLI: spectra lost")
+        det_cli = check_detections(cat.results, truths_cli, "catalog CLI")
+
+        # the same spectra read back through the port's reader and
+        # preprocessing, through process_batch with the same generators
+        specs_back = [preprocess(*read_spec(f), z, params) for f, z in zip(files, z_cli)]
+        direct = []
+        for start in range(0, NUM_CLI, CLI_BATCH):
+            direct += process_batch(
+                learned, specs_back[start:start + CLI_BATCH], dla_samples, sub_samples,
+                prior, params, run_bayes_select.batch_generator(0, start, device), MAX_DLAS)
+        want_arrays = results_to_arrays(direct, params, MAX_DLAS)
+        check(sorted(cat.arrays) == sorted(want_arrays), "catalog CLI: datasets differ")
+        differ = same_bits(cat.arrays, want_arrays, want_arrays)
+        check(not differ, f"catalog CLI vs process_batch: {differ} differ")
+
+        # dispatch_batch queues its work and its readback and returns: under
+        # CUDA's sync debug mode no call in it may synchronise
+        inputs = device_put_inputs(arrays, dla_samples, sub_samples, device, torch.float32)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t_disp = time.perf_counter()
+                pending = dispatch_batch(
+                    inputs, specs_back[:CLI_BATCH], params,
+                    run_bayes_select.batch_generator(0, 0, device), MAX_DLAS)
+                dispatch_ms = (time.perf_counter() - t_disp) * 1e3
+                still_running = not pending.done.query()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [f"{Path(w.filename).name}:{w.lineno} {w.message}" for w in caught
+                 if "synchroniz" in str(w.message)]
+        pending.done.synchronize()
+
+        # resume: delete the second batch's part file and run again
+        os.remove(f"{out_full}.part{CLI_BATCH:08d}.pkl")
+        resumed, launches = count_launches(lambda: run_cli(out_full, "--checkpoint"))
+        path_launches["cli_catalog_resume"] = launches
+        check(launches.get("absorption_all", 0) == CLI_BATCH,
+              f"resume: K1 launched {launches.get('absorption_all', 0)} != {CLI_BATCH}")
+        differ = same_bits(resumed.arrays, cat.arrays, cat.arrays)
+        check(not differ, f"resumed catalog: {differ} differ")
+
+        # catalog-lite
+        lite, launches = count_launches(lambda: run_cli(work / "lite.h5", "--no-sample-lls"))
+        path_launches["cli_catalog_lite"] = launches
+        check(sorted(lite.arrays) == sorted(set(cat.arrays) - set(per_sample)),
+              f"lite: datasets {sorted(lite.arrays)}")
+        differ = same_bits(lite.arrays, cat.arrays, lite.arrays)
+        check(not differ, f"lite catalog: {differ} differ")
+
+        # the systematic resampler against the multinomial run, held as
+        # tests/test_torch_resampler.py holds it: the first two chained
+        # levels within 10x their spread over two other seeds' multinomial
+        # runs (the first profiled: the device's share of the wall), or 0.5.
+        # The third chained level is held by the same rule with the spread
+        # of ENSEMBLE_SEEDS multinomial seeds: there a level can take one of
+        # a few values that the draws decide, under either resampler (a
+        # clean spectrum's in the JAX package's own float64 runs,
+        # tests/test_torch_resampler.py::test_third_chained_level_modes),
+        # and two seeds can miss one; the ensemble's seeds that reach the
+        # systematic run's value are printed, beside SYSTEMATIC_SEEDS more
+        # systematic runs
+        os.environ["GPY_DLA_RESAMPLER"] = "systematic"
+        try:
+            sysr, launches = count_launches(lambda: run_cli(work / "sys.h5"))
+        finally:
+            del os.environ["GPY_DLA_RESAMPLER"]
+        path_launches["cli_catalog_systematic"] = launches
+        det_sys = check_detections(sysr.results, truths_cli, "catalog CLI systematic")
+        level0 = ("log_likelihoods_no_dla", "log_likelihoods_lls")
+        differ = same_bits(sysr.arrays, cat.arrays, level0) + (
+            [] if sysr.arrays["log_likelihoods_dla"][:, 0].tobytes()
+            == cat.arrays["log_likelihoods_dla"][:, 0].tobytes() else ["level 1"])
+        check(not differ, f"systematic: {differ} differ before any resampling")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t_prof = time.perf_counter()
+            seed1, launches = count_launches(lambda: run_cli(work / "seed1.h5", "--seed", "1"))
+            prof_ms = (time.perf_counter() - t_prof) * 1e3
+        path_launches["cli_catalog_seed1"] = launches
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type != torch.autograd.DeviceType.CPU) / 1e3
+        seed2, launches = count_launches(lambda: run_cli(work / "seed2.h5", "--seed", "2"))
+        path_launches["cli_catalog_seed2"] = launches
+        ev = lambda run_, lv: run_.arrays["log_likelihoods_dla"][:, lv].astype(np.float64)
+        held, deeper = slice(1, 3), slice(3, MAX_DLAS)
+        spread = np.maximum(np.abs(ev(seed1, held) - ev(cat, held)).max(axis=1),
+                            np.abs(ev(seed2, held) - ev(cat, held)).max(axis=1))
+        d_sys = np.abs(ev(sysr, held) - ev(cat, held)).max(axis=1)
+        tol_sys = np.maximum(10 * spread, 0.5)
+        sys_far = [(i, float(d), float(tl)) for i, (d, tl) in enumerate(zip(d_sys, tol_sys))
+                   if not d <= tl]
+
+        # the seed ensembles, through process_batch on the spectra read back
+        # (equal to the CLI's runs at the same seed, as checked above)
+        def ensemble(seeds, resampler):
+            runs = []
+            for seed in seeds:
+                results = []
+                for start in range(0, NUM_CLI, CLI_BATCH):
+                    results += process_batch(
+                        learned, specs_back[start:start + CLI_BATCH], dla_samples,
+                        sub_samples, prior, params,
+                        run_bayes_select.batch_generator(seed, start, device), MAX_DLAS,
+                        resampler=resampler)
+                runs.append(np.stack([r.log_evidences_dla for r in results])[:, deeper]
+                            .astype(np.float64))
+            return np.stack(runs)  # (seeds, spectra, deeper levels)
+
+        multi_deep, launches = count_launches(lambda: ensemble(
+            range(3, ENSEMBLE_SEEDS + 1), "multinomial"))
+        path_launches["catalog_multinomial_seeds"] = launches
+        multi_deep = np.concatenate([ev(seed1, deeper)[None], ev(seed2, deeper)[None],
+                                     multi_deep])
+        sys_deep, launches = count_launches(lambda: ensemble(
+            range(1, SYSTEMATIC_SEEDS + 1), "systematic"))
+        path_launches["catalog_systematic_seeds"] = launches
+        spread_deep = np.abs(multi_deep - ev(cat, deeper)).max(axis=(0, 2))
+        d_deep = np.abs(ev(sysr, deeper) - ev(cat, deeper)).max(axis=1)
+        tol_deep = np.maximum(10 * spread_deep, 0.5)
+        deep_far = [(i, float(d), float(tl)) for i, (d, tl) in enumerate(zip(d_deep, tol_deep))
+                    if not d <= tl]
+        # the rule with seeds 1 and 2 alone (as the first two levels): for
+        # the spectra beyond it and the one nearest its bound, which
+        # multinomial and systematic seeds reach the systematic run's value
+        # (within 0.05)
+        spread2_deep = np.abs(multi_deep[:2] - ev(cat, deeper)).max(axis=(0, 2))
+        ratio2 = d_deep / np.maximum(10 * spread2_deep, 0.5)
+        two_seed_far = [i for i, r in enumerate(ratio2) if not r <= 1]
+        multi_seeds = range(1, ENSEMBLE_SEEDS + 1)
+        deep_detail = []
+        for i in sorted({*two_seed_far, int(np.argmax(ratio2))}):
+            value = ev(sysr, deeper)[i]
+            reach = lambda runs: [j + 1 for j, r in enumerate(runs)
+                                  if np.abs(r[i] - value).max() <= 0.05]
+            deep_detail.append(
+                f"spectrum {i}: systematic - multinomial "
+                f"{float((value - ev(cat, deeper)[i])[0]):+.4f}, multinomial seeds spread "
+                f"{spread2_deep[i]:.4f} (seeds 1-2), {spread_deep[i]:.4f} "
+                f"({ENSEMBLE_SEEDS} seeds), reaching the systematic value within 0.05: multinomial seeds "
+                f"{reach(multi_deep)}, systematic seeds {reach(sys_deep)}, systematic seeds "
+                f"1-{SYSTEMATIC_SEEDS} - multinomial "
+                + ", ".join(f"{float(r[i][0] - ev(cat, deeper)[i][0]):+.4f}" for r in sys_deep))
+
+        # steady state from a run's metrics sidecar: the batches after the
+        # first over the time from the second's dispatch (its drain less its
+        # span) to the last's drain; the window drains its last batches
+        # together, so the drains alone are no clock
+        def steady_rate(output, n_batches):
+            batches = [e for e in read_metrics(f"{output}.metrics.jsonl")
+                       if e["event"] == "batch_done"][:n_batches]
+            t_second = batches[1]["elapsed_s"] - batches[1]["span_seconds"]
+            return (sum(e["batch_size"] for e in batches[1:])
+                    / (batches[-1]["elapsed_s"] - t_second))
+
+        n_batches = NUM_CLI // CLI_BATCH
+        steady = steady_rate(out_full, n_batches)
+        # and over 4x the spectra (the files four times), in turns with a
+        # window of one batch: 3, 1, 1, 3
+        def long_run(inflight, tag):
+            out = work / f"long_{tag}.h5"
+            quiet(lambda: run_bayes_select.run(
+                ["--qso_list", *files * 4, "--z_qso_list", *map(repr, z_cli * 4), "--max_dlas",
+                 str(MAX_DLAS), "--batch-size", str(CLI_BATCH), "--inflight", str(inflight),
+                 "--output", str(out)]))
+            return steady_rate(out, 4 * n_batches)
+
+        long_rates = [(w, long_run(w, i)) for i, w in enumerate((3, 1, 1, 3))]
+        print(f"[17 clis] run_bayes_select.run on {NUM_CLI} FITS spectra at "
+              f"S={params.num_dla_samples} N={params.num_pixels_padded} k={params.k} "
+              f"max_dlas={MAX_DLAS}, float32, --batch-size {CLI_BATCH} --inflight 3 "
+              f"--checkpoint | launches {path_launches['cli_catalog']} (no composition) | "
+              f"{det_cli} | arrays == process_batch on the FITS read back, same per-batch "
+              f"generators: {len(want_arrays)} datasets bit for bit | dispatch_batch under "
+              f"sync debug mode: {len(syncs)} synchronising calls, returned in "
+              f"{dispatch_ms:.2f} ms with the batch {'still running' if still_running else 'done'}"
+              f" | resumed after deleting part {CLI_BATCH}: bit for bit, launches "
+              f"{path_launches['cli_catalog_resume']} | --no-sample-lls: {len(lite.arrays)} "
+              f"datasets bit for bit, {', '.join(per_sample)} absent | "
+              f"GPY_DLA_RESAMPLER=systematic: {det_sys}; before resampling bit for bit; "
+              f"first two chained levels' |d log evidence| vs multinomial max {d_sys.max():.3e} "
+              f"(tol per spectrum max(10 x the spread of seeds 1 and 2, 0.5); spread max "
+              f"{spread.max():.3e}; beyond it: {sys_far}); third chained level max "
+              f"{d_deep.max():.3e} (tol per spectrum max(10 x the spread of "
+              f"{len(multi_seeds)} multinomial seeds, 0.5); beyond it: {deep_far}; with "
+              f"seeds 1 and 2 alone beyond it: {two_seed_far}); " + "; ".join(deep_detail)
+              + " | steady state "
+              f"{steady:.2f} spectra/s ({n_batches - 1} batches after the first, from the "
+              f"second's dispatch to the last's drain, .metrics.jsonl), first run {cli_s:.2f} s; "
+              f"over {4 * NUM_CLI} spectra ({4 * n_batches - 1} batches after the first), in "
+              f"turns: " + ", ".join(f"--inflight {w} {r:.2f}" for w, r in long_rates)
+              + " spectra/s "
+              f"| profiled --seed 1 run: device busy "
+              f"{busy_ms:.2f} ms of {prof_ms:.2f} ms wall ({100 * busy_ms / prof_ms:.1f}%) | "
+              f"peak memory {peak_mib:.1f} MiB at --inflight 3 ({mem_before / 2**20:.1f} MiB "
+              f"held before the run) | card {card}")
+        check(not syncs, f"dispatch_batch synchronised {len(syncs)} times: {syncs[:4]}")
+        check(not sys_far, f"systematic vs multinomial beyond the tolerance: {sys_far}")
+        check(not deep_far, f"systematic vs multinomial, third chained level, beyond the "
+                            f"tolerance: {deep_far}")
+
+        # the LLS and CIV CLIs on 8 FITS spectra each
+        lls_files = [
+            write_speclite(work / f"spec-0002-55555-{i:04d}.fits", *synthetic_observation(
+                lls_params, lls_arrays, z, seed=100 + i, dlas=None if tr is None else [tr],
+                with_lls_break=True))
+            for i, (z, tr) in enumerate(zip(lls_z_qsos, lls_truths))
+        ]
+        lls_run, launches = count_launches(lambda: quiet(lambda: run_find_lls.run(
+            ["--qso_list", *lls_files, "--z_qso_list", *map(repr, lls_z_qsos),
+             "--output", str(work / "lls.h5")])))
+        path_launches["cli_lls"] = launches
+        need = {"absorption_all": NUM_LLS, "logmvn_cap": MAX_LYA * NUM_LLS,
+                "logmvn_chain": MAX_LYA * NUM_LLS, "absorption_tail": 0,
+                "absorption_windowed": 0, "absorption_all_weideman": 0}
+        for name, n in need.items():
+            check(launches.get(name, 0) == n,
+                  f"LLS CLI: {name} launched {launches.get(name, 0)} != {n}")
+        p_lls = 1.0 - lls_run.arrays["model_posteriors"][:, 0]
+        dz_lls = [abs(float(lls_run.arrays["MAP_z_lyas"][i, 0, 0]) - tr[0])
+                  for i, tr in enumerate(lls_truths) if tr is not None]
+        clean = [p for p, tr in zip(p_lls, lls_truths) if tr is None]
+        inj = [p for p, tr in zip(p_lls, lls_truths) if tr is not None]
+        check(max(clean) < 0.1 and min(inj) > 0.9 and max(dz_lls) < 0.01,
+              f"LLS CLI detections: clean {clean}, injected {inj}, |dz| {dz_lls}")
+
+        civ_files = []
+        for i, (z, seed, inj_, cz, cn, cs) in enumerate(zip(
+                gc["z_qso"], gc["obs_seed"], civ_injected, gc["civ_z"], gc["civ_log_n"],
+                gc["civ_sigma"])):
+            wl, fx, nv, pm = synthetic_observation(civ_params, civ_arrays, float(z), int(seed))
+            if inj_:
+                fx = fx * civ_doublet_transmission(wl, float(cz), float(cn), float(cs))
+            civ_files.append(write_speclite(work / f"spec-0004-55555-{i:04d}.fits",
+                                            wl, fx, nv, pm))
+        civ_run, launches = count_launches(lambda: quiet(lambda: civ_cli.run(
+            ["--qso_list", *civ_files, "--z_qso_list", *[repr(float(z)) for z in gc["z_qso"]],
+             "--output", str(work / "civ.h5")])))
+        path_launches["cli_civ"] = launches
+        need = {"absorption_tail": len(civ_files), "logmvn_cap": len(civ_files),
+                "logmvn_chain": len(civ_files), "absorption_all": 0, "absorption_windowed": 0,
+                "absorption_all_weideman": 0}
+        for name, n in need.items():
+            check(launches.get(name, 0) == n,
+                  f"CIV CLI: {name} launched {launches.get(name, 0)} != {n}")
+        p_civ = civ_run.arrays["p_civs"]
+        civ_clean = [p for p, inj_ in zip(p_civ, civ_injected) if not inj_]
+        civ_inj = [p for p, inj_ in zip(p_civ, civ_injected) if inj_]
+        check(max(civ_clean) < 0.1 and min(civ_inj) > 0.9,
+              f"CIV CLI detections: clean {civ_clean}, injected {civ_inj}")
+        print(f"[17 clis] run_find_lls.run on {NUM_LLS} FITS spectra (S="
+              f"{lls_params.num_dla_samples}, N={lls_params.num_pixels_padded}, max_lya="
+              f"{MAX_LYA}, float32): launches {path_launches['cli_lls']} | clean max P(k>=1) "
+              f"{max(clean):.3e}, injected min {min(inj):.6f}, max |MAP z - truth| "
+              f"{max(dz_lls):.2e} || run_civ.run on {len(civ_files)} FITS spectra (S="
+              f"{civ_params.num_civ_samples}, float32): launches {path_launches['cli_civ']} | "
+              f"clean max p_civ {max(civ_clean):.3e}, injected min {min(civ_inj):.6f}")
 
     # phase 15's numbers beside each K5 and K6 row of the kernels line
     tail_extra = {n: {"device_ms_profiler": tail_dev[n], "bound_share": tail_share[n][0],

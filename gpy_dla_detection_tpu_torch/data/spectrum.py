@@ -166,12 +166,18 @@ def astype(spec: Spectrum, dtype) -> Spectrum:
 
 def to_torch(spec: Spectrum, device, dtype: torch.dtype) -> Spectrum:
     """A ``Spectrum`` (or stacked batch) with tensor fields on ``device``:
-    floating fields in ``dtype``, the mask boolean."""
-    return Spectrum(
-        *[
-            torch.as_tensor(np.asarray(f), device=device).to(
-                torch.bool if name == "mask" else dtype
-            )
-            for name, f in zip(Spectrum._fields, spec)
-        ]
-    )
+    floating fields in ``dtype``, the mask boolean.
+
+    A CUDA device gets the arrays through pinned buffers and non-blocking
+    copies, queued behind the work already on the stream: a copy from
+    pageable memory would wait for that work, so a caller could not queue
+    one batch while the device computes the last."""
+    pinned = torch.device(device).type == "cuda"
+
+    def put(name, f):
+        host = torch.as_tensor(np.asarray(f))
+        if pinned:
+            host = host.pin_memory()
+        return host.to(device, non_blocking=pinned).to(torch.bool if name == "mask" else dtype)
+
+    return Spectrum(*[put(name, f) for name, f in zip(Spectrum._fields, spec)])

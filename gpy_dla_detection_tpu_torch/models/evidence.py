@@ -42,6 +42,9 @@ from .learned import SpectrumModel
 
 
 VOIGT_IMPLS = ("windowed", "exact", "windowed_unfused", "windowed_weideman")
+# importance resamplers of the chained levels (the reference's
+# GPY_DLA_RESAMPLER): multinomial draws, or the rotated systematic comb
+RESAMPLERS = ("multinomial", "systematic")
 # absorption-profile families: "dla" = Lyman series only, "lls" = Lyman
 # series plus the Lyman-limit break
 PROFILES = ("dla", "lls")
@@ -119,11 +122,42 @@ def profile_store(abs_dtype: torch.dtype | None, dtype: torch.dtype) -> torch.dt
     raise TypeError(f"{dtype} profiles cannot be stored as {abs_dtype}")
 
 
-def _draw_base_indices(generator: torch.Generator, probs: torch.Tensor) -> torch.Tensor:
-    """S parent indices ~ Categorical(probs / sum(probs)): multinomial
-    inverse-CDF draws (the reference's default resampler)."""
+def systematic_comb(cdf: torch.Tensor, u0: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """The systematic resampler's S parent indices for the cumulative
+    weights ``cdf``: one uniform ``u0`` in [0, 1) places a stratified comb
+    ``(i + u0) * cdf[-1] / S``, each tooth takes the first category whose
+    cumulative weight exceeds it, and the comb is rolled by ``shift`` in
+    [0, S) (as ``numpy.roll``; ``u0`` and ``shift`` may be device tensors,
+    read on the device).
+
+    The roll matters: slot i of a chained level pairs parent ``base[i]``
+    with the fixed new sample i, so an unrolled comb under near-flat
+    weights gives ``base[i] == i``, every slot chains with itself, and the
+    3000 km/s pair cut voids the level.  A uniform roll keeps each slot's
+    marginal exact, the counts within 1 of S p_i, and the indices one
+    rotation of an ascending run."""
+    S = cdf.shape[0]
+    arange = torch.arange(S, dtype=cdf.dtype, device=cdf.device)
+    u = (arange + u0) * (cdf[-1] / S)
+    base = torch.clamp(torch.searchsorted(cdf, u, right=True), max=S - 1)
+    rolled = torch.remainder(torch.arange(S, device=cdf.device) - shift, S)
+    return base.index_select(0, rolled)
+
+
+def _draw_base_indices(
+    generator: torch.Generator, probs: torch.Tensor, resampler: str = "multinomial"
+) -> torch.Tensor:
+    """S parent indices ~ Categorical(probs / sum(probs)).
+
+    ``"multinomial"`` draws S inverse-CDF uniforms (the reference's default
+    resampler); ``"systematic"`` draws one comb offset and one roll
+    (:func:`systematic_comb`; the reference's ``GPY_DLA_RESAMPLER=systematic``)."""
     S = probs.shape[0]
     cdf = torch.cumsum(probs, dim=0)
+    if resampler == "systematic":
+        u0 = torch.rand((), generator=generator, dtype=probs.dtype, device=probs.device)
+        shift = torch.randint(0, S, (1,), generator=generator, device=probs.device)
+        return systematic_comb(cdf, u0, shift)
     u = torch.rand(
         S, generator=generator, dtype=probs.dtype, device=probs.device
     ) * cdf[-1]
@@ -162,6 +196,7 @@ def qmc_log_evidences(
     abs_dtype: torch.dtype | None = None,
     window_tier: bool = True,
     use_kernels: bool | None = None,
+    resampler: str = "multinomial",
 ) -> QMCEvidenceResult:
     """Marginalize the k-absorber models over the QMC sample set.
 
@@ -192,7 +227,13 @@ def qmc_log_evidences(
         ``use_pallas``; see ``ops.logmvn.batched_log_mvnpdf``): None takes
         K2 and K3 at any GP basis width; False the plain composition, on
         the CPU only.
+    :param resampler: ``"multinomial"`` (default, the reference's default)
+        or ``"systematic"`` (the rotated comb, :func:`systematic_comb`; the
+        reference's ``GPY_DLA_RESAMPLER=systematic``), both drawn from
+        ``generator``.
     """
+    if resampler not in RESAMPLERS:
+        raise ValueError(f"resampler must be one of {RESAMPLERS}, got {resampler!r}")
     S = offset_samples.shape[0]
     dtype, device = model.y.dtype, model.y.device
     log_S = math.log(S)
@@ -226,7 +267,7 @@ def qmc_log_evidences(
                 # uniform logits (its results are NaN-masked)
                 logits = torch.where(alive, logits, 0.0)
                 probs = torch.exp(logits - torch.max(logits))
-                base = _draw_base_indices(generator, probs)
+                base = _draw_base_indices(generator, probs, resampler)
             base_inds_rows.append(base)
             extra.append(A[base])  # in A's storage: int16 codes stay codes
             z_rows.append(z_samples[base])

@@ -140,6 +140,7 @@ def lls_log_evidences(
     abs_dtype: torch.dtype | None = None,
     window_tier: bool = True,
     use_kernels: bool | None = None,
+    resampler: str = "multinomial",
 ) -> tuple[torch.Tensor, QMCEvidenceResult]:
     """(null evidence, QMC result for 1..max_lya absorbers) for one
     spectrum with the LLS-break profile, on the learned model's device and
@@ -158,6 +159,8 @@ def lls_log_evidences(
         ``"windowed_unfused"``; ignored by the other configurations.
     :param use_kernels: the float32 likelihood's route (see
         ``ops.logmvn.batched_log_mvnpdf``).
+    :param resampler: ``"multinomial"`` or ``"systematic"`` (see
+        ``models.evidence.qmc_log_evidences``).
     """
     device, dtype = learned.mu.device, learned.mu.dtype
     model = build_spectrum_model(learned, to_torch(spec, device, dtype), params)
@@ -169,6 +172,7 @@ def lls_log_evidences(
         model, *sample_tensors(samples, device, dtype), generator, max_lya, params,
         base_inds_override=base_inds_override, voigt_impl=voigt_impl, profile="lls",
         abs_dtype=abs_dtype, window_tier=window_tier, use_kernels=use_kernels,
+        resampler=resampler,
     )
     return null_log_evidence(model), result
 
@@ -265,6 +269,7 @@ def lls_inference_many(
     abs_dtype: torch.dtype | None = None,
     window_tier: bool = True,
     use_kernels: bool | None = None,
+    resampler: str = "multinomial",
 ) -> list[tuple[float, QMCEvidenceResult]]:
     """The LLS search over many spectra.  Each batch of ``batch_size``
     spectra is stacked, moved to the device and modelled in one pass; the
@@ -277,7 +282,7 @@ def lls_inference_many(
     :param voigt_impl: as for :func:`lls_log_evidences`.
     :param base_inds_override: optional (n_spectra, max_lya - 1, S)
         resampling indices replacing the draws, in the order of ``specs``.
-    :param abs_dtype, window_tier, use_kernels: as for
+    :param abs_dtype, window_tier, use_kernels, resampler: as for
         :func:`lls_log_evidences`.
     :return: per spectrum (null evidence, QMC result as numpy arrays).
     """
@@ -298,6 +303,7 @@ def lls_inference_many(
                 SpectrumModel(*[f[i] for f in models]), *sample_t, generator,
                 max_lya, params, voigt_impl=voigt_impl, profile="lls",
                 abs_dtype=abs_dtype, window_tier=window_tier, use_kernels=use_kernels,
+                resampler=resampler,
                 base_inds_override=(
                     None if base_inds_override is None else base_inds_override[first + i]
                 ),

@@ -65,6 +65,7 @@ def compute_evidences(
     abs_dtype: torch.dtype | None = None,
     window_tier: bool = True,
     use_kernels: bool | None = None,
+    resampler: str = "multinomial",
 ) -> EvidenceOutputs:
     """All model evidences for one tensor spectrum.
 
@@ -81,6 +82,9 @@ def compute_evidences(
     :param use_kernels: the float32 likelihood's route (None: K2 and K3;
         False: the plain composition, on the CPU only; see
         ``ops.logmvn.batched_log_mvnpdf``).
+    :param resampler: the chained levels' importance resampler,
+        ``"multinomial"`` or ``"systematic"`` (see
+        ``models.evidence.qmc_log_evidences``).
     """
     model = build_spectrum_model(learned, spec, params)
     return EvidenceOutputs(
@@ -89,6 +93,7 @@ def compute_evidences(
             model, *dla, generator, max_dlas, params,
             base_inds_override=base_inds_override, voigt_impl=voigt_impl,
             abs_dtype=abs_dtype, window_tier=window_tier, use_kernels=use_kernels,
+            resampler=resampler,
         ),
         subdla=qmc_log_evidences(
             model, *sub, generator, 1, params, voigt_impl=voigt_impl,
@@ -104,9 +109,11 @@ class SpectrumResult(NamedTuple):
     log_evidence_null: float
     log_evidences_dla: np.ndarray  # (max_dlas,)
     log_evidence_subdla: float
-    sample_log_likelihoods_dla: np.ndarray  # (S, max_dlas)
-    sample_log_likelihoods_subdla: np.ndarray  # (S,)
-    base_sample_inds: np.ndarray  # (max_dlas - 1, S)
+    # the per-sample arrays are None in catalog-lite runs
+    # (parallel.batch.dispatch_batch with_sample_lls=False)
+    sample_log_likelihoods_dla: np.ndarray | None  # (S, max_dlas)
+    sample_log_likelihoods_subdla: np.ndarray | None  # (S,)
+    base_sample_inds: np.ndarray | None  # (max_dlas - 1, S)
     map_z_dlas: np.ndarray  # (max_dlas, max_dlas)
     map_log_nhis: np.ndarray  # (max_dlas, max_dlas)
     min_z_dla: float
@@ -129,7 +136,8 @@ def spectrum_result(
     prior: PriorCatalog,
     max_dlas: int,
 ) -> SpectrumResult:
-    """Host-side model selection for one spectrum's evidences."""
+    """Host-side model selection for one spectrum's evidences; ``dla_sll``,
+    ``sub_sll`` and ``base_inds`` may be None (catalog-lite)."""
     num_dlas, num_quasars = prior.less_ind(float(spec.z_qso))
     lp_dla = log_priors_k_dlas(num_dlas, num_quasars, max_dlas)
     lp_sub = log_priors_subdla(
@@ -142,7 +150,7 @@ def spectrum_result(
         log_evidences_dla=dla_ev,
         log_evidence_subdla=float(sub_ev[0]),
         sample_log_likelihoods_dla=dla_sll,
-        sample_log_likelihoods_subdla=sub_sll[:, 0],
+        sample_log_likelihoods_subdla=None if sub_sll is None else sub_sll[:, 0],
         base_sample_inds=base_inds,
         map_z_dlas=map_z,
         map_log_nhis=map_lognhi,
@@ -167,10 +175,12 @@ def process_spectrum(
     abs_dtype: torch.dtype | None = None,
     window_tier: bool = True,
     use_kernels: bool | None = None,
+    resampler: str = "multinomial",
 ) -> SpectrumResult:
     """Full Bayesian model selection for one preprocessed spectrum, on the
     learned model's device and dtype (``voigt_impl``, ``abs_dtype``,
-    ``window_tier`` and ``use_kernels`` as in :func:`compute_evidences`)."""
+    ``window_tier``, ``use_kernels`` and ``resampler`` as in
+    :func:`compute_evidences`)."""
     device, dtype = learned.mu.device, learned.mu.dtype
     out = compute_evidences(
         learned,
@@ -189,6 +199,7 @@ def process_spectrum(
         abs_dtype=abs_dtype,
         window_tier=window_tier,
         use_kernels=use_kernels,
+        resampler=resampler,
     )
     host = lambda t: t.detach().cpu().numpy()
     return spectrum_result(

@@ -353,13 +353,21 @@ def packed_flat_columns(k: int) -> tuple[int, ...]:
     return tuple(j * k + a for j, a in zip(cols, rows))
 
 
+@functools.lru_cache(maxsize=16)
+def _pair_index(k: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_packed_maps` as index tensors on ``device``, uploaded once
+    (an upload from pageable memory waits for the device's queue)."""
+    cols, rows = _packed_maps(k)
+    idx = lambda v: torch.as_tensor(v, dtype=torch.int64, device=device)
+    return idx(rows), idx(cols)
+
+
 def packed_pair_basis(M: torch.Tensor) -> torch.Tensor:
     """Packed lower-triangle pair basis ``P[n, r] = M[n, a_r] M[n, j_r]``:
     (N, k(k+1)/2), formed once per spectrum and shared by its likelihood
     calls."""
-    cols, rows = _packed_maps(M.shape[-1])
-    idx = lambda v: torch.as_tensor(v, dtype=torch.int64, device=M.device)
-    return M[:, idx(rows)] * M[:, idx(cols)]
+    rows, cols = _pair_index(M.shape[-1], M.device)
+    return M[:, rows] * M[:, cols]
 
 
 def unpack_capacitance(B: torch.Tensor, k: int) -> torch.Tensor:

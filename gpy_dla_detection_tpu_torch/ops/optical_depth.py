@@ -5,6 +5,8 @@ Port of ``gpy_dla_detection_tpu/ops/optical_depth.py``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import constants as C
@@ -20,13 +22,7 @@ def effective_optical_depth(wavelengths, beta, tau_0, z_qso, num_forest_lines: i
     :param z_qso: quasar redshift, broadcastable against (..., P, L).
     :return: (..., P, num_forest_lines).
     """
-    dtype, device = wavelengths.dtype, wavelengths.device
-    lam = torch.as_tensor(
-        C.LYMAN_WAVELENGTHS_A[:num_forest_lines], dtype=dtype, device=device
-    )
-    osc = torch.as_tensor(
-        C.LYMAN_OSCILLATOR_STRENGTHS[:num_forest_lines], dtype=dtype, device=device
-    )
+    lam, osc = _line_constants(num_forest_lines, wavelengths.dtype, wavelengths.device)
     lya_lam = float(C.LYMAN_WAVELENGTHS_A[0])
     lya_osc = float(C.LYMAN_OSCILLATOR_STRENGTHS[0])
 
@@ -35,6 +31,15 @@ def effective_optical_depth(wavelengths, beta, tau_0, z_qso, num_forest_lines: i
     tau = scale * one_plus_z**beta
     indicator = one_plus_z - 1.0 <= z_qso
     return tau * indicator
+
+
+@functools.lru_cache(maxsize=16)
+def _line_constants(num_forest_lines: int, dtype: torch.dtype, device: torch.device):
+    """The forest lines' wavelengths and oscillator strengths on
+    ``device``, uploaded once (an upload from pageable memory waits for
+    the device's queue)."""
+    put = lambda x: torch.as_tensor(x[:num_forest_lines], dtype=dtype, device=device)
+    return put(C.LYMAN_WAVELENGTHS_A), put(C.LYMAN_OSCILLATOR_STRENGTHS)
 
 
 def mean_flux_suppression(wavelengths, beta, tau_0, z_qso, num_forest_lines: int):

@@ -4,7 +4,11 @@ give the reference's values, and it names no module of the JAX package
 both ``jax`` and ``gpy_dla_detection_tpu`` blocked).
 
 The copies are held bit for bit (``array_equal``, ``==``): they are the
-same numpy code on the same inputs.
+same numpy code on the same inputs.  The CLIs' copies (``fits``,
+``build_catalog``, ``loaders``, ``PriorCatalog.from_mat``, ``metrics``,
+``prefetch``) read files written here: speclite and catalog FITS tables,
+and ``.mat`` (HDF5) files written with h5py; ``catalog_io`` is held in
+``tests/test_torch_catalog_io.py``.
 """
 
 import ast
@@ -18,15 +22,23 @@ import pytest
 
 from gpy_dla_detection_tpu import constants as JC
 from gpy_dla_detection_tpu import params as JP
+from gpy_dla_detection_tpu.data import build_catalog as JB
 from gpy_dla_detection_tpu.data import catalog as JCat
+from gpy_dla_detection_tpu.data import fits as JF
+from gpy_dla_detection_tpu.data import loaders as JLoad
 from gpy_dla_detection_tpu.data import samples as JS
 from gpy_dla_detection_tpu.data import spectrum as JSpec
 from gpy_dla_detection_tpu.models import lls as JL
 from gpy_dla_detection_tpu.models import selection as JSel
 from gpy_dla_detection_tpu.ops import kernel_config as JK
+from gpy_dla_detection_tpu.utils import metrics as JMet
+from gpy_dla_detection_tpu.utils import prefetch as JPre
 from gpy_dla_detection_tpu_torch import constants as TC
 from gpy_dla_detection_tpu_torch import params as TP
+from gpy_dla_detection_tpu_torch.data import build_catalog as TB
 from gpy_dla_detection_tpu_torch.data import catalog as TCat
+from gpy_dla_detection_tpu_torch.data import fits as TF
+from gpy_dla_detection_tpu_torch.data import loaders as TLoad
 from gpy_dla_detection_tpu_torch.data import samples as TS
 from gpy_dla_detection_tpu_torch.data import spectrum as TSpec
 from gpy_dla_detection_tpu_torch.data.synthetic import (
@@ -36,6 +48,10 @@ from gpy_dla_detection_tpu_torch.data.synthetic import (
 from gpy_dla_detection_tpu_torch.models import lls as TL
 from gpy_dla_detection_tpu_torch.models import selection as TSel
 from gpy_dla_detection_tpu_torch.ops import kernel_config as TK
+from gpy_dla_detection_tpu_torch.utils import metrics as TMet
+from gpy_dla_detection_tpu_torch.utils import prefetch as TPre
+
+from .test_fits import _block, _card, _write_speclite
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "gpy_dla_detection_tpu_torch"
@@ -214,3 +230,208 @@ print("ok")
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+_TFORMS = {np.dtype(">i8"): "K", np.dtype(">i4"): "J", np.dtype(">i2"): "I",
+           np.dtype(">f8"): "D", np.dtype(">f4"): "E", np.dtype("u1"): "B"}
+
+
+def _write_table(path, columns: dict, extname: str = "CATALOG"):
+    """One BINTABLE of scalar big-endian columns after an empty primary HDU."""
+    n = len(next(iter(columns.values())))
+    dtype = [(name, np.asarray(col).dtype.newbyteorder(">") if np.asarray(col).dtype.itemsize > 1
+              else np.dtype("u1")) for name, col in columns.items()]
+    rec = np.zeros(n, dtype=dtype)
+    for name, col in columns.items():
+        rec[name] = col
+    cards = [_card("XTENSION", "BINTABLE"), _card("BITPIX", 8), _card("NAXIS", 2),
+             _card("NAXIS1", rec.dtype.itemsize), _card("NAXIS2", n), _card("PCOUNT", 0),
+             _card("GCOUNT", 1), _card("TFIELDS", len(columns))]
+    for i, (name, dt) in enumerate(dtype, 1):
+        cards += [_card(f"TTYPE{i}", name), _card(f"TFORM{i}", _TFORMS[np.dtype(dt)])]
+    data = rec.tobytes()
+    with open(path, "wb") as f:
+        f.write(_block([_card("SIMPLE", True), _card("BITPIX", 8), _card("NAXIS", 0)]))
+        f.write(_block(cards + [_card("EXTNAME", extname)]))
+        f.write(data + b"\x00" * ((-len(data)) % 2880))
+
+
+def _assert_tables_equal(got, want):
+    assert [t["name"] for t in got] == [t["name"] for t in want]
+    for g, w in zip(got, want):
+        assert list(g["columns"]) == list(w["columns"])
+        for name in w["columns"]:
+            a, b = g["columns"][name], w["columns"][name]
+            assert a.dtype == b.dtype and np.array_equal(a, b), name
+
+
+def test_fits_copy_bit_for_bit(tmp_path):
+    """``read_fits_tables``, ``read_spec``, ``read_spec_dr14q``,
+    ``spec_reader`` and ``file_loader`` on a speclite file and a catalog
+    table; the reader's constants."""
+    rng = np.random.default_rng(5)
+    n = 700
+    path = str(tmp_path / "spec-1234-55555-0001.fits")
+    ivar = rng.uniform(0, 10, n).astype(np.float32)
+    ivar[::40] = 0.0
+    _write_speclite(path, rng.normal(size=n).astype(np.float32),
+                    (np.log10(3600.0) + 1e-4 * np.arange(n)).astype(np.float32), ivar,
+                    np.where(np.arange(n) % 55 == 0, 1 << 24, 0).astype(np.int32))
+    table = str(tmp_path / "table.fits")
+    _write_table(table, {"THING_ID": rng.integers(0, 1 << 40, 20), "Z_VI": rng.uniform(2, 5, 20),
+                         "PLATE": rng.integers(0, 9000, 20).astype(np.int32),
+                         "FLAG": rng.integers(0, 3, 20).astype(np.int16)})
+    for f in (path, table):
+        _assert_tables_equal(TF.read_fits_tables(f), JF.read_fits_tables(f))
+    for release in ("dr12q", "dr14q"):
+        assert TF.spec_reader(release).__name__ == JF.spec_reader(release).__name__
+        for a, b in zip(TF.spec_reader(release)(path), JF.spec_reader(release)(path)):
+            assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True)
+    with pytest.raises(ValueError, match="dr12q or dr14q"):
+        TF.spec_reader("dr16q")
+    assert TF.file_loader(7339, 56000, 12) == JF.file_loader(7339, 56000, 12)
+    assert (TF.BLOCK, TF._TFORM_DTYPES) == (JF.BLOCK, JF._TFORM_DTYPES)
+
+
+def test_build_catalog_copy_bit_for_bit(tmp_path):
+    """``build_catalog`` (with and without the ZWARNING filter),
+    ``load_dla_catalog_txt``, ``write_catalog_h5`` and ``write_file_list``
+    on a DR12Q-like table, a DR9Q table and DLA/LOS text catalogs."""
+    rng = np.random.default_rng(9)
+    n = 40
+    ids = rng.choice(np.arange(1, 10_000), n, replace=False).astype(np.int64)
+    dr12 = str(tmp_path / "DR12Q.fits")
+    _write_table(dr12, {
+        "THING_ID": ids, "RA": rng.uniform(0, 360, n), "DEC": rng.uniform(-10, 60, n),
+        "PLATE": np.where(np.arange(n) % 7 == 0, 7339, 5000 + np.arange(n)).astype(np.int32),
+        "MJD": rng.integers(55000, 57000, n).astype(np.int32),
+        "FIBERID": rng.integers(1, 1000, n).astype(np.int32), "Z_VI": rng.uniform(1.8, 5, n),
+        "SNR_SPEC": rng.uniform(0, 20, n), "BAL_FLAG_VI": rng.integers(0, 2, n).astype(np.int16),
+        "ZWARNING": rng.choice([0, 16, 4, 20], n).astype(np.int32),
+    })
+    dr9 = str(tmp_path / "DR9Q.fits")
+    _write_table(dr9, {"THING_ID": ids[::3]})
+    dla_txt, los_txt = str(tmp_path / "dla.txt"), str(tmp_path / "los.txt")
+    dla_rows = np.column_stack([ids[[1, 4, 4, 9]], [2.5, 2.7, 3.1, 2.2], [20.5, 21.0, 20.4, 22.1]])
+    np.savetxt(dla_txt, dla_rows)
+    np.savetxt(los_txt, ids[: n // 2], fmt="%d")
+    for a, b in zip(TB.load_dla_catalog_txt(dla_txt, los_txt),
+                    JB.load_dla_catalog_txt(dla_txt, los_txt)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    for zwarning in (False, True):
+        kw = dict(dr9q_fits=dr9, dla_catalogs={"dr9": (dla_txt, los_txt)},
+                  zwarning_filter=zwarning)
+        got, want = TB.build_catalog(dr12, **kw), JB.build_catalog(dr12, **kw)
+        assert list(got) == list(want)
+        for key, w in want.items():
+            g = got[key]
+            if isinstance(w, dict):
+                assert list(g) == list(w)
+                assert all(np.array_equal(g[k], w[k], equal_nan=True) for k in w), key
+            else:
+                assert g.dtype == w.dtype and np.array_equal(g, w), key
+    for mod, name in ((TB, "t"), (JB, "j")):
+        mod.write_catalog_h5(str(tmp_path / f"{name}.h5"), want)
+        assert mod.write_file_list(str(tmp_path / f"{name}.txt"), want) >= 1
+    assert (tmp_path / "t.txt").read_text() == (tmp_path / "j.txt").read_text()
+    import h5py
+
+    with h5py.File(tmp_path / "t.h5") as t, h5py.File(tmp_path / "j.h5") as j:
+        names = []
+        j.visit(names.append)
+        for name in names:
+            if isinstance(j[name], h5py.Dataset):
+                assert np.array_equal(t[name][()], j[name][()], equal_nan=True), name
+    assert np.array_equal(TB.V_5_7_2_PLATES, JB.V_5_7_2_PLATES)
+    assert [getattr(TB, f) for f in dir(JB) if f.startswith("FILTER_")] == [
+        getattr(JB, f) for f in dir(JB) if f.startswith("FILTER_")]
+
+
+def test_loaders_and_from_mat_copy_bit_for_bit(tmp_path):
+    """``load_learned_model`` (the port returns the reference container's
+    fields as numpy), ``load_dla_samples``, ``load_subdla_samples`` and
+    ``PriorCatalog.from_mat`` on ``.mat`` files written with h5py."""
+    import h5py
+
+    params = JP.Parameters(num_dla_samples=64)
+    learned = str(tmp_path / "learned.mat")
+    JLoad.save_learned_model(learned, synthetic_learned_model(TP.Parameters()))
+    got, want = TLoad.load_learned_model(learned), JLoad.load_learned_model(learned)
+    assert got._fields == tuple(want._fields)
+    for f, a, b in zip(want._fields, got, want):
+        assert np.asarray(a).dtype == np.asarray(b).dtype and np.array_equal(a, b), f
+
+    dla, sub = JS.generate_dla_samples(params), JS.generate_subdla_samples(params)
+    with h5py.File(tmp_path / "dla.mat", "w") as f:
+        for name in ("offset_samples", "log_nhi_samples", "nhi_samples"):
+            f.create_dataset(name, data=getattr(dla, name)[:, None])
+        for name in ("alpha", "uniform_min_log_nhi", "uniform_max_log_nhi"):
+            f.create_dataset(name, data=np.reshape(getattr(dla, name), (1, 1)))
+    with h5py.File(tmp_path / "sub.mat", "w") as f:
+        f.create_dataset("offset_samples", data=sub.offset_samples[:, None])
+        f.create_dataset("lls_log_nhi_samples", data=sub.log_nhi_samples[:, None])
+        f.create_dataset("lls_nhi_samples", data=sub.nhi_samples[:, None])
+        f.create_dataset("Z_lls", data=np.reshape(sub.Z_lls, (1, 1)))
+        f.create_dataset("Z_dla", data=np.reshape(sub.Z_dla, (1, 1)))
+    tparams = TP.Parameters(num_dla_samples=64)
+    for loader, name in (("load_dla_samples", "dla.mat"), ("load_subdla_samples", "sub.mat")):
+        got = getattr(TLoad, loader)(str(tmp_path / name), tparams)
+        want = getattr(JLoad, loader)(str(tmp_path / name), params)
+        assert got._fields == want._fields
+        assert all(_equal(a, b) for a, b in zip(got, want)), loader
+
+    rng = np.random.default_rng(2)
+    n = 300
+    ids = rng.choice(np.arange(1, 100_000), n, replace=False)
+    with h5py.File(tmp_path / "catalog.mat", "w") as f:
+        f.create_dataset("in_dr9", data=(rng.uniform(size=(1, n)) < 0.8).astype(np.uint8))
+        f.create_dataset("z_qsos", data=rng.uniform(2.0, 5.0, (1, n)))
+        f.create_dataset("filter_flags", data=rng.choice([0, 0, 0, 1], (1, n)).astype(np.uint8))
+        f.create_dataset("thing_ids", data=ids[None, :].astype(np.float64))
+    dla_ids = rng.choice(ids, 40)  # duplicates: multi-DLA sightlines
+    np.savetxt(tmp_path / "dla.txt", np.column_stack(
+        [dla_ids, rng.uniform(1.8, 4.5, 40), rng.uniform(20.3, 22.0, 40)]))
+    np.savetxt(tmp_path / "los.txt", ids[: 2 * n // 3], fmt="%d")
+    args = (str(tmp_path / "catalog.mat"), str(tmp_path / "los.txt"), str(tmp_path / "dla.txt"))
+    for kw in ({}, {"use_in_dr9": False, "require_filter_flags_zero": False}):
+        got = TCat.PriorCatalog.from_mat(TP.Parameters(), *args, **kw)
+        want = JCat.PriorCatalog.from_mat(JP.Parameters(), *args, **kw)
+        for f in ("z_qsos", "dla_ind", "thing_ids", "z_dlas", "log_nhis"):
+            a, b = getattr(got, f), getattr(want, f)
+            assert a.dtype == b.dtype and _equal(a, b), f
+        for zq in rng.uniform(2.0, 5.0, 10):
+            assert got.less_ind(zq) == want.less_ind(zq)
+
+
+def test_metrics_and_prefetch_copies(tmp_path):
+    """``RunLogger`` writes the same events (less their clocks) and
+    ``read_metrics`` reads them back; ``prefetch_map`` yields in order and
+    raises where the reference's does."""
+    for mod, name in ((TMet, "t"), (JMet, "j")):
+        log = mod.RunLogger(str(tmp_path / f"{name}.jsonl"), run_config={"devices": 1})
+        log.batch(index=0, size=4, done=4, total=9, seconds=0.5, span_seconds=1.25)
+        log.failure("gone.fits", "FileNotFoundError: gone")
+        log.emit("note", value=np.float32(2.5), item=Path("x"))
+        log.finish(spectra_processed=4)
+        mod.RunLogger(None).emit("ignored")
+    strip = lambda events: [{k: v for k, v in e.items() if k not in ("ts", "elapsed_s",
+                                                                     "spectra_per_sec")}
+                            for e in events]
+    got = TMet.read_metrics(str(tmp_path / "t.jsonl"))
+    assert strip(got) == strip(JMet.read_metrics(str(tmp_path / "j.jsonl")))
+    assert [e["event"] for e in got] == ["run_start", "batch_done", "spectrum_failed", "note",
+                                         "run_end"]
+
+    def square(x):
+        if x == 7:
+            raise KeyError(x)
+        return x * x
+
+    for depth in (1, 2, 5):
+        assert list(TPre.prefetch_map(square, range(7), depth)) == list(
+            JPre.prefetch_map(square, range(7), depth))
+        for mod in (TPre, JPre):
+            with pytest.raises(KeyError):
+                list(mod.prefetch_map(square, range(9), depth))
+    with pytest.raises(ValueError, match="depth must be >= 1"):
+        list(TPre.prefetch_map(square, range(3), 0))
