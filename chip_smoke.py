@@ -125,6 +125,22 @@ Phases, one line each; any failure exits non-zero before the result:
      the wall; then run_find_lls.run and run_civ.run on 8 FITS spectra each
      with launch counts and detections; the catalog CLI's steady-state
      spectra/s from its .metrics.jsonl (the first batch skipped)
+ 18. the zQSO head at ZParameters() (Z = 10,000 candidate redshifts, k = 20,
+     P = 5,632): the JAX package's float64 scans of 4 spectra
+     (tests/data/torch_golden_zqso.npz) replayed from their seeds through
+     inference_z_qso_many, the correlation scan on all 4 and the exact scan
+     on the first (the same z_map and NaN pattern, every finite |dll| within
+     1e-4 of the largest finite |ll|, within 1% of the peak's margin near
+     the peak), one K3 launch a spectrum (the correlation scan's solves) and
+     none for the exact scan, no composition; K3 on the zQSO's own inputs
+     against its twin, its device ms beside the catalog's and its bound;
+     the library path on 8 spectra (one K3 launch each, every |z_map -
+     z_true| < 0.5, the count within 0.05), its dispatch under CUDA's sync
+     debug mode set to error; spectra/s on 128 spectra, 4x the window of 32
+     scans in flight (median of 3 passes after a warm-up), the device's
+     busy share and peak memory of a profiled pass over them;
+     run_zqso_estimation.run on 8 FITS spectra at k = 20, --device cuda,
+     bit for bit the library path's z_map on the files read back
 Every other phase asserts that the Weideman window is never launched, and
 every phase before 14 that no int16 instantiation is.
 Then a JSON line of the kernels, the card line, and the result line.
@@ -161,6 +177,7 @@ GOLDEN = ROOT / "tests" / "data" / "torch_golden_fullscale.npz"
 GOLDEN_LLS = ROOT / "tests" / "data" / "torch_golden_lls.npz"
 GOLDEN_CIV = ROOT / "tests" / "data" / "torch_golden_civ.npz"
 GOLDEN_I16 = ROOT / "tests" / "data" / "torch_golden_i16.npz"
+GOLDEN_ZQSO = ROOT / "tests" / "data" / "torch_golden_zqso.npz"
 ABLATE_SCRIPT = ROOT / "scripts" / "kernel_ablate_torch.py"
 NUM_SPECTRA = 16
 NUM_EXACT = 4
@@ -169,6 +186,9 @@ NUM_WEIDEMAN = 4
 NUM_LLS = 8
 NUM_I16 = 4  # spectra of each configuration in int16 storage (phase 14)
 NUM_CLI = 32  # FITS spectra through the catalog CLI (phase 17)
+NUM_ZQSO = 8  # zQSO spectra through the library path and the CLI (phase 18)
+NUM_ZQSO_RATE = 128  # zQSO spectra timed: 4x inference_z_qso_many's 32 in flight
+ZQSO_Z_SEED = 3  # their z_true, uniform in 2.4-4.6
 CLI_BATCH = 8
 MAX_DLAS = 4
 ENSEMBLE_SEEDS = 24  # multinomial seeds whose spread holds the third chained level
@@ -203,6 +223,12 @@ MAX_DCODE = 1  # int16 codes, kernel vs twin: a ~3e-7 float32 difference moves a
 MEDIAN_VS_F64 = 7.4e-4
 MAX_VS_F64 = 3.8e-3
 ABS_GOLDEN_P_DLA = 1e-3
+# the zQSO scans against the JAX float64 golden: every finite |dll| within
+# this share of the largest finite |ll| (float32 FFTs, and far from the
+# peak |ll| reaches ~1e5), and within +-0.2 of the peak within this share of
+# the peak's margin (tests/test_zqso.py::test_corr_scan_matches_shift_and_exact)
+REL_ZQSO_GLOBAL = 1e-4
+NEAR_PEAK_ZQSO = 0.01
 
 # published H100 SXM peaks (NVIDIA data sheet; 700 W): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores
@@ -533,7 +559,7 @@ def main() -> None:
         logmvn_flat_chain_reference,
     )
     from gpy_dla_detection_tpu_torch.ops.logmvn import batched_log_mvnpdf, decode_profile_store
-    from gpy_dla_detection_tpu_torch.ops.timing import device_ms
+    from gpy_dla_detection_tpu_torch.ops.timing import SENTINEL_KERNEL, device_ms, prime_profiler
     from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
         assemble_reference,
         logmvn_cap,
@@ -2137,6 +2163,207 @@ def main() -> None:
               f"{civ_params.num_civ_samples}, float32): launches {path_launches['cli_civ']} | "
               f"clean max p_civ {max(civ_clean):.3e}, injected min {min(civ_inj):.6f}")
 
+    # 18. the zQSO head at ZParameters() (Z = 10,000 candidates, k = 20,
+    # P = 5,632): golden parity with the JAX float64 scans, the library
+    # path (the correlation scan, its solves on K3), the CLI
+    t18 = time.perf_counter()
+    from gpy_dla_detection_tpu_torch import run_zqso_estimation
+    from gpy_dla_detection_tpu_torch.data.synthetic import (
+        synthetic_z_learned_model,
+        synthetic_z_observation,
+    )
+    from gpy_dla_detection_tpu_torch.models import zqso_corr
+    from gpy_dla_detection_tpu_torch.models.zqso import (
+        dispatch_scan,
+        inference_z_qso_many,
+        prepare_z_spectrum,
+    )
+    from gpy_dla_detection_tpu_torch.params import ZParameters
+
+    def scan_rules(got, want, grid, label):
+        """The same NaN pattern and MAP; every finite |dll| within
+        REL_ZQSO_GLOBAL of the largest finite |ll|, and within +-0.2 of the
+        peak within NEAR_PEAK_ZQSO of the peak's margin: (global share,
+        near-peak share of the margin)."""
+        check(np.array_equal(np.isnan(got), np.isnan(want)), f"{label}: NaN pattern differs")
+        fin = np.isfinite(want)
+        peak = int(np.nanargmax(want))
+        check(int(np.nanargmax(got)) == peak, f"{label}: MAP index {int(np.nanargmax(got))} "
+                                              f"!= {peak}")
+        d = np.abs(got.astype(np.float64) - want)
+        rel = float(d[fin].max() / np.abs(want[fin]).max())
+        near = fin & (np.abs(grid - grid[peak]) < 0.2)
+        margin = float(want[peak] - want[fin & (np.abs(grid - grid[peak]) > 0.2)].max())
+        share = float(d[near].max() / margin)
+        check(rel <= REL_ZQSO_GLOBAL and 0 < margin and share <= NEAR_PEAK_ZQSO,
+              f"{label}: |dll| {rel:.3e} of max|ll| (tol {REL_ZQSO_GLOBAL}), near the peak "
+              f"{share:.3e} of the margin {margin:.3f} (tol {NEAR_PEAK_ZQSO})")
+        return rel, share
+
+    gz = np.load(GOLDEN_ZQSO)
+    zparams = ZParameters()
+    zk, z_seed = int(gz["k"]), int(gz["model_seed"])
+    z_learned = synthetic_z_learned_model(z_seed, zk).to(device, torch.float32)
+    step = int(gz["flux_probe_step"])
+    golden_specs = []
+    for z, obs_seed, probe in zip(gz["z_true"], gz["obs_seed"], gz["flux_probe"]):
+        _, obs = synthetic_z_observation(float(z), seed=z_seed, k=zk, obs_seed=int(obs_seed))
+        check(np.array_equal(obs[1][::step], probe), "zQSO golden: a regenerated flux differs")
+        golden_specs.append(prepare_z_spectrum(*obs, zparams.num_pixels_padded))
+    # the first spectrum's inputs to K3, kept as the scan hands them over
+    k3_zqso_inputs = []
+    chain_in_scan = zqso_corr.logmvn_chain
+
+    def keep_first(B, u, misc):
+        if not k3_zqso_inputs:
+            k3_zqso_inputs.append((B, u, misc))
+        return chain_in_scan(B, u, misc)
+
+    zqso_corr.logmvn_chain = keep_first
+    try:
+        (corr_res, z_grid_np), launches = count_launches(lambda: inference_z_qso_many(
+            z_learned, golden_specs, zparams, method="corr", keep_lls=True))
+    finally:
+        zqso_corr.logmvn_chain = chain_in_scan
+    path_launches["zqso_golden_corr"] = launches
+    check(launches.get("logmvn_chain", 0) == len(golden_specs) and set(launches) == {
+        "logmvn_chain"}, f"zQSO golden corr: launches {launches}")
+    check(np.array_equal(z_grid_np, gz["z_grid"]), "zQSO: the z grid differs from the golden's")
+    golden_rules = [scan_rules(lls, want, z_grid_np, f"zQSO golden corr {i}")
+                    for i, ((_, lls), want) in enumerate(zip(corr_res, gz["lls_corr"]))]
+    check([z for z, _ in corr_res] == list(gz["z_map_corr"]),
+          f"zQSO golden corr: z_map {[z for z, _ in corr_res]} != {list(gz['z_map_corr'])}")
+    (exact_res, _), launches = count_launches(lambda: inference_z_qso_many(
+        z_learned, golden_specs[:1], zparams, method="exact", keep_lls=True))
+    path_launches["zqso_golden_exact"] = launches
+    check(not launches, f"zQSO golden exact: launches {launches} (it runs no kernel)")
+    exact_rules = scan_rules(exact_res[0][1], gz["lls_exact"][0], z_grid_np, "zQSO golden exact")
+    check(exact_res[0][0] == gz["z_map_exact"][0],
+          f"zQSO golden exact: z_map {exact_res[0][0]} != {gz['z_map_exact'][0]}")
+
+    # K3 on the zQSO's own inputs against its twin, and its bound
+    B_z, u_z, misc_z = k3_zqso_inputs[0]
+    ll_zk = logmvn_chain(B_z, u_z, misc_z)
+    ll_zt = logmvn_chain_reference(B_z, u_z, misc_z)
+    k3_zqso_err = float((ll_zk - ll_zt).abs().max())
+    check(k3_zqso_err <= REL_K23 * float(ll_zt.abs().max()),
+          f"K3 at the zQSO's inputs: |dll| {k3_zqso_err:.3e} > {REL_K23} max|ll|")
+    err["logmvn_chain"] = max(err["logmvn_chain"], k3_zqso_err)
+    k3_zqso_bound = bound(*k3_work(*u_z.shape))
+    k3_zqso_ms = device_ms(lambda: logmvn_chain(B_z, u_z, misc_z))[0]
+
+    # the library path on NUM_ZQSO spectra of the golden's model (the
+    # first NUM_ZQSO of the NUM_ZQSO_RATE that are timed)
+    z_true_rate = np.random.default_rng(ZQSO_Z_SEED).uniform(2.4, 4.6, NUM_ZQSO_RATE)
+    rate_specs = [
+        prepare_z_spectrum(*synthetic_z_observation(float(z), seed=z_seed, k=zk,
+                                                    obs_seed=50 + i)[1])
+        for i, z in enumerate(z_true_rate)
+    ]
+    z_true_lib, lib_specs = z_true_rate[:NUM_ZQSO], rate_specs[:NUM_ZQSO]
+    run_zqso = lambda: inference_z_qso_many(z_learned, lib_specs, zparams)
+    (lib_res, _), launches = count_launches(run_zqso)
+    path_launches["zqso"] = launches
+    check(launches.get("logmvn_chain", 0) == NUM_ZQSO and set(launches) == {"logmvn_chain"},
+          f"zQSO library path: launches {launches}")
+    z_lib = np.array([z for z, _ in lib_res])
+    dz_lib = np.abs(z_lib - z_true_lib)
+    check((dz_lib < 0.5).all(), f"zQSO: |z_map - z_true| {dz_lib} not all < 0.5")
+
+    # dispatch under CUDA's sync debug mode set to error: any synchronising
+    # call in it raises
+    def dispatch_all():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            pending = [dispatch_scan(z_learned, s, zparams)[1] for s in lib_specs]
+            spent = (time.perf_counter() - t0) * 1e3
+            running = not pending[-1].done.query()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return pending, spent, running
+
+    (pending_z, zqso_dispatch_ms, zqso_running), launches = count_launches(dispatch_all)
+    path_launches["zqso_dispatch"] = launches
+    z_disp = np.array([z_grid_np[np.nanargmax(p.result())] for p in pending_z])
+    check(np.array_equal(z_disp, z_lib), "zQSO: the dispatched scans' MAPs differ")
+    # the rate at steady state: NUM_ZQSO_RATE spectra keep the window of
+    # scans in flight full; then one profiled pass over them
+    run_rate = lambda: inference_z_qso_many(z_learned, rate_specs, zparams)
+    run_rate()
+    zqso_rate = rate_of(run_rate, NUM_ZQSO_RATE)
+    torch.cuda.synchronize()
+    zqso_mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prime_profiler()
+        t_prof = time.perf_counter()
+        run_rate()
+        torch.cuda.synchronize()
+        zqso_prof_ms = (time.perf_counter() - t_prof) * 1e3
+    zqso_peak_mib = (torch.cuda.max_memory_allocated() - zqso_mem_before) / 2**20
+    device_rows = [e for e in prof.key_averages()
+                   if e.device_type != torch.autograd.DeviceType.CPU
+                   and SENTINEL_KERNEL not in e.key]
+    zqso_busy_ms = sum(e.self_device_time_total for e in device_rows) / 1e3
+    zqso_records = sum(e.count for e in device_rows) / NUM_ZQSO_RATE
+
+    # the CLI on NUM_ZQSO FITS spectra at full width: its synthetic
+    # fallback model made the golden's (k = 20; the card has no h5py for
+    # --learned-file), against the library path on the files read back
+    fallback = run_zqso_estimation.synthetic_z_learned_model
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
+        work = Path(work)
+        z_files = [
+            write_speclite(work / f"spec-0005-55555-{i:04d}.fits", *synthetic_z_observation(
+                float(z), seed=z_seed, k=zk, obs_seed=300 + i)[1])
+            for i, z in enumerate(z_true_lib)
+        ]
+        run_zqso_estimation.synthetic_z_learned_model = lambda: fallback(z_seed, zk)
+        try:
+            zcli, launches = count_launches(lambda: quiet(lambda: run_zqso_estimation.run(
+                ["--qso_list", *z_files, "--device", "cuda", "--output", str(work / "z.h5")])))
+        finally:
+            run_zqso_estimation.synthetic_z_learned_model = fallback
+        path_launches["cli_zqso"] = launches
+        check(launches.get("logmvn_chain", 0) == NUM_ZQSO and set(launches) == {"logmvn_chain"},
+              f"zQSO CLI: launches {launches}")
+        (read_res, _), launches = count_launches(lambda: inference_z_qso_many(
+            z_learned,
+            [prepare_z_spectrum(*read_spec(f), zparams.num_pixels_padded) for f in z_files],
+            zparams))
+        path_launches["zqso_fits_read_back"] = launches
+    z_read = np.array([z for z, _ in read_res])
+    check(zcli.qso_list == z_files and zcli.z_map.tobytes() == z_read.tobytes(),
+          f"zQSO CLI z_map {zcli.z_map} != the library path's {z_read}")
+    dz_cli = np.abs(zcli.z_map - z_true_lib)
+    print(f"[18 zqso] {card} | Z={zparams.num_zqso_samples} k={zk} P="
+          f"{zparams.num_pixels_padded}, float32 | golden parity vs JAX float64 "
+          f"(tests/data/torch_golden_zqso.npz, {len(golden_specs)} spectra): corr z_map equal ("
+          + ", ".join(f"{z:.4f}" for z in gz["z_map_corr"]) + " for z_true "
+          + ", ".join(f"{z:.4f}" for z in gz["z_true"]) + "), |dll| max " + ", ".join(f"{r:.3e}" for r, _ in golden_rules)
+          + f" of max|ll| (tol {REL_ZQSO_GLOBAL}), near the peak "
+          + ", ".join(f"{s:.3e}" for _, s in golden_rules)
+          + f" of the margin (tol {NEAR_PEAK_ZQSO}); exact z_map equal {gz['z_map_exact'][0]:.4f}, "
+          f"{exact_rules[0]:.3e} / {exact_rules[1]:.3e} | K3 at the zQSO's inputs (S="
+          f"{u_z.shape[0]}, k={u_z.shape[1]}): |dll| vs twin {k3_zqso_err:.3e}, device "
+          f"{k3_zqso_ms:.4f} ms a launch (profiler over 50 launches, ops/timing.device_ms; the "
+          f"catalog's {k3_device['logmvn_chain'][0]:.4f} ms, phase 10), bound "
+          f"{k3_zqso_bound[0]:.4f} ms ({k3_zqso_bound[1]}) | library path, "
+          f"{NUM_ZQSO} spectra: launches {path_launches['zqso']}, |z_map - z_true| max "
+          f"{dz_lib.max():.4f}, {int((dz_lib < 0.05).sum())} of {NUM_ZQSO} within 0.05; dispatch "
+          f"of {NUM_ZQSO} scans under sync debug mode 'error' {zqso_dispatch_ms:.2f} ms, the last "
+          f"{'still running' if zqso_running else 'done'} at its end | {NUM_ZQSO_RATE} spectra: "
+          f"{zqso_rate:.2f} spectra/s (median of 3 passes after a warm-up); profiled pass: device "
+          f"busy {zqso_busy_ms:.2f} ms of {zqso_prof_ms:.2f} ms wall "
+          f"({100 * zqso_busy_ms / zqso_prof_ms:.1f}%), {zqso_records:.1f} device records a "
+          f"spectrum; peak memory {zqso_peak_mib:.1f} MiB above the "
+          f"{zqso_mem_before / 2**20:.1f} MiB held | CLI run_zqso_estimation.run on "
+          f"{NUM_ZQSO} FITS spectra (synthetic fallback model at k={zk}): launches "
+          f"{path_launches['cli_zqso']}, z_map == the library path's on the files read back "
+          f"bit for bit, |z_map - z_true| max {dz_cli.max():.4f} | {time.perf_counter() - t18:.1f} s")
+
     # phase 15's numbers beside each K5 and K6 row of the kernels line
     tail_extra = {n: {"device_ms_profiler": tail_dev[n], "bound_share": tail_share[n][0],
                       "copy_rate_share": tail_share[n][1], "copy_rate_gbs": copy_gbs,
@@ -2160,6 +2387,10 @@ def main() -> None:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library.get(name),
          **({"device_ms": k3_device[name][0]} if name in k3_device else {}),
+         **({"launches_zqso": sum(p.get(name, 0) for n, p in path_launches.items()
+                                  if "zqso" in n),
+             "device_ms_zqso": k3_zqso_ms, "bound_ms_zqso": k3_zqso_bound[0],
+             "max_abs_err_zqso": k3_zqso_err} if name == "logmvn_chain" else {}),
          **({"device_ms_by_rows": {n: d for n, (d, _) in k5_device.items()}}
             if name == "absorption_tail" else {}),
          **({"device_ms": k1_device[name][0], "device_ms_profiler": k1_device[name][1],

@@ -7,14 +7,16 @@ returns the learned GP as numpy arrays in the reference container's field
 order (:class:`~.synthetic.LearnedArrays`), which
 ``models.learned.LearnedModel.from_numpy`` moves to a device.  h5py is
 imported inside each loader: the CLIs import this module on machines
-without it.  The zQSO loader (``load_z_learned_model``) comes with the
-port of the zQSO model.
+without it.  ``load_z_learned_model`` returns the port's
+``models.zqso.ZLearnedModel`` with numpy fields, and
+``save_z_learned_model`` writes one in the reference's layout.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..models.zqso import ZLearnedModel
 from ..params import Parameters
 from .samples import DLASamples, SubDLASamples
 from .synthetic import LearnedArrays
@@ -37,6 +39,22 @@ def load_learned_model(
             log_beta=np.float64(f["log_beta"][0, 0]),
             prev_tau_0=np.float64(prev_tau_0),
             prev_beta=np.float64(prev_beta),
+        )
+
+
+def load_z_learned_model(filename: str) -> ZLearnedModel:
+    """Load a trained zQSO GP (reference: zqso_gp.py:293-319)."""
+    import h5py
+
+    with h5py.File(filename, "r") as f:
+        return ZLearnedModel(
+            rest_wavelengths=f["rest_wavelengths"][:, 0],
+            mu=f["mu"][:, 0],
+            M=f["M"][()].T,
+            bluewards_mu=np.float64(f["bluewards_mu"][0, 0]),
+            bluewards_sigma=np.float64(f["bluewards_sigma"][0, 0]),
+            redwards_mu=np.float64(f["redwards_mu"][0, 0]),
+            redwards_sigma=np.float64(f["redwards_sigma"][0, 0]),
         )
 
 
@@ -70,3 +88,25 @@ def load_subdla_samples(filename: str, params: Parameters) -> SubDLASamples:
             Z_lls=float(f["Z_lls"][0, 0]),
             Z_dla=float(f["Z_dla"][0, 0]),
         )
+
+
+def save_z_learned_model(filename: str, learned: ZLearnedModel) -> None:
+    """Write a zQSO GP in the reference's .mat v7.3 layout
+    (reference: zqso_gp.py:293-319)."""
+    import h5py
+
+    with h5py.File(filename, "w") as f:
+        f.create_dataset(
+            "rest_wavelengths", data=np.asarray(learned.rest_wavelengths)[:, None]
+        )
+        f.create_dataset("mu", data=np.asarray(learned.mu)[:, None])
+        f.create_dataset("M", data=np.asarray(learned.M).T)
+        for name in [
+            "bluewards_mu",
+            "bluewards_sigma",
+            "redwards_mu",
+            "redwards_sigma",
+        ]:
+            f.create_dataset(
+                name, data=np.asarray(getattr(learned, name)).reshape(1, 1)
+            )

@@ -1,11 +1,13 @@
 """Synthetic learned models, catalogs, and spectra (numpy only).
 
-A copy of the generators of ``gpy_dla_detection_tpu/data/synthetic.py``
-that the catalog path uses, without the JAX model container: the learned
-GP comes back as :class:`LearnedArrays`, plain numpy arrays in the field
-order of the reference's ``LearnedModel``, which
-``models.learned.LearnedModel.from_numpy`` moves to a device.  For the
-same seed every array is bit-identical to the reference's.
+A copy of the generators of ``gpy_dla_detection_tpu/data/synthetic.py``,
+without the JAX model containers: the learned GP comes back as
+:class:`LearnedArrays`, plain numpy arrays in the field order of the
+reference's ``LearnedModel``, which
+``models.learned.LearnedModel.from_numpy`` moves to a device; the zQSO GP
+as the port's ``models.zqso.ZLearnedModel`` with numpy fields, which its
+``to`` moves.  For the same seed every array is bit-identical to the
+reference's.
 """
 
 from __future__ import annotations
@@ -292,3 +294,80 @@ def synthetic_civ_spectrum(
     if civ is not None:
         flux = flux * civ_doublet_transmission(wl, *civ)
     return preprocess(wl, flux, nv, mask, z_qso, params)
+
+
+def synthetic_z_learned_model(seed: int = 0, k: int = 5):
+    """Generative synthetic zQSO GP over the wide 910-3000 A window:
+    Lya / CIV / MgII emission bumps on a unit continuum, smooth
+    eigenvectors, and blueward/redward iid statistics
+    (reference model layout: zqso_gp.py:288-319), as the port's
+    ``ZLearnedModel`` with numpy fields."""
+    from ..models.zqso import ZLearnedModel
+
+    rng = np.random.default_rng(seed)
+    rest = np.arange(910.0, 3000.0 + 0.125, 0.25)
+    R = rest.shape[0]
+    mu = (
+        1.0
+        + 2.0 * np.exp(-0.5 * ((rest - 1215.67) / 14.0) ** 2)
+        + 0.8 * np.exp(-0.5 * ((rest - 1549.0) / 18.0) ** 2)
+        + 0.5 * np.exp(-0.5 * ((rest - 2799.0) / 25.0) ** 2)
+    )
+    # unit median over the 1176-1256 A normalization window, consistent
+    # with the normalization applied at inference time
+    norm = np.median(mu[(rest >= 1176.0) & (rest <= 1256.0)])
+    mu /= norm
+    kernel = np.exp(-0.5 * (np.arange(-60, 61) / 20.0) ** 2)
+    kernel /= kernel.sum()
+    M = np.stack(
+        [np.convolve(rng.normal(size=R), kernel, "same") for _ in range(k)],
+        axis=1,
+    ) * (1.5 / norm)
+    return ZLearnedModel(
+        rest_wavelengths=rest,
+        mu=mu,
+        M=M,
+        bluewards_mu=np.float64(0.2),
+        bluewards_sigma=np.float64(0.5),
+        redwards_mu=np.float64(0.8),
+        redwards_sigma=np.float64(0.3),
+    )
+
+
+def synthetic_z_observation(
+    z_true, seed: int = 0, noise: float = 0.08, k: int = 5,
+    obs_seed: int | None = None,
+):
+    """(ZLearnedModel, (wavelengths, flux, noise_variance, pixel_mask))
+    observation drawn from the synthetic zQSO GP at a known redshift,
+    with out-of-window pixels at the model's blue/redward levels.
+
+    :param obs_seed: seed of the observation noise draw alone (default
+        ``seed + 1000``); lets a survey-scale accuracy run draw many
+        observations from ONE learned model (fixed ``seed``)."""
+    learned = synthetic_z_learned_model(seed=seed, k=k)
+    rng = np.random.default_rng(seed + 1000 if obs_seed is None else obs_seed)
+    wl = 3600.0 * 10 ** (1e-4 * np.arange(4600))
+    rest = wl / (1 + z_true)
+    mu = np.interp(rest, learned.rest_wavelengths, learned.mu)
+    M = np.stack(
+        [
+            np.interp(rest, learned.rest_wavelengths, learned.M[:, i])
+            for i in range(learned.M.shape[1])
+        ],
+        axis=1,
+    )
+    out = (rest < learned.rest_wavelengths[0]) | (
+        rest > learned.rest_wavelengths[-1]
+    )
+    M[out] = 0.0
+    flux = mu + M @ rng.normal(size=M.shape[1])
+    flux[out] = np.where(
+        rest[out] < learned.rest_wavelengths[0],
+        float(learned.bluewards_mu),
+        float(learned.redwards_mu),
+    )
+    nv = np.full_like(wl, noise**2)
+    flux += noise * rng.normal(size=wl.shape)
+    pm = np.zeros(wl.shape, bool)
+    return learned, (wl, flux, nv, pm)

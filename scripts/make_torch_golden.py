@@ -28,13 +28,24 @@ storage argument, so the script calls it directly), and the null
 evidence.  It holds the evidences and the MAP chains; the indices are the
 ``dla`` fixture's, which ``chip_smoke.py`` reads from there.
 
+``zqso``: the zQSO head at ``ZParameters()`` (10,000 candidate
+redshifts on ``sample_z_qsos``' grid over 2.14-6.16, spectra padded to
+P = 5,632) with ``synthetic_z_learned_model(ZQSO_MODEL_SEED, k=20)``:
+``inference_z_qso`` on 4 ``synthetic_z_observation`` spectra of that model
+(z_true drawn by numpy from ``ZQSO_Z_SEED`` in 2.4-4.6, observation seeds
+``ZQSO_OBS_SEEDS``) with ``method="corr"``, and on the first with
+``method="exact"``, in float64.  It holds the seeds, z_true, a probe of
+each spectrum's flux (every 460th pixel), the log likelihoods and the MAP
+redshifts.
+
 Run from the repository root, naming the fixtures to write (all by
 default; each run rewrites the file, so name only the one that changes):
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [dla] [lls] [civ] [i16]
+    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [dla] [lls] [civ] [i16] [zqso]
 
 Output: tests/data/torch_golden_fullscale.npz, tests/data/torch_golden_lls.npz,
-tests/data/torch_golden_civ.npz, tests/data/torch_golden_i16.npz
+tests/data/torch_golden_civ.npz, tests/data/torch_golden_i16.npz,
+tests/data/torch_golden_zqso.npz
 """
 
 from __future__ import annotations
@@ -318,8 +329,56 @@ def write_i16() -> None:
     print(f"wrote {OUT_I16} ({OUT_I16.stat().st_size} bytes)")
 
 
+OUT_ZQSO = ROOT / "tests" / "data" / "torch_golden_zqso.npz"
+ZQSO_MODEL_SEED = 0
+ZQSO_K = 20
+ZQSO_Z_SEED = 2028
+ZQSO_OBS_SEEDS = (1, 2, 3, 4)
+ZQSO_FLUX_PROBE = 460  # every 460th pixel of each spectrum's flux
+
+
+def write_zqso() -> None:
+    from gpy_dla_detection_tpu.data.synthetic import synthetic_z_observation
+    from gpy_dla_detection_tpu.models.zqso import inference_z_qso, prepare_z_spectrum
+    from gpy_dla_detection_tpu.params import ZParameters
+
+    params = ZParameters()
+    z_true = np.random.default_rng(ZQSO_Z_SEED).uniform(2.4, 4.6, len(ZQSO_OBS_SEEDS))
+    probes, lls_corr, z_map_corr = [], [], []
+    lls_exact = z_map_exact = None
+    for i, (z, obs_seed) in enumerate(zip(z_true, ZQSO_OBS_SEEDS)):
+        learned, (wl, flux, nv, pm) = synthetic_z_observation(
+            float(z), seed=ZQSO_MODEL_SEED, k=ZQSO_K, obs_seed=obs_seed)
+        probes.append(flux[::ZQSO_FLUX_PROBE])
+        spec = prepare_z_spectrum(wl, flux, nv, pm, params.num_pixels_padded)
+        z_map, lls, grid = inference_z_qso(learned, spec, params, method="corr")
+        lls_corr.append(lls)
+        z_map_corr.append(z_map)
+        print(f"z_true={z:.4f} corr z_map={z_map:.4f} max ll={np.nanmax(lls):.3f}")
+        if i == 0:
+            z_map_exact, lls_exact, _ = inference_z_qso(learned, spec, params, method="exact")
+            print(f"z_true={z:.4f} exact z_map={z_map_exact:.4f}")
+    np.savez_compressed(
+        OUT_ZQSO,
+        model_seed=np.int64(ZQSO_MODEL_SEED),
+        k=np.int64(ZQSO_K),
+        z_seed=np.int64(ZQSO_Z_SEED),
+        obs_seed=np.array(ZQSO_OBS_SEEDS, np.int64),
+        z_true=z_true,
+        flux_probe=np.stack(probes),
+        flux_probe_step=np.int64(ZQSO_FLUX_PROBE),
+        z_grid=np.asarray(grid, np.float64),
+        lls_corr=np.stack(lls_corr).astype(np.float64),
+        z_map_corr=np.array(z_map_corr, np.float64),
+        lls_exact=np.asarray(lls_exact, np.float64)[None],
+        z_map_exact=np.array([z_map_exact], np.float64),
+    )
+    print(f"wrote {OUT_ZQSO} ({OUT_ZQSO.stat().st_size} bytes)")
+
+
 def main(argv: list[str]) -> None:
-    writers = {"dla": write_dla, "lls": write_lls, "civ": write_civ, "i16": write_i16}
+    writers = {"dla": write_dla, "lls": write_lls, "civ": write_civ, "i16": write_i16,
+               "zqso": write_zqso}
     which = argv or list(writers)
     unknown = set(which) - set(writers)
     if unknown:

@@ -11,11 +11,24 @@ Paths (``--path``): ``windowed`` (default), ``exact``,
 that Voigt configuration on
 the 16 synthetic spectra of ``chip_smoke.py`` at ``Parameters()``;
 ``lls`` runs ``lls_inference_many`` on the 8 LLS spectra of
-``chip_smoke.py`` at the LLS search's width.  ``--abs-dtype`` stores the
-absorption profiles as float32 (``f32``, the default) or as int16 codes
-(``i16``, or ``i16p``, which the port stores alike).
+``chip_smoke.py`` at the LLS search's width; ``zqso`` runs
+``inference_z_qso_many`` (the correlation scan) on the 8 spectra of
+``chip_smoke.py`` phase 18 at ``ZParameters()`` (10,000 candidate
+redshifts, k = 20, P = 5,632) and also sums the device time by part: K3,
+the cuFFT rFFTs and irFFT, the gathers, the median passes (sort, scan),
+the reductions, the copies and the other elementwise kernels, and the
+device records a spectrum.  With ``--chunk-sizes C1,C2,...`` the
+``zqso`` path first runs the scans at each chunk size: the correlation
+scan (``zqso_corr.CORR_CHUNK`` candidates a median and iid pass) on
+``NUM_ZQSO_RATE`` spectra, spectra/s as the median of 3 passes after a
+warm-up, and the exact scan (``zqso.EXACT_CHUNK``) on one spectrum, ms
+as the median of 3 after a warm-up; each with its peak device memory
+above what was held before it.  ``--abs-dtype`` stores the absorption
+profiles as float32 (``f32``, the default) or as int16 codes (``i16``,
+or ``i16p``, which the port stores alike); the zQSO head stores none.
 
     python3 scripts/profile_torch_slice.py [--path PATH] [--abs-dtype f32|i16|i16p] [--trace FILE]
+        [--chunk-sizes C1,C2,...]
 """
 
 from __future__ import annotations
@@ -49,12 +62,68 @@ from gpy_dla_detection_tpu_torch.models.lls import (  # noqa: E402
     with_boss_meanflux,
 )
 from gpy_dla_detection_tpu_torch.ops.kernel_config import profile_store_dtype  # noqa: E402
+from gpy_dla_detection_tpu_torch.ops.timing import SENTINEL_KERNEL, prime_profiler  # noqa: E402
 from gpy_dla_detection_tpu_torch.params import Parameters  # noqa: E402
 from gpy_dla_detection_tpu_torch.parallel.batch import process_batch  # noqa: E402
 
 NUM_SPECTRA = 16
 NUM_LLS = 8
-PATHS = ("windowed", "exact", "windowed_unfused", "windowed_weideman", "lls")
+NUM_ZQSO = 8
+NUM_ZQSO_RATE = 128  # 4x inference_z_qso_many's window of 32 scans in flight
+ZQSO_Z_SEED = 3  # z_true of chip_smoke.py phase 18's library path
+PATHS = ("windowed", "exact", "windowed_unfused", "windowed_weideman", "lls", "zqso")
+# the zQSO scan's device time by part: (label, test on the kernel's name)
+ZQSO_PARTS = (
+    ("K3 logmvn_chain", lambda n: "logmvn_chain" in n),
+    ("cuFFT (rFFT, irFFT)", lambda n: "fft" in n.lower()),
+    ("gathers (index_select, indexing)", lambda n: "index" in n.lower()),
+    ("median passes (sort, scan)", lambda n: any(w in n.lower() for w in ("sort", "scan"))),
+    ("reductions", lambda n: "reduce" in n.lower()),
+    ("copies", lambda n: "memcpy" in n.lower() or "copy" in n.lower()),
+    ("other elementwise", lambda n: "elementwise" in n.lower()),
+)
+
+
+def zqso_chunk_sweep(card, learned, spectra, params, sizes) -> None:
+    """Both zQSO scans at each chunk size in ``sizes``: the correlation
+    scan's spectra/s over ``spectra``, the exact scan's ms on the first
+    one, each with its peak device memory above what was held."""
+    from gpy_dla_detection_tpu_torch.models import zqso, zqso_corr
+
+    def measure(fn, reps=3):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)), (torch.cuda.max_memory_allocated() - held) / 2**20
+
+    corr_chunk, exact_chunk = zqso_corr.CORR_CHUNK, zqso.EXACT_CHUNK
+    rows = []
+    try:
+        for size in sizes:
+            zqso_corr.CORR_CHUNK = zqso.EXACT_CHUNK = size
+            corr_s, corr_mib = measure(
+                lambda: zqso.inference_z_qso_many(learned, spectra, params))
+            try:
+                exact_s, exact_mib = measure(lambda: zqso.inference_z_qso(
+                    learned, spectra[0], params, method="exact"))
+                exact = f"exact {1e3 * exact_s:.1f} ms a spectrum, peak {exact_mib:.1f} MiB"
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()
+                exact = "exact out of device memory"
+            rows.append(f"chunk {size}: corr {len(spectra) / corr_s:.2f} spectra/s, peak "
+                        f"{corr_mib:.1f} MiB; {exact}")
+    finally:
+        zqso_corr.CORR_CHUNK, zqso.EXACT_CHUNK = corr_chunk, exact_chunk
+    print(f"card {card} | zQSO chunk sizes at Z={params.num_zqso_samples}, k={params.k}, "
+          f"P={params.num_pixels_padded}, float32; corr on {len(spectra)} spectra (median of 3 "
+          f"passes after a warm-up), exact on one (median of 3) | " + " | ".join(rows))
 
 
 def main() -> None:
@@ -62,6 +131,8 @@ def main() -> None:
     parser.add_argument("--path", choices=PATHS, default="windowed")
     parser.add_argument("--abs-dtype", choices=("f32", "i16", "i16p"), default="f32")
     parser.add_argument("--trace", type=Path, help="write the Chrome trace here")
+    parser.add_argument("--chunk-sizes", type=lambda v: [int(c) for c in v.split(",")],
+                        help="zqso: time both scans at each of these chunk sizes first")
     args = parser.parse_args()
     store = profile_store_dtype(args.abs_dtype)
     if not torch.cuda.is_available():
@@ -71,7 +142,32 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    if args.path == "lls":
+    if args.path == "zqso":
+        from gpy_dla_detection_tpu_torch.data.synthetic import (
+            synthetic_z_learned_model,
+            synthetic_z_observation,
+        )
+        from gpy_dla_detection_tpu_torch.models.zqso import (
+            inference_z_qso_many,
+            prepare_z_spectrum,
+        )
+        from gpy_dla_detection_tpu_torch.params import ZParameters
+
+        params = ZParameters()
+        learned = synthetic_z_learned_model(0, params.k).to(device, torch.float32)
+        z_true = np.random.default_rng(ZQSO_Z_SEED).uniform(2.4, 4.6, NUM_ZQSO_RATE)
+        spectra = [
+            prepare_z_spectrum(*synthetic_z_observation(float(z), seed=0, k=params.k,
+                                                        obs_seed=50 + i)[1])
+            for i, z in enumerate(z_true)
+        ]
+        if args.chunk_sizes:
+            zqso_chunk_sweep(card, learned, spectra, params, args.chunk_sizes)
+        spectra = spectra[:NUM_ZQSO]
+
+        def run():
+            return inference_z_qso_many(learned, spectra, params)
+    elif args.path == "lls":
         params = Parameters(num_dla_samples=10000, min_lambda=850.0, num_pixels_padded=1664)
         arrays = synthetic_learned_model(params)
         learned = with_boss_meanflux(LearnedModel.from_numpy(arrays, device, torch.float32))
@@ -112,6 +208,7 @@ def main() -> None:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime_profiler()  # else the profiler can miss the run's first kernels
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -122,10 +219,13 @@ def main() -> None:
     events = [
         e for e in prof.key_averages()
         if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0
+        and SENTINEL_KERNEL not in e.key
     ]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"card {card} | path {args.path}, storage {args.abs_dtype} | {len(spectra)} spectra, S={params.num_dla_samples}, "
-          f"N={params.num_pixels_padded}, k={params.k} | wall {plain_ms:.2f} ms "
+    width = (f"Z={params.num_zqso_samples}, P={params.num_pixels_padded}, k={params.k}"
+             if args.path == "zqso" else
+             f"S={params.num_dla_samples}, N={params.num_pixels_padded}, k={params.k}")
+    print(f"card {card} | path {args.path}, storage {args.abs_dtype} | {len(spectra)} spectra, {width} | wall {plain_ms:.2f} ms "
           f"unprofiled, {wall_ms:.2f} ms profiled | device kernel time "
           f"{busy_ms:.2f} ms ({100 * busy_ms / plain_ms:.1f}% of the unprofiled "
           f"wall, {100 * busy_ms / wall_ms:.1f}% of the profiled)")
@@ -133,6 +233,15 @@ def main() -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         ms = e.self_device_time_total / 1e3
         print(f"{ms:10.3f} {e.count:6d} {100 * ms / busy_ms:5.1f}%  {e.key[:90]}")
+    if args.path == "zqso":
+        parts = dict.fromkeys([label for label, _ in ZQSO_PARTS] + ["other"], 0.0)
+        for e in events:
+            label = next((lb for lb, test in ZQSO_PARTS if test(e.key)), "other")
+            parts[label] += e.self_device_time_total / 1e3
+        print("zQSO device ms by part: " + ", ".join(
+            f"{label} {ms:.3f} ({100 * ms / busy_ms:.1f}%)" for label, ms in parts.items())
+            + f" | idle {100 * (1 - busy_ms / wall_ms):.1f}% of the profiled wall | "
+            f"{sum(e.count for e in events) / len(spectra):.1f} device records a spectrum")
     if args.trace is not None:
         args.trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(args.trace))

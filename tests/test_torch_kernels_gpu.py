@@ -935,3 +935,81 @@ def test_cap_kernel_folds_deep_int16_chains_in_float32(cuda_device):
                                                            [codes(e) for e in extra]))
     scale = float(ll_twin.abs().max())
     assert float((logmvn_chain_reference(*got) - ll_twin).abs().max()) <= REL_K23 * scale
+
+
+def test_chain_kernel_on_zqso_shaped_inputs(cuda_device):
+    """K3 at the zQSO correlation scan's shape (Z = 10,000 candidates, k =
+    20): B = med^2 * a weighted Gram matrix, packed, with med^2 from 1 to
+    1e6, and u = med * fMi - med^2 * muMi, against its twin."""
+    from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import _packed_maps
+
+    Z, k, m = 10_000, 20, 64
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    A = torch.randn((Z, m, k), generator=g, device=cuda_device) / m**0.5
+    w = torch.rand((Z, m, 1), generator=g, device=cuda_device) * 100.0
+    gram = torch.einsum("zpi,zpj->zij", A * w, A)
+    med2 = 10.0 ** (6.0 * torch.rand((Z,), generator=g, device=cuda_device))
+    cols, rows = _packed_maps(k)
+    B = (med2[:, None] * gram[:, list(rows), list(cols)]).contiguous()
+    fMi = torch.randn((Z, k), generator=g, device=cuda_device) * 50.0
+    muMi = torch.randn((Z, k), generator=g, device=cuda_device) * 40.0
+    u = (med2.sqrt()[:, None] * fMi - med2[:, None] * muMi).contiguous()
+    misc = torch.stack([1e3 * torch.rand((Z,), generator=g, device=cuda_device) + 5e3,
+                        torch.randn((Z,), generator=g, device=cuda_device) * 100.0], dim=1)
+    before = _build.launch_counts["logmvn_chain"]
+    ll_kernel = logmvn_chain(B, u, misc)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["logmvn_chain"] == before + 1
+    ll_twin = logmvn_chain_reference(B, u, misc)
+    assert torch.isfinite(ll_kernel).all() and torch.isfinite(ll_twin).all()
+    assert float((ll_kernel - ll_twin).abs().max()) <= REL_K23 * float(ll_twin.abs().max())
+
+
+@pytest.mark.parametrize("method, num_z", [("corr", 10_000), ("exact", 1_000)])
+def test_zqso_scan_on_the_card_matches_the_cpu(cuda_device, method, num_z):
+    """A zQSO scan at ZParameters()'s width (k = 20, P = 5,632) on the card
+    (float32; the correlation scan's solves on K3, once) against the same
+    scan on the CPU in float32: the same NaN pattern and MAP, every |dll|
+    within 1e-4 of the largest |ll| and, within +-0.2 of the peak, within
+    1% of the peak's margin."""
+    from gpy_dla_detection_tpu_torch.data.synthetic import synthetic_z_observation
+    from gpy_dla_detection_tpu_torch.models.zqso import inference_z_qso, prepare_z_spectrum
+    from gpy_dla_detection_tpu_torch.params import ZParameters
+
+    learned, obs = synthetic_z_observation(3.45, seed=0, k=20, obs_seed=9)
+    spec = prepare_z_spectrum(*obs)
+    params = ZParameters(num_zqso_samples=num_z)
+    before = dict(_build.launch_counts)
+    z_card, got, grid = inference_z_qso(learned.to(cuda_device, torch.float32), spec, params,
+                                        method=method)
+    launched = _build.launch_counts["logmvn_chain"] - before.get("logmvn_chain", 0)
+    assert launched == (1 if method == "corr" else 0)
+    assert _build.launch_counts["logmvn_composition"] == before.get("logmvn_composition", 0)
+    z_cpu, want, _ = inference_z_qso(learned.to("cpu", torch.float32), spec, params,
+                                     method=method)
+    assert got.dtype == want.dtype == np.float32
+    assert z_card == z_cpu and abs(z_card - 3.45) < 0.05
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    fin = np.isfinite(want)
+    d = np.abs(got.astype(np.float64) - want)
+    assert d[fin].max() <= 1e-4 * np.abs(want[fin]).max()
+    peak = np.nanargmax(want)
+    near = fin & (np.abs(grid - grid[peak]) < 0.2)
+    margin = want[peak] - want[fin & (np.abs(grid - grid[peak]) > 0.2)].max()
+    assert d[near].max() <= 0.01 * margin
+
+
+def test_device_ms_windows_hold_every_launch(cuda_device):
+    """The profiler can miss the kernels launched right after it starts
+    until the device has synchronised under it; ``ops/timing`` first runs
+    and waits for a sentinel kernel.  Twenty timings of K2 and K3 in a row
+    each take a full window (a short one raises after three)."""
+    from gpy_dla_detection_tpu_torch.ops.timing import device_ms
+
+    B, u, misc = _chain_inputs(cuda_device, 20, 10_000)
+    (y, mu, M, omega2, v, mask), A, extra = _problem(cuda_device, k=54, S=10_000, n_extra=3)
+    rows = torch.stack([y, mu, omega2, v, mask.float()])
+    Mp = packed_pair_basis(M)
+    for _ in range(10):
+        assert device_ms(lambda: logmvn_chain(B, u, misc), tries=1)[0] > 0
+        assert device_ms(lambda: logmvn_cap(rows, M, Mp, A, extra), tries=1)[0] > 0

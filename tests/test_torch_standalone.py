@@ -435,3 +435,157 @@ def test_metrics_and_prefetch_copies(tmp_path):
                 list(mod.prefetch_map(square, range(9), depth))
     with pytest.raises(ValueError, match="depth must be >= 1"):
         list(TPre.prefetch_map(square, range(3), 0))
+
+
+def test_memo_by_identity_copy():
+    """The same hits, rebuilds on a reused id and FIFO eviction."""
+    from gpy_dla_detection_tpu.utils import memo as JMemo
+    from gpy_dla_detection_tpu_torch.utils import memo as TMemo
+
+    def trace(mod):
+        cache, built, out = {}, [], []
+        owners = [object() for _ in range(4)]
+        for i in (0, 1, 0, 2, 3, 0, 1):
+            key = (id(owners[i]), "x")
+            out.append(mod.memo_by_identity(cache, key, owners[i],
+                                            lambda: built.append(i) or i, max_entries=2))
+        impostor = object()
+        out.append(mod.memo_by_identity(cache, (id(owners[1]), "x"), impostor,
+                                        lambda: built.append("new") or "new", max_entries=2))
+        return out, built, len(cache)
+
+    assert trace(TMemo) == trace(JMemo)
+
+
+def _z_spectra():
+    rng = np.random.default_rng(8)
+    wl = 3600.0 * 10 ** (1e-4 * np.arange(900))
+    flux = rng.normal(1.0, 0.2, 900)
+    nv = rng.uniform(0.01, 0.05, 900)
+    nv[::97] = np.inf
+    nv[5] = np.nan
+    flux[11] = np.nan
+    pm = rng.uniform(size=900) < 0.05
+    return [(wl, flux, nv, pm, 1024), (wl[:0], flux[:0], nv[:0], pm[:0], 64),
+            (wl, flux, nv, np.ones(900, bool), 900)]
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_prepare_z_spectrum_bit_for_bit(case):
+    from gpy_dla_detection_tpu.models import zqso as JZ
+    from gpy_dla_detection_tpu_torch.models import zqso as TZ
+
+    *arrays, n = _z_spectra()[case]
+    got, want = TZ.prepare_z_spectrum(*arrays, n), JZ.prepare_z_spectrum(*arrays, n)
+    assert got._fields == want._fields
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    with pytest.raises(ValueError, match="pixels"):
+        TZ.prepare_z_spectrum(*_z_spectra()[0][:4], 10)
+
+
+def _pixel_grids():
+    wl = 3600.0 * 10 ** (1e-4 * np.arange(1000))
+    dup = wl.copy()
+    dup[500] = dup[499]
+    return {
+        "uniform": wl,
+        "padded": np.concatenate([wl, np.full(64, wl[-1])]),
+        "drifting": np.linspace(6000.0, 6300.0, 3000),
+        "linear": np.linspace(3600, 9000, 1000),
+        "duplicate": dup,
+        "jittered": wl * (1 + 1e-9 * np.sin(np.arange(1000))),
+        "short": wl[:2],
+    }
+
+
+@pytest.mark.parametrize("name", list(_pixel_grids()))
+def test_detect_pixel_dlog_equal(name):
+    from gpy_dla_detection_tpu.models import zqso as JZ
+    from gpy_dla_detection_tpu_torch.models import zqso as TZ
+
+    wl = _pixel_grids()[name]
+    got, want = TZ.detect_pixel_dlog(wl), JZ.detect_pixel_dlog(wl)
+    assert got == want
+    assert (got is None) == (name in ("drifting", "linear", "duplicate", "short"))
+
+
+@pytest.mark.parametrize("seed, k", [(0, 5), (3, 20)])
+def test_zqso_generators_and_flat_resampled_model_bit_for_bit(seed, k):
+    """``synthetic_z_learned_model`` and ``synthetic_z_observation``, and
+    ``_flat_resampled_model`` on the model as numpy and as float64
+    tensors."""
+    import torch
+
+    from gpy_dla_detection_tpu.data import synthetic as JSyn
+    from gpy_dla_detection_tpu.models import zqso as JZ
+    from gpy_dla_detection_tpu_torch.data import synthetic as TSyn
+    from gpy_dla_detection_tpu_torch.models import zqso as TZ
+
+    got, want = TSyn.synthetic_z_learned_model(seed, k), JSyn.synthetic_z_learned_model(seed, k)
+    assert type(got).__name__ == "ZLearnedModel" and got._fields == want._fields
+    assert all(_equal(a, b) and np.asarray(a).dtype == np.asarray(b).dtype
+               for a, b in zip(got, want))
+    for kw in ({}, {"obs_seed": 77, "noise": 0.05}):
+        (gl, gobs), (wl_, wobs) = (TSyn.synthetic_z_observation(3.3, seed, k=k, **kw),
+                                   JSyn.synthetic_z_observation(3.3, seed, k=k, **kw))
+        assert all(_equal(a, b) for a, b in zip(gl, wl_))
+        assert all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(gobs, wobs))
+    for learned in (got, got.to("cpu", torch.float64)):
+        for args in ((1e-4, 5632), (1e-4, 1000, 2, 2.5, 5.0)):
+            a = TZ._flat_resampled_model(learned, *args)
+            b = JZ._flat_resampled_model(want, *args)
+            assert all(_equal(x, y) for x, y in zip(a, b))
+    assert TZ.SCAN_OVERSAMPLE == JZ.SCAN_OVERSAMPLE and TZ.SCAN_WL_BOUNDS == JZ.SCAN_WL_BOUNDS
+    assert np.array_equal(TZ.sample_z_qsos(57, 2.2, 5.5), JZ.sample_z_qsos(57, 2.2, 5.5))
+
+
+def test_z_learned_model_loaders_bit_for_bit(tmp_path):
+    """``load_z_learned_model`` and ``save_z_learned_model``: each reads
+    what the other package wrote, with the same fields and dtypes."""
+    from gpy_dla_detection_tpu.data.synthetic import synthetic_z_learned_model
+
+    want = synthetic_z_learned_model(seed=2, k=7)
+    JLoad.save_z_learned_model(str(tmp_path / "j.mat"), want)
+    TLoad.save_z_learned_model(str(tmp_path / "t.mat"), TLoad.load_z_learned_model(
+        str(tmp_path / "j.mat")))
+    for name in ("j.mat", "t.mat"):
+        got = TLoad.load_z_learned_model(str(tmp_path / name))
+        ref = JLoad.load_z_learned_model(str(tmp_path / name))
+        assert type(got).__module__.startswith("gpy_dla_detection_tpu_torch")
+        assert got._fields == ref._fields
+        for a, b, c in zip(got, ref, want):
+            assert np.asarray(a).dtype == np.asarray(b).dtype
+            assert np.array_equal(a, b) and np.array_equal(a, c)
+
+
+def test_zqso_scan_runs_without_jax():
+    """With ``jax`` and the JAX package blocked, the port scans a small
+    grid by both scans on the CPU and finds the redshift."""
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["gpy_dla_detection_tpu"] = None
+sys.path.insert(0, {str(ROOT)!r})
+import numpy as np, torch
+torch.set_num_threads(2)
+from gpy_dla_detection_tpu_torch.data.synthetic import synthetic_z_observation
+from gpy_dla_detection_tpu_torch.models.zqso import inference_z_qso_many, prepare_z_spectrum
+from gpy_dla_detection_tpu_torch.params import ZParameters
+learned, obs = synthetic_z_observation(3.1, seed=0, k=4)
+spec = prepare_z_spectrum(*obs, 5632)
+model = learned.to("cpu", torch.float64)
+for method in ("corr", "exact"):
+    (res,), grid = inference_z_qso_many(model, [spec], ZParameters(num_zqso_samples=120),
+                                        method=method)
+    assert abs(res[0] - 3.1) < 0.05, (method, res)
+loaded = [m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] in ("jax", "gpy_dla_detection_tpu"))]
+assert loaded == [], loaded
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
