@@ -106,8 +106,9 @@ Phases, one line each; any failure exits non-zero before the result:
      1e-6 max|ll|); the likelihood against the CPU float64 value of the
      first 2,000 samples within the reference's float32 budget (median
      |dll| 7.4e-4, max 3.8e-3); device ms beside the bounds, the wide
-     chain's row of the kernels line.  No phase runs the likelihood's
-     plain composition (checked in every counted run)
+     chain's row of the kernels line; K2's library yardstick at both
+     widths (the two float32 SGEMMs, TF32 off).  No phase runs the
+     likelihood's plain composition (checked in every counted run)
  17. the CLIs through the entry points a user calls: 32
      synthetic spectra written as speclite FITS files (odd ones with a DLA
      at z_qso - 0.3, logNHI 21.2) through run_bayes_select.run at
@@ -141,6 +142,23 @@ Phases, one line each; any failure exits non-zero before the result:
      busy share and peak memory of a profiled pass over them;
      run_zqso_estimation.run on 8 FITS spectra at k = 20, --device cuda,
      bit for bit the library path's z_map on the files read back
+ 19. GP training (models/training.py) at the reference's width (R = 1,217
+     rest pixels, k = 20, 31 forest lines): K3's adjoint (the backward of
+     chain_loglik) against its twin at Q = 4,096 and k = 1, 20, 21, 64, 65
+     on scripts/train_throughput.py's synthetic problem (each output within
+     1e-5 of its largest magnitude); the JAX float64 objective of 64
+     spectra (tests/data/torch_golden_train.npz) replayed from their seeds
+     through prepare_training_set and initialize, the card's float32
+     per-spectrum losses within 1e-5 of max|loss| and each of the five
+     gradient blocks within 1e-3 of its max|g|; fit_lbfgs_stepwise on the
+     synthetic problem at Q = 4,096 (a warm-up, then 20 iterations: ms an
+     iteration, median of 3 runs; evaluations an iteration; K3 and its
+     adjoint once an evaluation and nothing else; the loss falls), peak
+     memory and the busy share of one profiled iteration (the union of the
+     device records' intervals over the wall); one evaluation
+     at k = 65 (the wide pair); the adjoint's device ms (50 launches)
+     beside K3's forward on the same inputs, its bound and the library
+     yardstick (cholesky_ex + cholesky_inverse of the unpacked I + B)
 Every other phase asserts that the Weideman window is never launched, and
 every phase before 14 that no int16 instantiation is.
 Then a JSON line of the kernels, the card line, and the result line.
@@ -178,6 +196,7 @@ GOLDEN_LLS = ROOT / "tests" / "data" / "torch_golden_lls.npz"
 GOLDEN_CIV = ROOT / "tests" / "data" / "torch_golden_civ.npz"
 GOLDEN_I16 = ROOT / "tests" / "data" / "torch_golden_i16.npz"
 GOLDEN_ZQSO = ROOT / "tests" / "data" / "torch_golden_zqso.npz"
+GOLDEN_TRAIN = ROOT / "tests" / "data" / "torch_golden_train.npz"
 ABLATE_SCRIPT = ROOT / "scripts" / "kernel_ablate_torch.py"
 NUM_SPECTRA = 16
 NUM_EXACT = 4
@@ -205,6 +224,10 @@ WIDE_F64 = 2000  # samples of the wide bases held to the CPU float64 value
 TAIL_ROWS = (1, 16, 20, 10_000)  # K5's and K6's row counts on the paths
 CIV_PIXELS = 774  # the CIV head's padded row (CIVParameters)
 CHAIN_KS = (1, 2, 8, 16, 17, 31, 32, 33, 41)  # K3 on both sides of its row bound 32
+TRAIN_Q = 4096  # spectra of the training's synthetic problem (scripts/train_throughput.py)
+TRAIN_ITERS = 20  # L-BFGS iterations a timed fit
+TRAIN_GRAD_KS = (1, 20, 21, 64, 65)  # K3's adjoint on both sides of its row bounds
+TRAIN_WIDE_Q = 256  # spectra of the k = 65 training evaluation
 
 TOL_K1 = 2e-6  # absolute, kernel vs twin (measured 2.4e-7)
 # K1 with the Weideman window: the mutual bound of two float32 Weideman
@@ -229,6 +252,11 @@ ABS_GOLDEN_P_DLA = 1e-3
 # the peak's margin (tests/test_zqso.py::test_corr_scan_matches_shift_and_exact)
 REL_ZQSO_GLOBAL = 1e-4
 NEAR_PEAK_ZQSO = 0.01
+REL_K3_GRAD = 1e-5  # each output of K3's adjoint within this share of its max |.|, vs twin
+# the training against the JAX float64 golden: losses within this share of
+# max|loss|, each gradient block within this share of its max|g|
+REL_TRAIN_LOSS = 1e-5
+REL_TRAIN_GRAD = 1e-3
 
 # published H100 SXM peaks (NVIDIA data sheet; 700 W): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores
@@ -267,7 +295,18 @@ KERNELS = {
         "gpy_dla_detection_tpu_torch/csrc/logmvn_chain.cu",
         f"{LOGMVN}:497",
     ),
+    # K3's adjoint (phase 19): no TPU kernel; the function JAX differentiates
+    "logmvn_chain_grad": (
+        "gpy_dla_detection_tpu_torch/csrc/logmvn_chain_grad.cu",
+        "gpy_dla_detection_tpu/ops/logmvn.py:111",
+    ),
+    "logmvn_chain_grad_wide": (
+        "gpy_dla_detection_tpu_torch/csrc/logmvn_chain_grad.cu",
+        "gpy_dla_detection_tpu/ops/logmvn.py:111",
+    ),
 }
+GRAD_NOTE = ("no TPU kernel: the JAX training differentiates batched_quad_logdet, K3's "
+             "function, by jax.grad (gpy_dla_detection_tpu/models/training.py:272)")
 VOIGT_PALLAS = "gpy_dla_detection_tpu/ops/voigt_pallas.py"
 # the int16 instantiations (compact storage): each kernel's storage branch,
 # the encode at the store (_encode_store) or K2's decode (_decode)
@@ -439,6 +478,14 @@ def k3_work(S, k) -> tuple[float, float]:
     return 4.0 * S * (kp + k + 2 + 1), S * (k**3 / 3.0 + 2.0 * k * k)
 
 
+def k3_grad_work(S, k) -> tuple[float, float]:
+    """K3's adjoint: per sample the Cholesky (~k^3/3), the inverse of its
+    factor (~k^3/3), A^-1 = W^T W (~k^3/3) and ~6 k^2 for t, v and the
+    outputs; reads B, u and g, writes dB, du and dmisc."""
+    kp = k * (k + 1) // 2
+    return 4.0 * S * (2 * kp + 2 * k + 3), S * (k**3 + 6.0 * k * k)
+
+
 def k5_work(S, P, elem=4) -> tuple[float, float]:
     """An exp and a product per input pixel, 7 FMAs per output pixel (with
     int16 codes a product and a conversion more); reads unit_tau, nhi and
@@ -559,7 +606,12 @@ def main() -> None:
         logmvn_flat_chain_reference,
     )
     from gpy_dla_detection_tpu_torch.ops.logmvn import batched_log_mvnpdf, decode_profile_store
-    from gpy_dla_detection_tpu_torch.ops.timing import SENTINEL_KERNEL, device_ms, prime_profiler
+    from gpy_dla_detection_tpu_torch.ops.timing import (
+        SENTINEL_KERNEL,
+        union_busy_ms,
+        device_ms,
+        prime_profiler,
+    )
     from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
         assemble_reference,
         logmvn_cap,
@@ -1795,7 +1847,7 @@ def main() -> None:
             "logmvn_chain_wide": sum(k_ > 64 for k_ in WIDE_KS)}
     check(launches == need, f"wide bases: launches {launches} != {need}")
     cpu64 = lambda x: x.cpu().double() if x.is_floating_point() else x.cpu()
-    wide_f64, wide_twin, wide_dev = {}, {}, {}
+    wide_f64, wide_twin, wide_dev, wide_lib = {}, {}, {}, {}
     for k_, (b_, a_, e_) in wide.items():
         ll_ = lls_wide[k_]
         check(bool(torch.isfinite(ll_).all()), f"k={k_}: non-finite likelihood")
@@ -1825,6 +1877,10 @@ def main() -> None:
         wide_twin[k_] = (e2 / scale_, e3 / scale_)
         wide_dev[f"K2 k={k_}"] = (device_ms(lambda: logmvn_cap(r_, M_, Mp_, a_, e_))[0],
                                   bound(*k2_work(S, M_.shape[0], k_, 3))[0])
+        # K2's library yardstick at this width: the two float32 products on
+        # the twin's w and r, TF32 off
+        _, w_, rr_, *_ = assemble_reference(r_, a_, e_)
+        wide_lib[k_] = timed_median(lambda: (torch.matmul(w_, Mp_), torch.matmul(rr_, M_)))
         if k_ > 64:
             # the wide chain's row of the kernels line
             name = "logmvn_chain_wide"
@@ -1846,6 +1902,8 @@ def main() -> None:
           + ", ".join(f"k={k_} K2 {a_:.2e}, K3 {b_:.2e}" for k_, (a_, b_) in wide_twin.items())
           + " | device ms (profiler, 50 calls) and bound: "
           + ", ".join(f"{n} {d:.4f} (bound {b:.4f})" for n, (d, b) in wide_dev.items())
+          + " | K2 library yardstick (two float32 SGEMMs, TF32 off, synchronised median): "
+          + ", ".join(f"k={k_} {t_:.3f} ms" for k_, t_ in wide_lib.items())
           + f" | wide chain {ms['logmvn_chain_wide'][0]:.3f} ms vs twin "
           f"{ms['logmvn_chain_wide'][1]:.3f} ms, library yardstick "
           f"{library['logmvn_chain_wide']:.3f} ms | every phase took the kernels (no composition)")
@@ -2364,6 +2422,178 @@ def main() -> None:
           f"{path_launches['cli_zqso']}, z_map == the library path's on the files read back "
           f"bit for bit, |z_map - z_true| max {dz_cli.max():.4f} | {time.perf_counter() - t18:.1f} s")
 
+    # 19. GP training at the reference's width: K3's adjoint against its
+    # twin, the golden replay against JAX float64, a trainer taking a few
+    # steps, the adjoint's device time
+    t19 = time.perf_counter()
+    from gpy_dla_detection_tpu_torch.data.synthetic import (
+        synthetic_training_lists,
+        synthetic_training_problem,
+    )
+    from gpy_dla_detection_tpu_torch.models import training as TT
+    from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
+        logmvn_chain_grad,
+        logmvn_chain_grad_reference,
+    )
+
+    num_lines = params.num_forest_lines
+    rest_pixels = int(round((params.max_lambda - params.min_lambda) / params.dlambda)) + 1
+
+    def train_problem(Q, k, seed):
+        """scripts/train_throughput.py's synthetic problem on the card in
+        float32: the parameters and the fit's arrays."""
+        fields, arrays = synthetic_training_problem(Q, rest_pixels, k, seed)
+        return (TT.TrainingParams.from_numpy(fields, device),
+                tuple(torch.as_tensor(x, device=device) for x in arrays))
+
+    # K3's adjoint against its twin on the synthetic problem's own inputs
+    grad_inputs, grad_rel = {}, {}
+    for k_ in TRAIN_GRAD_KS:
+        p_, args_ = train_problem(TRAIN_Q, k_, seed=k_)
+        with torch.no_grad():
+            B_, u_, misc_ = TT.woodbury_inputs(p_, *args_, num_lines)
+        g_ = torch.as_tensor(np.random.default_rng(k_).normal(size=TRAIN_Q).astype(np.float32),
+                             device=device)
+        got_ = logmvn_chain_grad(B_, u_, misc_, g_)
+        want_ = logmvn_chain_grad_reference(B_, u_, misc_, g_)
+        check(all(bool(torch.isfinite(x).all()) for x in got_), f"K3's adjoint k={k_}: non-finite")
+        grad_rel[k_] = [float((a - b).abs().max()) / float(b.abs().max())
+                        for a, b in zip(got_, want_)]
+        check(max(grad_rel[k_]) <= REL_K3_GRAD,
+              f"K3's adjoint k={k_}: |d| / max (dB, du, dmisc) {grad_rel[k_]} > {REL_K3_GRAD}")
+        name = "logmvn_chain_grad_wide" if k_ > 64 else "logmvn_chain_grad"
+        err[name] = max(err.get(name, 0.0), max(float((a - b).abs().max())
+                                                for a, b in zip(got_, want_)))
+        grad_inputs[k_] = (B_, u_, misc_, g_)
+
+    # the golden replay: the JAX float64 objective of 64 spectra, rebuilt
+    # from their seeds
+    gt = np.load(GOLDEN_TRAIN)
+    gt_truth = synthetic_learned_model(params, seed=int(gt["model_seed"]))
+    gt_train = TT.prepare_training_set(params, *synthetic_training_lists(
+        params, gt_truth, gt["z_qso"], int(gt["obs_seed"]), float(gt["noise_level"])),
+        gt["z_qso"])
+    gt_mu, gt_p = TT.initialize(params, gt_train, device)
+    check(np.array_equal(gt_mu, gt["mu"]), "training golden: the regenerated mu differs")
+    put32 = lambda x, dt=torch.float32: torch.as_tensor(np.asarray(x), dtype=dt, device=device)
+    gt_args = (put32(np.where(gt_train.mask, gt_train.flux - gt_mu, 0.0)),
+               put32(gt_train.lya_1pz), put32(gt_train.noise_variance),
+               put32(gt_train.mask, torch.bool), put32(gt_train.zqso_1pz))
+
+    def golden_eval():
+        with torch.no_grad():
+            losses_ = TT.batched_spectrum_losses(gt_p, *gt_args, num_lines)
+        TT.total_objective(gt_p, *gt_args, params).backward()
+        return losses_
+
+    gt_losses, launches = count_launches(golden_eval)
+    path_launches["train_golden"] = launches
+    check(launches == {"logmvn_chain": 2, "logmvn_chain_grad": 1},
+          f"training golden: launches {launches}")
+    gt_loss_rel = float(np.abs(gt_losses.double().cpu().numpy() - gt["losses"]).max()
+                        / np.abs(gt["losses"]).max())
+    gt_grad_rel = {n: float(np.abs(getattr(gt_p, n).grad.double().cpu().numpy()
+                                   - gt[f"grad_{n}"]).max() / np.abs(gt[f"grad_{n}"]).max())
+                   for n in TT.PARAM_FIELDS}
+    check(gt_loss_rel <= REL_TRAIN_LOSS and max(gt_grad_rel.values()) <= REL_TRAIN_GRAD,
+          f"training golden: losses {gt_loss_rel:.3e} of max|loss| (tol {REL_TRAIN_LOSS}), "
+          f"gradients {gt_grad_rel} of each block's max|g| (tol {REL_TRAIN_GRAD})")
+
+    # a trainer taking a few steps: fit_lbfgs_stepwise at Q = 4,096
+    p_t, args_t = train_problem(TRAIN_Q, params.k, seed=0)
+    fit = lambda n, p_=p_t: TT.fit_lbfgs_stepwise(p_, *args_t, params, n)
+    fit(2)  # warm-up
+    (p_fit, fit_values), launches = count_launches(lambda: fit(TRAIN_ITERS))
+    path_launches["train_fit"] = launches
+    evals = launches.get("logmvn_chain", 0)
+    check(evals >= TRAIN_ITERS and launches == {"logmvn_chain": evals, "logmvn_chain_grad": evals},
+          f"training fit: launches {launches} (K3 and its adjoint once an evaluation)")
+    check(bool(np.isfinite(fit_values).all()) and fit_values[-1] < fit_values[0],
+          f"training fit: the loss does not fall: {fit_values[0]} -> {fit_values[-1]}")
+    fit_runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(TRAIN_ITERS)
+        torch.cuda.synchronize()
+        fit_runs.append((time.perf_counter() - t0) * 1e3 / TRAIN_ITERS)
+    fit_ms = statistics.median(fit_runs)
+    # one profiled iteration from the fitted parameters
+    torch.cuda.synchronize()
+    train_mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prime_profiler()
+        _build.reset_launch_counts()
+        t_prof = time.perf_counter()
+        fit(1, p_fit)
+        torch.cuda.synchronize()
+        train_prof_ms = (time.perf_counter() - t_prof) * 1e3
+        prof_evals = _build.launch_counts["logmvn_chain"]
+    train_peak_mib = (torch.cuda.max_memory_allocated() - train_mem_before) / 2**20
+    train_busy_ms = union_busy_ms(prof)
+    train_sum_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type != torch.autograd.DeviceType.CPU
+                       and not e.is_user_annotation and SENTINEL_KERNEL not in e.key) / 1e3
+
+    # one evaluation at k = 65: K3's wide chain and the adjoint's wide kernel
+    p_w, args_w = train_problem(TRAIN_WIDE_Q, TRAIN_GRAD_KS[-1], seed=65)
+    _, launches = count_launches(
+        lambda: TT.total_objective(p_w, *args_w, params).backward())
+    path_launches["train_wide_basis"] = launches
+    check(launches == {"logmvn_chain_wide": 1, "logmvn_chain_grad_wide": 1},
+          f"training at k=65: launches {launches}")
+    check(all(bool(torch.isfinite(getattr(p_w, n).grad).all()) for n in TT.PARAM_FIELDS),
+          "training at k=65: non-finite gradients")
+
+    # the adjoint's device time, beside K3's forward on the same inputs,
+    # its bound and the library yardstick (on no path): cholesky_ex +
+    # cholesky_inverse of the unpacked I + B
+    grad_extra = {}
+    for name, k_ in (("logmvn_chain_grad", params.k), ("logmvn_chain_grad_wide",
+                                                       TRAIN_GRAD_KS[-1])):
+        B_, u_, misc_, g_ = grad_inputs[k_]
+        ms[name] = (timed_median(lambda: logmvn_chain_grad(B_, u_, misc_, g_)),
+                    timed_median(lambda: logmvn_chain_grad_reference(B_, u_, misc_, g_)))
+        bounds[name] = bound(*k3_grad_work(TRAIN_Q, k_))
+        full_ = unpack_capacitance(B_, k_)
+        library[name] = timed_median(
+            lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(full_)[0]))
+        k3_device[name] = device_ms(lambda: logmvn_chain_grad(B_, u_, misc_, g_))
+        forward = device_ms(lambda: logmvn_chain(B_, u_, misc_))[0]
+        grad_extra[name] = {"note": GRAD_NOTE, "k": k_, "S": TRAIN_Q,
+                            "device_ms_forward": forward,
+                            "max_rel_err": max(grad_rel[k_])}
+    grad_dev = {n: k3_device[n][0] for n in grad_extra}
+    print(f"[19 train] {card} | R={rest_pixels} k={params.k} {num_lines} forest lines, float32 | "
+          f"K3's adjoint vs twin at Q={TRAIN_Q}, |d| / max|.| (dB, du, dmisc; tol "
+          f"{REL_K3_GRAD}): "
+          + ", ".join(f"k={k_} " + "/".join(f"{r:.2e}" for r in rel)
+                      for k_, rel in grad_rel.items())
+          + f" | golden vs JAX float64 (tests/data/torch_golden_train.npz, Q="
+          f"{len(gt['z_qso'])}): losses {gt_loss_rel:.3e} of max|loss| {np.abs(gt['losses']).max():.1f} "
+          f"(tol {REL_TRAIN_LOSS}), gradients of each block's max|g| (tol {REL_TRAIN_GRAD}): "
+          + ", ".join(f"{n} {r:.3e}" for n, r in gt_grad_rel.items())
+          + f"; launches {path_launches['train_golden']} | fit_lbfgs_stepwise at Q={TRAIN_Q}: "
+          f"{fit_ms:.2f} ms an iteration (median of 3 runs of {TRAIN_ITERS}: "
+          + ", ".join(f"{t:.2f}" for t in fit_runs)
+          + f"), {evals / TRAIN_ITERS:.2f} evaluations an iteration, launches "
+          f"{path_launches['train_fit']} (no composition), loss {fit_values[0]:.1f} -> "
+          f"{fit_values[-1]:.1f}; one profiled iteration ({prof_evals} evaluations): device busy "
+          f"{train_busy_ms:.2f} ms (the union of the device records' intervals) of "
+          f"{train_prof_ms:.2f} ms wall ({100 * train_busy_ms / train_prof_ms:.1f}%; the kernels' "
+          f"times sum to {train_sum_ms:.2f} ms; user annotations left out), peak memory "
+          f"{train_peak_mib:.1f} MiB "
+          f"above the {train_mem_before / 2**20:.1f} MiB held | k=65 evaluation: launches "
+          f"{path_launches['train_wide_basis']} | device ms (profiler, 50 launches): "
+          + ", ".join(f"{n} (k={grad_extra[n]['k']}) {grad_dev[n]:.4f} vs K3 forward "
+                      f"{grad_extra[n]['device_ms_forward']:.4f}, bound {bounds[n][0]:.4f} "
+                      f"({bounds[n][1]}), synchronised {ms[n][0]:.3f} vs twin {ms[n][1]:.3f}, "
+                      f"library cholesky_ex + cholesky_inverse {library[n]:.3f}"
+                      for n in grad_extra)
+          + f" | {time.perf_counter() - t19:.1f} s")
+
     # phase 15's numbers beside each K5 and K6 row of the kernels line
     tail_extra = {n: {"device_ms_profiler": tail_dev[n], "bound_share": tail_share[n][0],
                       "copy_rate_share": tail_share[n][1], "copy_rate_gbs": copy_gbs,
@@ -2379,6 +2609,8 @@ def main() -> None:
         "logmvn_flat_chain[row]": [f"{ABLATE}:367", f"{ABLATE}:459", f"{ABLATE}:468"],
         "logmvn_ablate[full]": [f"{ABLATE}:86", f"{ABLATE}:118"],
     }
+    check(all(total[n] > 0 for n in KERNELS),
+          f"a kernel of the paths launched no time: {[n for n in KERNELS if not total[n]]}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
@@ -2387,6 +2619,10 @@ def main() -> None:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library.get(name),
          **({"device_ms": k3_device[name][0]} if name in k3_device else {}),
+         **grad_extra.get(name, {}),
+         **({"library_ms_by_k": {f"k={k_}": t_ for k_, t_ in wide_lib.items()},
+             "device_ms_by_k": {n.split()[-1]: d for n, (d, _) in wide_dev.items()
+                                if n.startswith("K2")}} if name == "logmvn_cap" else {}),
          **({"launches_zqso": sum(p.get(name, 0) for n, p in path_launches.items()
                                   if "zqso" in n),
              "device_ms_zqso": k3_zqso_ms, "bound_ms_zqso": k3_zqso_bound[0],

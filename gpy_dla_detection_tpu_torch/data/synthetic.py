@@ -237,6 +237,58 @@ def synthetic_observation(
     return wavelengths, flux, noise_variance, pixel_mask
 
 
+def synthetic_training_lists(
+    params: Parameters,
+    learned: LearnedArrays,
+    z_qsos,
+    obs_seed: int,
+    noise_level: float,
+):
+    """Training spectra drawn from ``learned``: spectrum i at ``z_qsos[i]``
+    with seed ``obs_seed + i`` (:func:`synthetic_observation`), each
+    normalized by its median flux at 1,310-1,325 A rest, as the pipeline
+    normalizes (the reference's training tests draw their lists so;
+    ``scripts/make_torch_golden.py train`` draws the golden's with this).
+
+    :return: the lists (wavelengths, flux, noise_variance, pixel_mask) that
+        ``models.training.prepare_training_set`` takes.
+    """
+    lists = ([], [], [], [])
+    for i, z in enumerate(z_qsos):
+        wl, fx, nv, pm = synthetic_observation(params, learned, float(z), seed=obs_seed + i,
+                                               noise_level=noise_level)
+        rest = wl / (1 + z)
+        norm = np.nanmedian(fx[(rest >= 1310) & (rest <= 1325)])
+        for out, x in zip(lists, (wl, fx / norm, nv / norm**2, pm)):
+            out.append(x)
+    return lists
+
+
+def synthetic_training_problem(Q: int, R: int, k: int, seed: int = 0):
+    """The training benchmark's synthetic problem (the reference's
+    ``scripts/train_throughput.py``): float32 parameters and Q spectra of
+    R rest pixels, drawn by numpy from ``seed`` in its order.
+
+    :return: (the ``TrainingParams`` fields M, log_omega, log_c_0,
+        log_tau_0, log_beta; the fit's arrays flux_centered, lya_1pz,
+        noise_variance, mask, zqso_1pz).
+    """
+    rng = np.random.default_rng(seed)
+    fields = (
+        rng.normal(0, 0.3, (R, k)).astype(np.float32),
+        np.log(rng.uniform(0.1, 0.3, R)).astype(np.float32),
+        np.float32(np.log(0.1)),
+        np.float32(np.log(0.0023)),
+        np.float32(np.log(3.65)),
+    )
+    flux = rng.normal(0, 1, (Q, R)).astype(np.float32)
+    lya_1pz = np.linspace(3.0, 4.2, R).astype(np.float32)[None].repeat(Q, 0)
+    nv = rng.uniform(0.01, 0.3, (Q, R)).astype(np.float32)
+    mask = rng.uniform(size=(Q, R)) > 0.2
+    zqso = rng.uniform(2.5, 4.5, Q).astype(np.float32)
+    return fields, (flux * mask, lya_1pz, nv, mask, zqso)
+
+
 def synthetic_spectrum(
     params: Parameters,
     learned: LearnedArrays,

@@ -35,7 +35,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # that the user paths' library does not wait for.
 LIBRARIES = {
     "kernels": ("absorption_all.cu", "absorption_tail.cu", "absorption_windowed.cu",
-                "logmvn_cap.cu", "logmvn_chain.cu"),
+                "logmvn_cap.cu", "logmvn_chain.cu", "logmvn_chain_grad.cu"),
     "ablate": ("logmvn_ablate.cu",),
 }
 BUILD_DIR = CSRC / "build"
@@ -86,6 +86,12 @@ _SIGNATURES = {"kernels": {
     # B, u, misc, S, k, then the geometry (threads, shared bytes, grid),
     # the workspace (or null), ll, stream
     "logmvn_chain_wide_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # K3's adjoint: B, u, g, S, k, then the geometry (row bound, warps a
+    # block, shared bytes, grid), dB, du, dmisc, stream
+    "logmvn_chain_grad_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # B, u, g, S, k, then the geometry (threads, shared bytes, grid), the
+    # workspace (or null), dB, du, dmisc, stream
+    "logmvn_chain_grad_wide_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }, "ablate": {
     # stage, rows, N, M, k, Mp, A, S, then K2's geometry (samples a block,
     # pixels a chunk, threads, shared bytes, grid), ll, stream

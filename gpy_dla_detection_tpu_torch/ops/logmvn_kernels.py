@@ -15,6 +15,12 @@ instantiation of its own decodes as it assembles (counted as
 ``logmvn_cap_i16``); its twin decodes with
 ``ops/logmvn.decode_profile_store``.
 
+K3's adjoint (``logmvn_chain_grad``, ``csrc/logmvn_chain_grad.cu``) is the
+backward of :func:`chain_loglik`, the ``torch.autograd.Function`` that the
+GP training differentiates (``models/training.py``): the JAX package
+differentiates its unrolled chain by autodiff, so this kernel has no TPU
+counterpart.
+
 Replaces ``gpy_dla_detection_tpu/ops/logmvn_pallas.py``:
 ``_make_cap_kernel`` (K2) and ``_make_chain_kernel_tp2c`` (K3).
 """
@@ -308,7 +314,12 @@ def wide_chain_geometry(S: int, k: int, sms: int = H100_SMS) -> WideChainGeometr
         raise ValueError(f"the wide chain takes k > {CHAIN_MAX_K}, got k={k}")
     if S < 1:
         raise ValueError(f"K3 needs S >= 1, got S={S}")
-    floats = k * (k + 1) // 2 + k
+    return _wide_geometry(S, k * (k + 1) // 2 + k, sms)
+
+
+def _wide_geometry(S: int, floats: int, sms: int) -> WideChainGeometry:
+    """A block of WIDE_CHAIN_THREADS a sample whose ``floats`` live in
+    shared memory where they fit a block, else in a global workspace."""
     shared = 16 * -(-4 * floats // 16)
     if shared <= MAX_DYNAMIC_SHARED_BYTES:
         per_sm = min(WIDE_CHAIN_BLOCKS_PER_SM, SM_SHARED_BYTES // (shared + 1024))
@@ -324,6 +335,34 @@ def k3_geometry(S: int, k: int, sms: int = H100_SMS) -> ChainGeometry | WideChai
     if k > CHAIN_MAX_K:
         return wide_chain_geometry(S, k, sms)
     return chain_geometry(S, k, sms)
+
+
+# K3's adjoint (csrc/logmvn_chain_grad.cu, K3G_GEOMETRY): K3's warp chain,
+# a warp a sample, for k <= CHAIN_MAX_K; per row bound the warps a block and
+# the blocks an SM (the launch bound: 128 and 255 registers a thread, for
+# the triangle and the vectors beside it); past the row bounds a block of
+# WIDE_CHAIN_THREADS a sample, the factor, t, v and one column a warp in
+# shared memory or a global workspace
+CHAIN_GRAD_WARPS = {32: 8, 64: 8}
+CHAIN_GRAD_BLOCKS_PER_SM = {32: 2, 64: 1}
+
+
+def chain_grad_geometry(S: int, k: int,
+                        sms: int = H100_SMS) -> ChainGeometry | WideChainGeometry:
+    """The geometry K3's adjoint launches for S samples of a k x k
+    capacitance on ``sms`` SMs: for k <= CHAIN_MAX_K K3's row bound and
+    buffer a warp and :func:`_chain_grid`'s grid at this kernel's warps and
+    launch bound; beyond, the wide chain's block holding the triangle, t, v
+    and a column for each of its warps."""
+    if S < 1 or k < 1:
+        raise ValueError(f"K3's adjoint needs S >= 1 and k >= 1, got S={S}, k={k}")
+    if k > CHAIN_MAX_K:
+        return _wide_geometry(S, k * (k + 1) // 2 + (2 + WIDE_CHAIN_THREADS // 32) * k, sms)
+    rows = next(b for b in CHAIN_ROW_BOUNDS if k <= b)
+    warps = CHAIN_GRAD_WARPS[rows]
+    return ChainGeometry(rows=rows, warps=warps,
+                         shared_bytes=_chain_shared_bytes(k, rows, warps),
+                         grid=_chain_grid(S, warps, CHAIN_GRAD_BLOCKS_PER_SM[rows], sms))
 
 
 @functools.lru_cache(maxsize=None)
@@ -557,3 +596,118 @@ def logmvn_chain(B: torch.Tensor, u: torch.Tensor, misc: torch.Tensor):
     check_launch("logmvn_chain", err)
     launch_counts["logmvn_chain"] += 1
     return ll
+
+
+def _cholesky_unrolled(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factors of (S, k, k) SPD matrices by the unrolled
+    right-looking chain of ``batched_quad_logdet``: a pivot that is not
+    positive gives NaN, as K3."""
+    k = A.shape[-1]
+    row_idx = torch.arange(k, device=A.device)
+    cols = []
+    for j in range(k):
+        col = torch.where(row_idx >= j, A[:, :, j] * torch.rsqrt(A[:, j, j])[:, None], 0.0)
+        cols.append(col)
+        if j < k - 1:
+            A = A - col[:, :, None] * col[:, None, :]
+    return torch.stack(cols, dim=2)
+
+
+def logmvn_chain_grad_reference(B: torch.Tensor, u: torch.Tensor, misc: torch.Tensor,
+                                g: torch.Tensor):
+    """Plain twin of K3's adjoint, in the inputs' dtype: with A = I + B,
+    L its Cholesky factor, W = L^-1 and v = A^-1 u = W^T W u,
+
+        dll/du = g v,   dll/dmisc = -g/2 (both columns),
+        dll/dB(i, j) = -g/2 (v_i v_j + (W^T W)_ij), twice that for i != j
+        (the packed entry stands for both halves).
+
+    A sample whose factorization meets a pivot that is not positive gets
+    NaN in dB and du, as K3 gives it a NaN likelihood.
+
+    :return: dB (S, k(k+1)/2), du (S, k), dmisc (S, 2).
+    """
+    S, k = u.shape
+    L = _cholesky_unrolled(unpack_capacitance(B, k))
+    eye = torch.eye(k, dtype=B.dtype, device=B.device).expand(S, k, k)
+    W = torch.linalg.solve_triangular(L, eye, upper=False)
+    Wt = W.transpose(1, 2)
+    v = (Wt @ (W @ u[:, :, None]))[:, :, 0]
+    G = -0.5 * g[:, None, None] * (v[:, :, None] * v[:, None, :] + Wt @ W)
+    cols, rows = _packed_maps(k)
+    twice = torch.tensor([1.0 if a == j else 2.0 for j, a in zip(cols, rows)],
+                         dtype=B.dtype, device=B.device)
+    dB = G[:, list(rows), list(cols)] * twice
+    bad = ~torch.isfinite(torch.diagonal(L, dim1=1, dim2=2)).all(dim=1)
+    dB = torch.where(bad[:, None], torch.nan, dB)
+    du = torch.where(bad[:, None], torch.nan, g[:, None] * v)
+    return dB, du, (-0.5 * g)[:, None].expand(S, 2).contiguous()
+
+
+def logmvn_chain_grad(B: torch.Tensor, u: torch.Tensor, misc: torch.Tensor, g: torch.Tensor):
+    """K3's adjoint (``csrc/logmvn_chain_grad.cu``) on CUDA, its twin on
+    the CPU (float32): the gradient of ``g . logmvn_chain(B, u, misc)``
+    with respect to B, u and misc (:func:`logmvn_chain_grad_reference`).
+    The warp kernel takes 1 <= k <= ``CHAIN_MAX_K`` (counted as
+    ``logmvn_chain_grad``), a block a sample any wider k (counted as
+    ``logmvn_chain_grad_wide``)."""
+    if not use_kernel(B):
+        return logmvn_chain_grad_reference(B, u, misc, g)
+    device = B.device
+    check_cuda_f32(device, B=B, u=u, misc=misc, g=g)
+    S, k = u.shape
+    if (B.shape != (S, k * (k + 1) // 2) or misc.shape != (S, 2) or g.shape != (S,)
+            or S == 0):
+        raise ValueError(
+            f"shape mismatch: B {tuple(B.shape)}, u {tuple(u.shape)}, "
+            f"misc {tuple(misc.shape)}, g {tuple(g.shape)}"
+        )
+    geo = chain_grad_geometry(S, k, _sm_count(device))
+    dB, du, dmisc = torch.empty_like(B), torch.empty_like(u), torch.empty_like(misc)
+    lib = load_library()
+    if isinstance(geo, WideChainGeometry):
+        work = (torch.empty((geo.grid, geo.workspace), dtype=torch.float32, device=device)
+                if geo.workspace else None)
+        with torch.cuda.device(device):
+            err = lib.logmvn_chain_grad_wide_launch(
+                ptr(B), ptr(u), ptr(g), S, k, geo.threads, geo.shared_bytes, geo.grid,
+                ptr(work), ptr(dB), ptr(du), ptr(dmisc), stream_ptr(device))
+        name = "logmvn_chain_grad_wide"
+    else:
+        with torch.cuda.device(device):
+            err = lib.logmvn_chain_grad_launch(
+                ptr(B), ptr(u), ptr(g), S, k, geo.rows, geo.warps, geo.shared_bytes,
+                geo.grid, ptr(dB), ptr(du), ptr(dmisc), stream_ptr(device))
+        name = "logmvn_chain_grad"
+    check_launch(name, err)
+    launch_counts[name] += 1
+    return dB, du, dmisc
+
+
+class _ChainLoglik(torch.autograd.Function):
+    """K3 forward, its adjoint backward; the twins on CPU tensors in their
+    own dtype."""
+
+    @staticmethod
+    def forward(ctx, B, u, misc):
+        ctx.save_for_backward(B, u, misc)
+        if B.device.type == "cuda":
+            return logmvn_chain(B, u, misc)
+        return logmvn_chain_reference(B, u, misc)
+
+    @staticmethod
+    def backward(ctx, g):
+        B, u, misc = ctx.saved_tensors
+        g = g.contiguous()
+        if B.device.type == "cuda":
+            return logmvn_chain_grad(B, u, misc, g)
+        return logmvn_chain_grad_reference(B, u, misc, g)
+
+
+def chain_loglik(B: torch.Tensor, u: torch.Tensor, misc: torch.Tensor) -> torch.Tensor:
+    """K3's per-sample log-likelihood ``-1/2 (misc0 - quad + misc1 +
+    logdet)`` of I + B (packed), differentiable in B, u and misc.  On a
+    CUDA tensor: K3 and its adjoint kernel, float32 only (anything else
+    raises, as :func:`logmvn_chain` does); on a CPU tensor: their plain
+    twins in the tensor's own dtype (float64 for the conformance tests)."""
+    return _ChainLoglik.apply(B, u, misc)

@@ -59,6 +59,24 @@ def _window(fn, reps: int):
             start.elapsed_time(end))
 
 
+def union_busy_ms(prof) -> float:
+    """Milliseconds in which at least one device record of the profiled run
+    ``prof`` ran: the union of the records' intervals, the sentinel's and
+    the user annotations' left out (``Optimizer.step#LBFGS.step`` is a
+    device-side range over a whole step, idle time included).  Unlike a
+    sum of the records' times it counts a moment once however many records
+    overlap it."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type != torch.autograd.DeviceType.CPU
+                   and not e.is_user_annotation and SENTINEL_KERNEL not in e.name)
+    total, reached = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reached:
+            total += end - max(start, reached)
+            reached = end
+    return total / 1e3
+
+
 def device_ms(fn, kernels: int | None = 1, reps: int = 50,
               tries: int = 3) -> tuple[float, float]:
     """Milliseconds a call of ``fn()`` over ``reps`` back-to-back calls,

@@ -38,14 +38,25 @@ P = 5,632) with ``synthetic_z_learned_model(ZQSO_MODEL_SEED, k=20)``:
 each spectrum's flux (every 460th pixel), the log likelihoods and the MAP
 redshifts.
 
+``train``: the GP training objective at the full ``Parameters()`` width
+(R = 1,217 rest pixels, k = 20, 31 forest lines): ``TRAIN_Q`` = 64
+spectra from the port's ``synthetic_training_lists`` (its numpy copies of
+the generators: ``synthetic_learned_model(params, TRAIN_MODEL_SEED)``,
+z_qso drawn from ``TRAIN_Z_SEED`` in 2.5-3.6, observation seeds
+``TRAIN_OBS_SEED + i``, each normalized by its median flux at 1,310-1,325
+A rest), through the JAX package's ``prepare_training_set`` and
+``initialize``; at those initial parameters, in float64, the per-spectrum
+``batched_spectrum_losses``, the ``total_objective`` and its five gradient
+blocks by ``jax.grad``.
+
 Run from the repository root, naming the fixtures to write (all by
 default; each run rewrites the file, so name only the one that changes):
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [dla] [lls] [civ] [i16] [zqso]
+    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [dla] [lls] [civ] [i16] [zqso] [train]
 
 Output: tests/data/torch_golden_fullscale.npz, tests/data/torch_golden_lls.npz,
 tests/data/torch_golden_civ.npz, tests/data/torch_golden_i16.npz,
-tests/data/torch_golden_zqso.npz
+tests/data/torch_golden_zqso.npz, tests/data/torch_golden_train.npz
 """
 
 from __future__ import annotations
@@ -376,9 +387,61 @@ def write_zqso() -> None:
     print(f"wrote {OUT_ZQSO} ({OUT_ZQSO.stat().st_size} bytes)")
 
 
+OUT_TRAIN = ROOT / "tests" / "data" / "torch_golden_train.npz"
+TRAIN_Q = 64
+TRAIN_MODEL_SEED = 3
+TRAIN_Z_SEED = 2029
+TRAIN_OBS_SEED = 500
+TRAIN_NOISE = 0.05
+
+
+def write_train() -> None:
+    import jax.numpy as jnp
+
+    from gpy_dla_detection_tpu.models.training import (
+        batched_spectrum_losses,
+        initialize,
+        prepare_training_set,
+        total_objective,
+    )
+    from gpy_dla_detection_tpu_torch.data import synthetic as port_synthetic
+    from gpy_dla_detection_tpu_torch.params import Parameters as PortParameters
+
+    params = Parameters()
+    # the spectra: numpy draws of the port's generator copies, which
+    # tests/test_torch_standalone.py holds bit for bit to the reference's
+    truth = port_synthetic.synthetic_learned_model(PortParameters(), seed=TRAIN_MODEL_SEED)
+    z_qsos = np.random.default_rng(TRAIN_Z_SEED).uniform(2.5, 3.6, TRAIN_Q)
+    train = prepare_training_set(params, *port_synthetic.synthetic_training_lists(
+        PortParameters(), truth, z_qsos, TRAIN_OBS_SEED, TRAIN_NOISE), z_qsos)
+    mu, p0 = initialize(params, train)
+    args = (jnp.asarray(np.where(train.mask, train.flux - mu, 0.0)),
+            jnp.asarray(train.lya_1pz), jnp.asarray(train.noise_variance),
+            jnp.asarray(train.mask), jnp.asarray(train.zqso_1pz))
+    losses = np.asarray(batched_spectrum_losses(p0, *args, params.num_forest_lines))
+    objective, grads = jax.value_and_grad(total_objective)(p0, *args, params)
+    print(f"train: Q={TRAIN_Q} R={train.flux.shape[1]} k={params.k} objective "
+          f"{float(objective):.6f}, losses {losses.min():.3f}..{losses.max():.3f}")
+    np.savez_compressed(
+        OUT_TRAIN,
+        model_seed=np.int64(TRAIN_MODEL_SEED),
+        z_seed=np.int64(TRAIN_Z_SEED),
+        obs_seed=np.int64(TRAIN_OBS_SEED),
+        noise_level=np.float64(TRAIN_NOISE),
+        k=np.int64(params.k),
+        z_qso=z_qsos,
+        mu=np.asarray(mu, np.float64),
+        losses=losses.astype(np.float64),
+        objective=np.float64(objective),
+        **{f"grad_{name}": np.asarray(getattr(grads, name), np.float64)
+           for name in grads._fields},
+    )
+    print(f"wrote {OUT_TRAIN} ({OUT_TRAIN.stat().st_size} bytes)")
+
+
 def main(argv: list[str]) -> None:
     writers = {"dla": write_dla, "lls": write_lls, "civ": write_civ, "i16": write_i16,
-               "zqso": write_zqso}
+               "zqso": write_zqso, "train": write_train}
     which = argv or list(writers)
     unknown = set(which) - set(writers)
     if unknown:

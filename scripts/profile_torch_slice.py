@@ -23,7 +23,15 @@ scan (``zqso_corr.CORR_CHUNK`` candidates a median and iid pass) on
 ``NUM_ZQSO_RATE`` spectra, spectra/s as the median of 3 passes after a
 warm-up, and the exact scan (``zqso.EXACT_CHUNK``) on one spectrum, ms
 as the median of 3 after a warm-up; each with its peak device memory
-above what was held before it.  ``--abs-dtype`` stores the absorption
+above what was held before it.  ``train`` runs ``fit_lbfgs_stepwise`` for
+``TRAIN_ITERS`` iterations on the training's synthetic problem of
+``chip_smoke.py`` phase 19 (Q = 4,096 spectra, R = 1,217, k = 20, 31
+forest lines, float32) and sums the device time by part: K3 (forward),
+its adjoint (backward), the GEMMs, the reductions, the gathers and
+scatters, the copies and the other elementwise kernels.  Every path
+prints the device busy time twice: the union of the device records'
+intervals (each moment once) and the sum of their times, user
+annotations left out of both.  ``--abs-dtype`` stores the absorption
 profiles as float32 (``f32``, the default) or as int16 codes (``i16``,
 or ``i16p``, which the port stores alike); the zQSO head stores none.
 
@@ -62,7 +70,11 @@ from gpy_dla_detection_tpu_torch.models.lls import (  # noqa: E402
     with_boss_meanflux,
 )
 from gpy_dla_detection_tpu_torch.ops.kernel_config import profile_store_dtype  # noqa: E402
-from gpy_dla_detection_tpu_torch.ops.timing import SENTINEL_KERNEL, prime_profiler  # noqa: E402
+from gpy_dla_detection_tpu_torch.ops.timing import (  # noqa: E402
+    SENTINEL_KERNEL,
+    union_busy_ms,
+    prime_profiler,
+)
 from gpy_dla_detection_tpu_torch.params import Parameters  # noqa: E402
 from gpy_dla_detection_tpu_torch.parallel.batch import process_batch  # noqa: E402
 
@@ -71,7 +83,20 @@ NUM_LLS = 8
 NUM_ZQSO = 8
 NUM_ZQSO_RATE = 128  # 4x inference_z_qso_many's window of 32 scans in flight
 ZQSO_Z_SEED = 3  # z_true of chip_smoke.py phase 18's library path
-PATHS = ("windowed", "exact", "windowed_unfused", "windowed_weideman", "lls", "zqso")
+PATHS = ("windowed", "exact", "windowed_unfused", "windowed_weideman", "lls", "zqso", "train")
+TRAIN_Q = 4096
+TRAIN_ITERS = 3
+# the training's device time by part: (label, test on the kernel's name)
+TRAIN_PARTS = (
+    ("K3's adjoint logmvn_chain_grad", lambda n: "logmvn_chain_grad" in n),
+    ("K3 logmvn_chain", lambda n: "logmvn_chain" in n),
+    ("GEMMs", lambda n: any(w in n.lower() for w in ("gemm", "cutlass", "xmma"))),
+    ("reductions", lambda n: "reduce" in n.lower()),
+    ("gathers and scatters", lambda n: any(w in n.lower() for w in ("index", "scatter",
+                                                                      "gather"))),
+    ("copies", lambda n: "memcpy" in n.lower() or "copy" in n.lower()),
+    ("other elementwise", lambda n: "elementwise" in n.lower()),
+)
 # the zQSO scan's device time by part: (label, test on the kernel's name)
 ZQSO_PARTS = (
     ("K3 logmvn_chain", lambda n: "logmvn_chain" in n),
@@ -167,6 +192,22 @@ def main() -> None:
 
         def run():
             return inference_z_qso_many(learned, spectra, params)
+    elif args.path == "train":
+        from gpy_dla_detection_tpu_torch.data.synthetic import synthetic_training_problem
+        from gpy_dla_detection_tpu_torch.models.training import (
+            TrainingParams,
+            fit_lbfgs_stepwise,
+        )
+
+        params = Parameters()
+        R = int(round((params.max_lambda - params.min_lambda) / params.dlambda)) + 1
+        fields, arrays = synthetic_training_problem(TRAIN_Q, R, params.k, seed=0)
+        p0 = TrainingParams.from_numpy(fields, device)
+        data = tuple(torch.as_tensor(x, device=device) for x in arrays)
+        spectra = arrays[0]
+
+        def run():
+            return fit_lbfgs_stepwise(p0, *data, params, TRAIN_ITERS)
     elif args.path == "lls":
         params = Parameters(num_dla_samples=10000, min_lambda=850.0, num_pixels_padded=1664)
         arrays = synthetic_learned_model(params)
@@ -215,32 +256,41 @@ def main() -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     # device-side entries only: the aten:: CPU ops that launch kernels also
-    # report their kernels' time and would count it twice
+    # report their kernels' time and would count it twice, and a user
+    # annotation (Optimizer.step#LBFGS.step) is a device-side range over
+    # the kernels of a whole step
     events = [
         e for e in prof.key_averages()
         if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0
-        and SENTINEL_KERNEL not in e.key
+        and not e.is_user_annotation and SENTINEL_KERNEL not in e.key
     ]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    width = (f"Z={params.num_zqso_samples}, P={params.num_pixels_padded}, k={params.k}"
-             if args.path == "zqso" else
-             f"S={params.num_dla_samples}, N={params.num_pixels_padded}, k={params.k}")
+    sum_ms = sum(e.self_device_time_total for e in events) / 1e3
+    union_ms = union_busy_ms(prof)
+    if args.path == "zqso":
+        width = f"Z={params.num_zqso_samples}, P={params.num_pixels_padded}, k={params.k}"
+    elif args.path == "train":
+        width = (f"R={R}, k={params.k}, {params.num_forest_lines} forest lines, {TRAIN_ITERS} "
+                 f"L-BFGS iterations")
+    else:
+        width = f"S={params.num_dla_samples}, N={params.num_pixels_padded}, k={params.k}"
     print(f"card {card} | path {args.path}, storage {args.abs_dtype} | {len(spectra)} spectra, {width} | wall {plain_ms:.2f} ms "
-          f"unprofiled, {wall_ms:.2f} ms profiled | device kernel time "
-          f"{busy_ms:.2f} ms ({100 * busy_ms / plain_ms:.1f}% of the unprofiled "
-          f"wall, {100 * busy_ms / wall_ms:.1f}% of the profiled)")
+          f"unprofiled, {wall_ms:.2f} ms profiled | device busy {union_ms:.2f} ms (the union "
+          f"of the records' intervals; {100 * union_ms / plain_ms:.1f}% of the unprofiled "
+          f"wall, {100 * union_ms / wall_ms:.1f}% of the profiled); the records' times sum "
+          f"to {sum_ms:.2f} ms")
     print(f"{'device ms':>10} {'calls':>6} {'share':>6}  name")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         ms = e.self_device_time_total / 1e3
-        print(f"{ms:10.3f} {e.count:6d} {100 * ms / busy_ms:5.1f}%  {e.key[:90]}")
-    if args.path == "zqso":
-        parts = dict.fromkeys([label for label, _ in ZQSO_PARTS] + ["other"], 0.0)
+        print(f"{ms:10.3f} {e.count:6d} {100 * ms / sum_ms:5.1f}%  {e.key[:90]}")
+    part_tests = {"zqso": ZQSO_PARTS, "train": TRAIN_PARTS}.get(args.path)
+    if part_tests:
+        parts = dict.fromkeys([label for label, _ in part_tests] + ["other"], 0.0)
         for e in events:
-            label = next((lb for lb, test in ZQSO_PARTS if test(e.key)), "other")
+            label = next((lb for lb, test in part_tests if test(e.key)), "other")
             parts[label] += e.self_device_time_total / 1e3
-        print("zQSO device ms by part: " + ", ".join(
-            f"{label} {ms:.3f} ({100 * ms / busy_ms:.1f}%)" for label, ms in parts.items())
-            + f" | idle {100 * (1 - busy_ms / wall_ms):.1f}% of the profiled wall | "
+        print(f"{args.path} device ms by part: " + ", ".join(
+            f"{label} {ms:.3f} ({100 * ms / sum_ms:.1f}%)" for label, ms in parts.items())
+            + f" | idle {100 * (1 - union_ms / wall_ms):.1f}% of the profiled wall | "
             f"{sum(e.count for e in events) / len(spectra):.1f} device records a spectrum")
     if args.trace is not None:
         args.trace.parent.mkdir(parents=True, exist_ok=True)

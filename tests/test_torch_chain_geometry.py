@@ -13,11 +13,16 @@ import pytest
 from gpy_dla_detection_tpu_torch.ops._build import CSRC, MAX_DYNAMIC_SHARED_BYTES
 from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
     CHAIN_BLOCKS_PER_SM,
+    CHAIN_GRAD_BLOCKS_PER_SM,
+    CHAIN_GRAD_WARPS,
     CHAIN_MAX_K,
     CHAIN_ROW_BOUNDS,
     CHAIN_WARPS,
     H100_SMS,
+    SM_SHARED_BYTES,
+    WideChainGeometry,
     chain_geometry,
+    chain_grad_geometry,
 )
 
 SS = (1, 2, 31, 32, 33, 1001, 10_000)
@@ -101,3 +106,53 @@ def test_k_beyond_the_row_bounds_is_refused(k):
 def test_no_samples_is_refused():
     with pytest.raises(ValueError):
         chain_geometry(0, 20)
+
+
+@pytest.mark.parametrize("k", [1, 2, 20, 21, 32, 33, 63, 64])
+def test_adjoint_geometry_is_launchable_and_covers_every_sample_once(k):
+    """K3's adjoint (csrc/logmvn_chain_grad.cu) at k <= 64: K3's row bound
+    and buffer a warp, its own warps and launch bound, every sample taken
+    by exactly one warp."""
+    kp = k * (k + 1) // 2
+    for S in SS + (4096,):
+        g = chain_grad_geometry(S, k)
+        assert g.rows == min(b for b in CHAIN_ROW_BOUNDS if b >= k)
+        assert g.warps == CHAIN_GRAD_WARPS[g.rows]
+        assert g.shared_bytes >= 4 * g.warps * (kp + 3 + g.rows)
+        assert CHAIN_GRAD_BLOCKS_PER_SM[g.rows] * (g.shared_bytes + 1024) <= 228 * 1024
+        assert 1 <= g.grid <= H100_SMS * CHAIN_GRAD_BLOCKS_PER_SM[g.rows]
+        shares = warp_samples(g, S)
+        assert [s for r in shares for s in r] == list(range(S))
+
+
+@pytest.mark.parametrize("k,home", [(65, "shared"), (100, "shared"), (334, "shared"),
+                                    (335, "workspace"), (400, "workspace")])
+def test_adjoint_wide_geometry(k, home):
+    """Past k = 64 a block a sample: the triangle, t, v and a column for
+    each of its 4 warps in shared memory up to k = 334, past that in a
+    global workspace; at most 16 blocks an SM and no more than S."""
+    floats = k * (k + 1) // 2 + 6 * k
+    for S in (1, 33, 4096):
+        g = chain_grad_geometry(S, k)
+        assert isinstance(g, WideChainGeometry) and g.threads == 128
+        assert 1 <= g.grid <= min(S, 16 * H100_SMS)
+        if home == "shared":
+            assert g.workspace == 0 and 4 * floats <= g.shared_bytes <= MAX_DYNAMIC_SHARED_BYTES
+            assert g.grid <= H100_SMS * (SM_SHARED_BYTES // (g.shared_bytes + 1024))
+        else:
+            assert g.shared_bytes == 0 and g.workspace == floats
+
+
+def test_adjoint_geometry_matches_the_kernels_compiled_blocks():
+    src = (Path(CSRC) / "logmvn_chain_grad.cu").read_text()
+    compiled = re.search(r"#define K3G_GEOMETRY (\d+), (\d+), (\d+), (\d+)", src).groups()
+    assert tuple(map(int, compiled)) == (
+        CHAIN_GRAD_WARPS[32], CHAIN_GRAD_BLOCKS_PER_SM[32], CHAIN_GRAD_WARPS[64],
+        CHAIN_GRAD_BLOCKS_PER_SM[64])
+    assert "kWideWarps = kWideThreads / 32" in src and "kWideThreads = 128" in src
+
+
+@pytest.mark.parametrize("S,k", [(0, 20), (10, 0)])
+def test_adjoint_refuses_an_empty_problem(S, k):
+    with pytest.raises(ValueError):
+        chain_grad_geometry(S, k)

@@ -52,6 +52,14 @@ every shape of their float32 tests; K2 on int16 codes to 1e-6 |ll| at N =
 and 20, 0-3 streams, also on rows aligned to 2 and 4 bytes only, and
 against K2 fed the same codes decoded to float32 (printed: whether they
 agree bitwise).
+
+K3's adjoint (``logmvn_chain_grad``, the backward of ``chain_loglik`` in the
+GP training) is held to its twin and to the CPU float64 value within 1e-5
+of each output's largest magnitude (dB, du, dmisc), at k = 1 to 65 (both
+sides of the warp chain's row bounds, the wide kernel past 64, 340 in its
+global workspace) and S = 1 to 4,096, with NaN where its twin gives NaN;
+``chain_loglik`` and one ``total_objective`` backward launch K3 and its
+adjoint once each and nothing else.
 """
 
 import numpy as np
@@ -78,7 +86,11 @@ from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
     flat_chain_geometry,
     logmvn_cap,
     logmvn_cap_reference,
+    chain_grad_geometry,
+    chain_loglik,
     logmvn_chain,
+    logmvn_chain_grad,
+    logmvn_chain_grad_reference,
     logmvn_chain_reference,
     packed_pair_basis,
 )
@@ -112,6 +124,10 @@ TOL_K5 = 1e-6
 TOL_K6 = 1e-6
 REL_K23 = 1e-6
 REL_K7_STAGE = 2e-6
+# K3's adjoint: each output within this share of its largest magnitude, of
+# its float32 twin and of the CPU float64 value (the float32 twin's own
+# error on these capacitances: <= 8.3e-7)
+REL_K3_GRAD = 1e-5
 
 pytestmark = pytest.mark.gpu
 
@@ -1013,3 +1029,133 @@ def test_device_ms_windows_hold_every_launch(cuda_device):
     for _ in range(10):
         assert device_ms(lambda: logmvn_chain(B, u, misc), tries=1)[0] > 0
         assert device_ms(lambda: logmvn_cap(rows, M, Mp, A, extra), tries=1)[0] > 0
+
+
+def _grad_inputs(device, k, S):
+    B, u, misc = _chain_inputs(device, k, S)
+    g = torch.as_tensor(np.random.default_rng(k + S).normal(size=S).astype(np.float32),
+                        device=device)
+    return B, u, misc, g
+
+
+def _assert_grads_close(got, want, rel=REL_K3_GRAD):
+    for name, a, b in zip(("dB", "du", "dmisc"), got, want):
+        b = b.to(a.device, a.dtype)
+        assert torch.isfinite(a).all(), name
+        err = float((a - b).abs().max())
+        assert err <= rel * float(b.abs().max()), (name, err, float(b.abs().max()))
+
+
+# k: both sides of the row bounds 32 and 64 and of a half warp, the main
+# path's 20, the odd 21, past 64 the wide kernel; S: a lone sample, one
+# past a warp, an uneven count, the training's 4,096
+@pytest.mark.parametrize("S", [1, 33, 1001, 4096])
+@pytest.mark.parametrize("k", [1, 2, 8, 16, 17, 20, 21, 31, 32, 33, 41, 63, 64, 65, 100])
+def test_chain_grad_kernel_matches_twin(cuda_device, k, S):
+    B, u, misc, g = _grad_inputs(cuda_device, k, S)
+    name = "logmvn_chain_grad_wide" if k > 64 else "logmvn_chain_grad"
+    before = _build.launch_counts[name]
+    got = logmvn_chain_grad(B, u, misc, g)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    _assert_grads_close(got, logmvn_chain_grad_reference(B, u, misc, g))
+
+
+@pytest.mark.parametrize("k", [334, 335])  # the last in shared memory, the first past it
+def test_chain_grad_wide_kernel_in_shared_memory_and_workspace(cuda_device, k):
+    assert (chain_grad_geometry(8, k).workspace > 0) == (k == 335)
+    B, u, misc, g = _grad_inputs(cuda_device, k, 8)
+    got = logmvn_chain_grad(B, u, misc, g)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, logmvn_chain_grad_reference(B, u, misc, g))
+
+
+@pytest.mark.parametrize("k", [5, 20, 41, 65])
+def test_chain_grad_kernel_gives_the_twins_nan_where_not_positive_definite(cuda_device, k):
+    """A negative pivot (the first column's, a later one's) makes the
+    sample's dB and du NaN in kernel and twin alike; the other samples are
+    held to the twin."""
+    B, u, misc, g = _grad_inputs(cuda_device, k, 100)
+    diag = [j * k - j * (j - 1) // 2 for j in range(k)]  # packed (j, j)
+    B[0, diag[0]] = -2.0
+    B[1, diag[k // 2]] = -50.0
+    got = logmvn_chain_grad(B, u, misc, g)
+    want = logmvn_chain_grad_reference(B, u, misc, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:2], want[:2]):
+        nan = torch.isnan(b).any(dim=1)
+        assert nan[:2].all() and not nan[2:].any()
+        assert torch.isnan(a[:2]).all()
+    _assert_grads_close([x[2:] for x in got], [x[2:] for x in want])
+
+
+@pytest.mark.parametrize("k", [1, 20, 21, 64, 65])
+def test_chain_loglik_gradients_on_the_card_against_cpu_float64(cuda_device, k):
+    """gradcheck-style: chain_loglik's value and its autograd gradients on
+    the card in float32 (K3 and its adjoint) against the same on the CPU in
+    float64 (the twins), each within 1e-5 of its largest magnitude; one
+    launch each."""
+    B, u, misc, g = _grad_inputs(cuda_device, k, 1001)
+    cpu = [x.cpu().double().requires_grad_() for x in (B, u, misc)]
+    card = [x.clone().requires_grad_() for x in (B, u, misc)]
+    _build.reset_launch_counts()
+    ll = chain_loglik(*card)
+    (ll * g).sum().backward()
+    torch.cuda.synchronize()
+    wide = "_wide" if k > 64 else ""
+    assert dict(_build.launch_counts) == {f"logmvn_chain{wide}": 1, f"logmvn_chain_grad{wide}": 1}
+    ll64 = chain_loglik(*cpu)
+    (ll64 * g.cpu().double()).sum().backward()
+    assert float((ll.detach().double().cpu() - ll64.detach()).abs().max()) <= (
+        REL_K3_GRAD * float(ll64.detach().abs().max()))
+    _assert_grads_close([x.grad for x in card], [x.grad for x in cpu])
+
+
+def test_chain_grad_launcher_refuses_k_beyond_its_row_bound(cuda_device):
+    k = 65
+    B = torch.zeros((4, k * (k + 1) // 2), device=cuda_device)
+    u = torch.zeros((4, k), device=cuda_device)
+    g = torch.zeros((4,), device=cuda_device)
+    dB, du, dmisc = torch.empty_like(B), torch.empty_like(u), torch.empty((4, 2), device=cuda_device)
+    geo = chain_grad_geometry(4, 64)
+    err = _build.load_library().logmvn_chain_grad_launch(
+        _build.ptr(B), _build.ptr(u), _build.ptr(g), 4, k, geo.rows, geo.warps,
+        geo.shared_bytes, geo.grid, _build.ptr(dB), _build.ptr(du), _build.ptr(dmisc),
+        _build.stream_ptr(cuda_device))
+    assert err != 0
+
+
+@pytest.mark.parametrize("k", [20, 65])
+def test_total_objective_backward_launches_k3_and_its_adjoint(cuda_device, k):
+    """One total_objective forward and backward at Q = 256 on the card:
+    one K3 and one adjoint launch (the wide pair past k = 64), no
+    composition; the gradients finite and within phase 19's 1e-3 of each
+    block's largest magnitude of the CPU float64 gradients."""
+    from gpy_dla_detection_tpu_torch.models import training as TT
+    from gpy_dla_detection_tpu_torch.params import Parameters
+
+    rng = np.random.default_rng(k)
+    Q, R = 256, 300
+    fields = (rng.normal(0, 0.3, (R, k)), np.log(rng.uniform(0.1, 0.3, R)), np.log(0.1),
+              np.log(0.0023), np.log(3.65))
+    mask = rng.uniform(size=(Q, R)) > 0.2
+    arrays = (rng.normal(0, 1, (Q, R)) * mask, np.linspace(3.0, 4.2, R)[None].repeat(Q, 0),
+              rng.uniform(0.01, 0.3, (Q, R)), mask, rng.uniform(2.5, 4.5, Q))
+    params = Parameters(k=k)
+
+    def grads(device, dtype):
+        p = TT.TrainingParams.from_numpy(fields, device, dtype)
+        args = [torch.as_tensor(a, dtype=torch.bool if a.dtype == bool else dtype,
+                                device=device) for a in arrays]
+        TT.total_objective(p, *args, params).backward()
+        return {n: getattr(p, n).grad.double().cpu() for n in TT.PARAM_FIELDS}
+
+    _build.reset_launch_counts()
+    got = grads(cuda_device, torch.float32)
+    torch.cuda.synchronize()
+    wide = "_wide" if k > 64 else ""
+    assert dict(_build.launch_counts) == {f"logmvn_chain{wide}": 1, f"logmvn_chain_grad{wide}": 1}
+    want = grads("cpu", torch.float64)
+    for n in TT.PARAM_FIELDS:
+        assert torch.isfinite(got[n]).all(), n
+        assert float((got[n] - want[n]).abs().max()) <= 1e-3 * float(want[n].abs().max()), n

@@ -589,3 +589,66 @@ print("ok")
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_training_copies_bit_for_bit():
+    """The training module's host copies: the mean-flux lift and
+    ``prepare_training_set`` give the reference's arrays bit for bit on the
+    same lists, and the parameter fields keep its order."""
+    from gpy_dla_detection_tpu.models import training as JTr
+    from gpy_dla_detection_tpu_torch.models import training as TTr
+
+    rng = np.random.default_rng(0)
+    obs_wl = np.sort(rng.uniform(3600.0, 5800.0, size=512))
+    for z, beta, tau_0 in [(3.1, 3.182, 0.00554), (2.4, 3.65, 0.0023)]:
+        assert np.array_equal(TTr._mean_flux_suppression_np(obs_wl, beta, tau_0, z, 31),
+                              JTr._mean_flux_suppression_np(obs_wl, beta, tau_0, z, 31))
+    params = TP.Parameters(k=4)
+    learned = synthetic_learned_model(params, seed=5)
+    lists = list(zip(*[synthetic_observation(params, learned, z, seed=300 + i,
+                                             noise_level=0.05)
+                       for i, z in enumerate((2.7, 3.0, 3.3))]))
+    lists[2] = list(lists[2])
+    lists[2][1] = np.full_like(lists[2][1], np.nan)  # an unusable spectrum: an all-masked row
+    zs = [2.7, 3.0, 3.3]
+    got = TTr.prepare_training_set(params, *lists, zs)
+    want = JTr.prepare_training_set(JP.Parameters(k=4), *lists, zs)
+    assert got._fields == want._fields
+    for f in want._fields:
+        assert _equal(getattr(got, f), getattr(want, f)), f
+    assert not got.mask[1].any()
+    assert TTr.PARAM_FIELDS == JTr.TrainingParams._fields
+
+
+def test_training_runs_without_jax():
+    """With ``jax`` and the JAX package blocked, the port trains a small
+    GP on the CPU in float64 (K3's and its adjoint's twins) and the loss
+    falls."""
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["gpy_dla_detection_tpu"] = None
+sys.path.insert(0, {str(ROOT)!r})
+import numpy as np, torch
+torch.set_num_threads(2)
+from gpy_dla_detection_tpu_torch.data.synthetic import (
+    synthetic_learned_model, synthetic_training_lists)
+from gpy_dla_detection_tpu_torch.models.training import prepare_training_set, train_model
+from gpy_dla_detection_tpu_torch.params import Parameters
+params = Parameters(k=3)
+z = np.linspace(2.6, 3.4, 5)
+lists = synthetic_training_lists(params, synthetic_learned_model(params, seed=1), z, 40, 0.05)
+learned, losses = train_model(params, prepare_training_set(params, *lists, z), 6,
+                              device="cpu", dtype=torch.float64)
+assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+assert learned.M.dtype == torch.float64
+loaded = [m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] in ("jax", "gpy_dla_detection_tpu"))]
+assert loaded == [], loaded
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")

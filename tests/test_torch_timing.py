@@ -61,3 +61,25 @@ def test_warm_up_calls_run_first(monkeypatch):
     ran = []
     timing.device_ms(lambda: ran.append(1), reps=50)
     assert len(ran) == 3  # the stubbed window makes no calls of its own
+
+
+def test_busy_time_is_the_union_of_the_device_intervals():
+    """Overlapping and nested device records count once; CPU records, the
+    sentinel's and user annotations (a device-side range over a whole
+    optimizer step) not at all."""
+    from types import SimpleNamespace
+
+    import torch
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def event(start, end, device=cuda, name="kernel", annotation=False):
+        return SimpleNamespace(time_range=SimpleNamespace(start=start, end=end),
+                               device_type=device, name=name, is_user_annotation=annotation)
+
+    prof = SimpleNamespace(events=lambda: [
+        event(0, 100), event(50, 150), event(60, 70), event(300, 400),
+        event(0, 1_000, device=cpu), event(500, 900, name=timing.SENTINEL_KERNEL),
+        event(0, 2_000, name="Optimizer.step#LBFGS.step", annotation=True)])
+    assert timing.union_busy_ms(prof) == (150 + 100) / 1e3
+    assert timing.union_busy_ms(SimpleNamespace(events=lambda: [])) == 0.0
