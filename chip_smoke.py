@@ -159,6 +159,26 @@ Phases, one line each; any failure exits non-zero before the result:
      at k = 65 (the wide pair); the adjoint's device ms (50 launches)
      beside K3's forward on the same inputs, its bound and the library
      yardstick (cholesky_ex + cholesky_inverse of the unpacked I + B)
+ 20. the reference-scale training run (scripts/train_fullscale_torch.py)
+     at the same width: (a) on phase 19's synthetic problem at Q = 65,024,
+     one evaluation of the chunked, shifted objective in 16 chunks (Qc =
+     4,064; the shift the mean loss of a pass of 16 K3 launches) against
+     one unchunked evaluation of total_objective: the restored values
+     within 1e-5 of sum|loss_i|, each gradient block within 1e-3 of its
+     max|g|, K3 launched 32 times and its adjoint 16 (each chunk's
+     forward runs again in the backward), 1 and 1 unchunked, and the peak
+     memory of each; K3 and its adjoint at Qc = 4,064 against their
+     twins and their device ms (50 launches) beside their bounds; (b) the
+     training golden (phase 19) through 4 chunks: the restored total
+     within 1e-5 of sum|loss_i| of JAX's float64 total, gradients within
+     1e-3; (c) fit_two_stage at Q = 65,024, 3 + 3 iterations: two L-BFGS
+     optimizers, both stages finite, the loss falls, stage B's first
+     value at stage A's end within Q ulp(float32 shift); ms and
+     evaluations an iteration, peak memory, the busy share of one profiled
+     iteration; (d) the script's main at Q = 2,048, 4 chunks, 20
+     iterations, a 16-spectrum detection gate at Parameters(): the JAX
+     artifact's keys with "device", a falling trajectory, launches K1 16,
+     K2 and K3 80 in the gate and K3 / its adjoint 8 / 4 an evaluation
 Every other phase asserts that the Weideman window is never launched, and
 every phase before 14 that no int16 instantiation is.
 Then a JSON line of the kernels, the card line, and the result line.
@@ -228,6 +248,19 @@ TRAIN_Q = 4096  # spectra of the training's synthetic problem (scripts/train_thr
 TRAIN_ITERS = 20  # L-BFGS iterations a timed fit
 TRAIN_GRAD_KS = (1, 20, 21, 64, 65)  # K3's adjoint on both sides of its row bounds
 TRAIN_WIDE_Q = 256  # spectra of the k = 65 training evaluation
+TRAIN_SCRIPT = ROOT / "scripts" / "train_fullscale_torch.py"
+TRAIN_FULL_Q = 65_024  # the reference-scale training's spectra (phase 20)
+TRAIN_CHUNKS = 16  # its chunks an evaluation: Qc = 4,064
+TRAIN_GOLDEN_CHUNKS = 4  # the training golden's 64 spectra in chunks of 16
+TRAIN_STAGE_ITERS = 3  # L-BFGS iterations of each stage of the two-stage fit
+TRAIN_E2E_Q, TRAIN_E2E_CHUNKS, TRAIN_E2E_ITERS = 2048, 4, 20  # the script end to end
+TRAIN_GATE_N = 16  # its detection gate's spectra
+# the keys of scripts/train_fullscale.py's artifact (:413-448)
+TRAIN_JAX_ARTIFACT_KEYS = frozenset((
+    "backend", "num_spectra", "rest_grid_pixels", "rank_k", "num_iterations", "chunks", "dtype",
+    "shift_schedule", "wall_s", "ms_per_iteration", "loss_first", "loss_last",
+    "loss_trajectory_downsampled", "model_quality_vs_generating",
+    "detection_gate_with_trained_model", "reference"))
 
 TOL_K1 = 2e-6  # absolute, kernel vs twin (measured 2.4e-7)
 # K1 with the Weideman window: the mutual bound of two float32 Weideman
@@ -554,12 +587,13 @@ def flat_chain_work(S, k) -> tuple[float, float]:
     return 4.0 * S * (k * (k + 1) // 2 + k + 2 + 1), S * (k**3 / 3.0 + 2.0 * k * k)
 
 
-def load_ablation_script():
-    """scripts/kernel_ablate_torch.py as a module: the ablation's entry
-    point, driven by phase 11."""
+def load_script(path: Path, name: str):
+    """A script of the repo as a module: the ablation's entry point
+    (scripts/kernel_ablate_torch.py, phase 11) and the reference-scale
+    training (scripts/train_fullscale_torch.py, phase 20)."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location("kernel_ablate_torch", ABLATE_SCRIPT)
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1308,7 +1342,7 @@ def main() -> None:
 
     # 11. the likelihood ablation (K7) through its entry point, at full
     # width: each stage name once, the launches of each counted around it
-    ablate = load_ablation_script()
+    ablate = load_script(ABLATE_SCRIPT, "kernel_ablate_torch")
     stage_names = (sorted(ablate.STAGES) + ["decoupled_200", "decoupled_tri_200"]
                    + [f"chain_{v}_2000" for v in sorted(ablate.CHAIN_LAYOUTS)])
     ablation, stage_launches = {}, {}
@@ -2594,6 +2628,233 @@ def main() -> None:
                       for n in grad_extra)
           + f" | {time.perf_counter() - t19:.1f} s")
 
+    # 20. the reference-scale training run (scripts/train_fullscale_torch.py)
+    # at R = 1,217, k = 20, 31 forest lines: the chunked objective against
+    # the unchunked one at Q = 65,024, the golden replay, the two-stage
+    # restart, the script end to end
+    t20 = time.perf_counter()
+    fullscale = load_script(TRAIN_SCRIPT, "train_fullscale_torch")
+    Qc = TRAIN_FULL_Q // TRAIN_CHUNKS
+
+    # (a) one evaluation in 16 chunks against one unchunked, on phase 19's
+    # synthetic problem at the reference's Q
+    p_q, args_q = train_problem(TRAIN_FULL_Q, params.k, seed=0)
+    shift_q, launches = count_launches(
+        lambda: fullscale.mean_spectrum_loss((p_q, *args_q), params, TRAIN_CHUNKS))
+    path_launches["train_full_shift"] = launches
+    check(launches == {"logmvn_chain": TRAIN_CHUNKS}, f"the shift's pass: launches {launches}")
+
+    def evaluation(objective):
+        """One evaluation and its backward: the value, the gradients, the
+        peak memory above what was held before it and the wall ms."""
+        p_q.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        value = objective(p_q, *args_q, params)
+        value.backward()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        grads = {n: getattr(p_q, n).grad.double().cpu().numpy() for n in TT.PARAM_FIELDS}
+        return (float(value.detach()), grads, (torch.cuda.max_memory_allocated() - held) / 2**20,
+                wall)
+
+    (v_chunk, g_chunk, peak_chunk, wall_chunk), launches = count_launches(
+        lambda: evaluation(fullscale.chunked_objective_factory(TRAIN_CHUNKS, shift_q)))
+    path_launches["train_full_chunked"] = launches
+    check(launches == {"logmvn_chain": 2 * TRAIN_CHUNKS, "logmvn_chain_grad": TRAIN_CHUNKS},
+          f"the chunked evaluation: launches {launches} (K3 {2 * TRAIN_CHUNKS}, its adjoint "
+          f"{TRAIN_CHUNKS})")
+    (v_full, g_full, peak_full, wall_full), launches = count_launches(
+        lambda: evaluation(TT.total_objective))
+    path_launches["train_full_unchunked"] = launches
+    check(launches == {"logmvn_chain": 1, "logmvn_chain_grad": 1},
+          f"the unchunked evaluation: launches {launches}")
+    p_q.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        abs_sum_q = float(TT.batched_spectrum_losses(p_q, *args_q, num_lines).double().abs().sum())
+    torch.cuda.empty_cache()
+    full_rel = abs(v_chunk + TRAIN_FULL_Q * shift_q - v_full) / abs_sum_q
+    full_grad_rel = {n: float(np.abs(g_chunk[n] - g_full[n]).max() / np.abs(g_full[n]).max())
+                     for n in TT.PARAM_FIELDS}
+    check(np.isfinite(v_chunk) and full_rel <= REL_TRAIN_LOSS
+          and max(full_grad_rel.values()) <= REL_TRAIN_GRAD,
+          f"chunked vs unchunked at Q={TRAIN_FULL_Q}: value {full_rel:.3e} of sum|loss| (tol "
+          f"{REL_TRAIN_LOSS}), gradients {full_grad_rel} (tol {REL_TRAIN_GRAD})")
+
+    # K3 and its adjoint at a chunk's shape (Qc = 4,064) against their twins
+    with torch.no_grad():
+        chunk_in = TT.woodbury_inputs(p_q, *(x[:Qc] for x in args_q), num_lines)
+    g_chunk_in = torch.as_tensor(np.random.default_rng(4064).normal(size=Qc).astype(np.float32),
+                                 device=device)
+    ll_c, ll_ref = logmvn_chain(*chunk_in), logmvn_chain_reference(*chunk_in)
+    chunk_k3_rel = float((ll_c - ll_ref).abs().max() / ll_ref.abs().max())
+    got_c = logmvn_chain_grad(*chunk_in, g_chunk_in)
+    want_c = logmvn_chain_grad_reference(*chunk_in, g_chunk_in)
+    chunk_grad_rel = [float((a - b).abs().max()) / float(b.abs().max())
+                      for a, b in zip(got_c, want_c)]
+    check(chunk_k3_rel <= REL_K23 and max(chunk_grad_rel) <= REL_K3_GRAD,
+          f"K3 / its adjoint at Qc={Qc}: {chunk_k3_rel:.2e} (tol {REL_K23}) / {chunk_grad_rel} "
+          f"(tol {REL_K3_GRAD})")
+    err["logmvn_chain"] = max(err["logmvn_chain"], float((ll_c - ll_ref).abs().max()))
+    err["logmvn_chain_grad"] = max(err["logmvn_chain_grad"], max(
+        float((a - b).abs().max()) for a, b in zip(got_c, want_c)))
+    chunk_dev = {"logmvn_chain": device_ms(lambda: logmvn_chain(*chunk_in))[0],
+                 "logmvn_chain_grad": device_ms(lambda: logmvn_chain_grad(*chunk_in,
+                                                                          g_chunk_in))[0]}
+    chunk_bound = {"logmvn_chain": bound(*k3_work(Qc, params.k))[0],
+                   "logmvn_chain_grad": bound(*k3_grad_work(Qc, params.k))[0]}
+    del chunk_in, got_c, want_c, ll_c, ll_ref
+
+    # (b) the golden replay through four chunks (phase 19's inputs)
+    gt_Q = len(gt["z_qso"])
+    gt_shift, launches = count_launches(
+        lambda: fullscale.mean_spectrum_loss((gt_p, *gt_args), params, TRAIN_GOLDEN_CHUNKS))
+    gt_p.zero_grad(set_to_none=True)
+
+    def golden_chunked():
+        value = fullscale.chunked_objective_factory(TRAIN_GOLDEN_CHUNKS, gt_shift)(
+            gt_p, *gt_args, params)
+        value.backward()
+        return float(value.detach())
+
+    gt_value, launches_eval = count_launches(golden_chunked)
+    path_launches["train_golden_chunked"] = {
+        n: launches.get(n, 0) + launches_eval.get(n, 0) for n in {**launches, **launches_eval}}
+    check(launches_eval == {"logmvn_chain": 2 * TRAIN_GOLDEN_CHUNKS,
+                            "logmvn_chain_grad": TRAIN_GOLDEN_CHUNKS},
+          f"the chunked golden replay: launches {launches_eval}")
+    gt_chunk_rel = abs(gt_value + gt_Q * gt_shift - float(gt["objective"])) / np.abs(
+        gt["losses"]).sum()
+    gt_chunk_grad = {n: float(np.abs(getattr(gt_p, n).grad.double().cpu().numpy()
+                                     - gt[f"grad_{n}"]).max() / np.abs(gt[f"grad_{n}"]).max())
+                     for n in TT.PARAM_FIELDS}
+    check(gt_chunk_rel <= REL_TRAIN_LOSS and max(gt_chunk_grad.values()) <= REL_TRAIN_GRAD,
+          f"the chunked golden replay: total {gt_chunk_rel:.3e} of sum|loss| (tol "
+          f"{REL_TRAIN_LOSS}), gradients {gt_chunk_grad} (tol {REL_TRAIN_GRAD})")
+
+    # (c) the two-stage schedule at Q = 65,024, 3 + 3 iterations: a fresh
+    # L-BFGS for stage B, re-shifted at stage A's end
+    optimizers = []
+
+    class CountedLBFGS(torch.optim.LBFGS):
+        def __init__(self, *args, **kwargs):
+            optimizers.append(self)
+            super().__init__(*args, **kwargs)
+
+    lbfgs = torch.optim.LBFGS
+    torch.optim.LBFGS = CountedLBFGS
+    try:
+        torch.cuda.synchronize()
+        two_held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (p_two, two_values, two_stages), launches = count_launches(lambda: quiet(
+            lambda: fullscale.fit_two_stage(p_q, args_q, params, TRAIN_STAGE_ITERS,
+                                            TRAIN_STAGE_ITERS, TRAIN_CHUNKS)))
+        two_ms = (time.perf_counter() - t0) * 1e3 / (2 * TRAIN_STAGE_ITERS)
+        two_peak = (torch.cuda.max_memory_allocated() - two_held) / 2**20
+    finally:
+        torch.optim.LBFGS = lbfgs
+    path_launches["train_two_stage"] = launches
+    two_evals = sum(s.evaluations for s in two_stages)
+    check(len(optimizers) == 2 and len(two_stages) == 2,
+          f"two-stage fit: {len(optimizers)} optimizers, {len(two_stages)} stages (want 2, 2)")
+    check(launches == {"logmvn_chain": 2 * TRAIN_CHUNKS * (1 + two_evals),
+                       "logmvn_chain_grad": TRAIN_CHUNKS * two_evals},
+          f"two-stage fit: launches {launches} for {two_evals} evaluations and 2 shift passes")
+    check(bool(np.isfinite(two_values).all()) and two_values[-1] < two_values[0],
+          f"two-stage fit: the loss does not fall: {two_values}")
+    stage_a, stage_b = two_stages
+    # stage B restarts at stage A's end, whose true loss the shift's pass
+    # gives (float32 losses summed in float64): the restored first value
+    # agrees within the resolution of the float32 shift the device
+    # subtracts from each loss, Q ulp(shift)
+    shift_res = TRAIN_FULL_Q * float(np.spacing(np.float32(stage_b.shift)))
+    check(abs(stage_b.values[0] - stage_b.start_loss) <= shift_res
+          and stage_b.values[0] <= stage_a.values[-1] + shift_res,
+          f"two-stage fit: stage B starts at {stage_b.values[0]:.3f}, stage A ended at "
+          f"{stage_b.start_loss:.3f} (its last iteration started at {stage_a.values[-1]:.3f}); "
+          f"tol {shift_res:.3f}")
+    # one profiled iteration from the fitted parameters
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prime_profiler()
+        t_prof = time.perf_counter()
+        TT.fit_lbfgs_stepwise(p_two, *args_q, params, 1, objective=(
+            fullscale.chunked_objective_factory(TRAIN_CHUNKS, stage_b.shift)))
+        torch.cuda.synchronize()
+        two_prof_ms = (time.perf_counter() - t_prof) * 1e3
+    two_busy_ms = union_busy_ms(prof)
+    del prof, p_two, p_q, args_q
+    torch.cuda.empty_cache()
+
+    # (d) the script end to end: generation, preparation, a 20-iteration
+    # fit in 4 chunks, the quality numbers and a 16-spectrum detection gate
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
+        out_train = Path(work) / "train.json"
+        art, launches = count_launches(lambda: quiet(lambda: fullscale.main([
+            "--num-spectra", str(TRAIN_E2E_Q), "--chunks", str(TRAIN_E2E_CHUNKS), "--iters",
+            str(TRAIN_E2E_ITERS), "--gate-n", str(TRAIN_GATE_N), "--output", str(out_train)])))
+        check(json.loads(out_train.read_text()) == json.loads(json.dumps(art)),
+              "the script's artifact differs from what main returned")
+    path_launches["train_script"] = launches
+    missing = (TRAIN_JAX_ARTIFACT_KEYS - {"backend"} | {"device"}) - set(art)
+    check(not missing and "backend" not in art, f"the artifact lacks {missing}")
+    traj = np.asarray(art["loss_trajectory_downsampled"]["values"])
+    check(bool(np.isfinite(traj).all()) and traj[-1] < traj[0],
+          f"the script's trajectory does not fall: {traj[0]} -> {traj[-1]}")
+    e2e_evals = round(art["evaluations_per_iteration"] * TRAIN_E2E_ITERS)
+    want = {"absorption_all": TRAIN_GATE_N, "logmvn_cap": 5 * TRAIN_GATE_N,
+            "logmvn_chain": 5 * TRAIN_GATE_N + TRAIN_E2E_CHUNKS * (1 + 2 * e2e_evals),
+            "logmvn_chain_grad": TRAIN_E2E_CHUNKS * e2e_evals}
+    check(launches == want, f"the script's launches {launches}, want {want} (the gate's "
+                            f"{TRAIN_GATE_N} spectra and {e2e_evals} evaluations)")
+    gate = art["detection_gate_with_trained_model"]
+    check(gate is not None and gate["n_injected"] == TRAIN_GATE_N // 2,
+          f"the script's gate: {gate}")
+    gate_numbers = {k: v for k, v in gate.items() if not isinstance(v, list)}
+    # the K3 and adjoint rows of the kernels line: their device ms at a
+    # chunk's shape and their launches an evaluation of the chunked objective
+    train_chunk_extra = {
+        name: {"train_chunk_S": Qc, "device_ms_train_chunk": chunk_dev[name],
+               "bound_ms_train_chunk": chunk_bound[name],
+               "launches_per_train_evaluation": path_launches["train_full_chunked"][name]}
+        for name in chunk_dev}
+    print(f"[20 train fullscale] {card} | R={rest_pixels} k={params.k} {num_lines} forest "
+          f"lines, float32 | (a) Q={TRAIN_FULL_Q}: {TRAIN_CHUNKS} chunks (Qc={Qc}) vs "
+          f"unchunked: value {full_rel:.3e} of sum|loss| {abs_sum_q:.4g} (tol {REL_TRAIN_LOSS}), "
+          f"gradients of each block's max|g| (tol {REL_TRAIN_GRAD}): "
+          + ", ".join(f"{n} {r:.3e}" for n, r in full_grad_rel.items())
+          + f"; launches chunked {path_launches['train_full_chunked']}, unchunked "
+          f"{path_launches['train_full_unchunked']}, the shift's pass "
+          f"{path_launches['train_full_shift']}; peak memory above the data: chunked "
+          f"{peak_chunk:.1f} MiB ({wall_chunk:.1f} ms), unchunked {peak_full:.1f} MiB "
+          f"({wall_full:.1f} ms); at Qc={Qc} K3 vs twin {chunk_k3_rel:.2e} of max|ll|, the "
+          f"adjoint " + "/".join(f"{r:.2e}" for r in chunk_grad_rel)
+          + f"; device ms (profiler, 50 launches): K3 {chunk_dev['logmvn_chain']:.4f} (bound "
+          f"{chunk_bound['logmvn_chain']:.4f}), adjoint {chunk_dev['logmvn_chain_grad']:.4f} "
+          f"(bound {chunk_bound['logmvn_chain_grad']:.4f}) | (b) golden in "
+          f"{TRAIN_GOLDEN_CHUNKS} chunks: total {gt_chunk_rel:.3e} of sum|loss| (tol "
+          f"{REL_TRAIN_LOSS}), gradients " + ", ".join(f"{n} {r:.3e}"
+                                                       for n, r in gt_chunk_grad.items())
+          + f"; launches {path_launches['train_golden_chunked']} | (c) {TRAIN_STAGE_ITERS} + "
+          f"{TRAIN_STAGE_ITERS} iterations, {len(optimizers)} optimizers: shifts "
+          f"{stage_a.shift:.4f} -> {stage_b.shift:.4f} / spectrum, loss {two_values[0]:.1f} -> "
+          f"{two_values[-1]:.1f}; stage B starts at {stage_b.values[0]:.3f}, stage A ended at "
+          f"{stage_b.start_loss:.3f} (tol {shift_res:.3f}); {two_ms:.1f} ms an iteration, "
+          f"{two_evals / (2 * TRAIN_STAGE_ITERS):.2f} evaluations an iteration, peak memory "
+          f"{two_peak:.1f} MiB above the {two_held / 2**20:.1f} MiB held; one profiled "
+          f"iteration: busy {two_busy_ms:.2f} ms of {two_prof_ms:.2f} ms wall "
+          f"({100 * two_busy_ms / two_prof_ms:.1f}%) | (d) main at Q={TRAIN_E2E_Q}, "
+          f"{TRAIN_E2E_CHUNKS} chunks, {TRAIN_E2E_ITERS} iterations: loss {traj[0]:.1f} -> "
+          f"{traj[-1]:.1f}, {art['ms_per_iteration']} ms an iteration, "
+          f"{art['evaluations_per_iteration']:.2f} evaluations an iteration, launches "
+          f"{launches}; quality {art['model_quality_vs_generating']}; gate ({TRAIN_GATE_N} "
+          f"spectra at Parameters()) {gate_numbers} | {time.perf_counter() - t20:.1f} s")
+
     # phase 15's numbers beside each K5 and K6 row of the kernels line
     tail_extra = {n: {"device_ms_profiler": tail_dev[n], "bound_share": tail_share[n][0],
                       "copy_rate_share": tail_share[n][1], "copy_rate_gbs": copy_gbs,
@@ -2620,6 +2881,7 @@ def main() -> None:
          "library_ms": library.get(name),
          **({"device_ms": k3_device[name][0]} if name in k3_device else {}),
          **grad_extra.get(name, {}),
+         **train_chunk_extra.get(name, {}),
          **({"library_ms_by_k": {f"k={k_}": t_ for k_, t_ in wide_lib.items()},
              "device_ms_by_k": {n.split()[-1]: d for n, (d, _) in wide_dev.items()
                                 if n.startswith("K2")}} if name == "logmvn_cap" else {}),

@@ -314,16 +314,18 @@ def total_objective(
         p, flux_centered, lya_1pz, noise_variance, mask, zqso_1pz,
         params.num_forest_lines,
     )
-    nlog_p = torch.sum(losses)
+    return torch.sum(losses) + kim_priors(p)
 
-    # Kim et al. (2007) priors
+
+def kim_priors(p: TrainingParams):
+    """The Kim et al. (2007) Gaussian priors on tau_0 and beta
+    (reference: objective_lyseries.m:64-76)."""
     tau_0_mu, tau_0_sigma = 0.0023, 0.0007
     beta_mu, beta_sigma = 3.65, 0.21
     tau_0 = torch.exp(p.log_tau_0)
     beta = torch.exp(p.log_beta)
-    nlog_p = nlog_p + 0.5 * ((tau_0 - tau_0_mu) / tau_0_sigma) ** 2
-    nlog_p = nlog_p + 0.5 * ((beta - beta_mu) / beta_sigma) ** 2
-    return nlog_p
+    return (0.5 * ((tau_0 - tau_0_mu) / tau_0_sigma) ** 2
+            + 0.5 * ((beta - beta_mu) / beta_sigma) ** 2)
 
 
 def fit_lbfgs_stepwise(
@@ -425,7 +427,7 @@ def load_training_checkpoint(path: str, device="cuda", dtype: torch.dtype = torc
         return p, f["mu"], int(f["step"])
 
 
-def _training_device(device, dtype: torch.dtype) -> torch.device:
+def training_device(device, dtype: torch.dtype) -> torch.device:
     """The device of a fit: the card takes float32 only (K3 and its
     adjoint), and is not replaced by the CPU when it is missing."""
     device = torch.device(device)
@@ -459,7 +461,7 @@ def train_model(
 
     :return: (learned_model, loss_history as a float64 numpy array)
     """
-    device = _training_device(device, dtype)
+    device = training_device(device, dtype)
     start_step = 0
     if checkpoint_path and os.path.exists(checkpoint_path):
         p0, mu, start_step = load_training_checkpoint(checkpoint_path, device, dtype)

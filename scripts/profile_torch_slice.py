@@ -28,7 +28,12 @@ above what was held before it.  ``train`` runs ``fit_lbfgs_stepwise`` for
 ``chip_smoke.py`` phase 19 (Q = 4,096 spectra, R = 1,217, k = 20, 31
 forest lines, float32) and sums the device time by part: K3 (forward),
 its adjoint (backward), the GEMMs, the reductions, the gathers and
-scatters, the copies and the other elementwise kernels.  Every path
+scatters, the copies and the other elementwise kernels.  ``--num-spectra``
+sets Q; ``--chunks C`` fits one iteration of the reference-scale
+training's objective instead (``scripts/train_fullscale_torch.py``: C
+checkpointed chunks, shifted by the mean loss at the start), so
+``--num-spectra 65024 --chunks 16`` profiles one iteration of that run.
+Every path
 prints the device busy time twice: the union of the device records'
 intervals (each moment once) and the sum of their times, user
 annotations left out of both.  ``--abs-dtype`` stores the absorption
@@ -36,12 +41,13 @@ profiles as float32 (``f32``, the default) or as int16 codes (``i16``,
 or ``i16p``, which the port stores alike); the zQSO head stores none.
 
     python3 scripts/profile_torch_slice.py [--path PATH] [--abs-dtype f32|i16|i16p] [--trace FILE]
-        [--chunk-sizes C1,C2,...]
+        [--chunk-sizes C1,C2,...] [--num-spectra Q --chunks C]
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import subprocess
 import sys
 import time
@@ -85,7 +91,7 @@ NUM_ZQSO_RATE = 128  # 4x inference_z_qso_many's window of 32 scans in flight
 ZQSO_Z_SEED = 3  # z_true of chip_smoke.py phase 18's library path
 PATHS = ("windowed", "exact", "windowed_unfused", "windowed_weideman", "lls", "zqso", "train")
 TRAIN_Q = 4096
-TRAIN_ITERS = 3
+TRAIN_ITERS = 3  # iterations profiled unchunked; one with --chunks
 # the training's device time by part: (label, test on the kernel's name)
 TRAIN_PARTS = (
     ("K3's adjoint logmvn_chain_grad", lambda n: "logmvn_chain_grad" in n),
@@ -158,6 +164,11 @@ def main() -> None:
     parser.add_argument("--trace", type=Path, help="write the Chrome trace here")
     parser.add_argument("--chunk-sizes", type=lambda v: [int(c) for c in v.split(",")],
                         help="zqso: time both scans at each of these chunk sizes first")
+    parser.add_argument("--num-spectra", type=int, default=TRAIN_Q,
+                        help="train: Q, the spectra of the synthetic problem")
+    parser.add_argument("--chunks", type=int,
+                        help="train: one iteration of the chunked, shifted objective of "
+                        "scripts/train_fullscale_torch.py in this many chunks")
     args = parser.parse_args()
     store = profile_store_dtype(args.abs_dtype)
     if not torch.cuda.is_available():
@@ -201,13 +212,23 @@ def main() -> None:
 
         params = Parameters()
         R = int(round((params.max_lambda - params.min_lambda) / params.dlambda)) + 1
-        fields, arrays = synthetic_training_problem(TRAIN_Q, R, params.k, seed=0)
+        fields, arrays = synthetic_training_problem(args.num_spectra, R, params.k, seed=0)
         p0 = TrainingParams.from_numpy(fields, device)
         data = tuple(torch.as_tensor(x, device=device) for x in arrays)
         spectra = arrays[0]
+        del arrays
+        train_iters, objective = TRAIN_ITERS, None
+        if args.chunks:
+            spec = importlib.util.spec_from_file_location(
+                "train_fullscale_torch", ROOT / "scripts" / "train_fullscale_torch.py")
+            fullscale = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(fullscale)
+            shift = fullscale.mean_spectrum_loss((p0, *data), params, args.chunks)
+            train_iters = 1
+            objective = fullscale.chunked_objective_factory(args.chunks, shift)
 
         def run():
-            return fit_lbfgs_stepwise(p0, *data, params, TRAIN_ITERS)
+            return fit_lbfgs_stepwise(p0, *data, params, train_iters, objective=objective)
     elif args.path == "lls":
         params = Parameters(num_dla_samples=10000, min_lambda=850.0, num_pixels_padded=1664)
         arrays = synthetic_learned_model(params)
@@ -269,8 +290,9 @@ def main() -> None:
     if args.path == "zqso":
         width = f"Z={params.num_zqso_samples}, P={params.num_pixels_padded}, k={params.k}"
     elif args.path == "train":
-        width = (f"R={R}, k={params.k}, {params.num_forest_lines} forest lines, {TRAIN_ITERS} "
-                 f"L-BFGS iterations")
+        width = (f"R={R}, k={params.k}, {params.num_forest_lines} forest lines, {train_iters} "
+                 f"L-BFGS iterations, "
+                 + (f"{args.chunks} chunks (shifted)" if args.chunks else "unchunked"))
     else:
         width = f"S={params.num_dla_samples}, N={params.num_pixels_padded}, k={params.k}"
     print(f"card {card} | path {args.path}, storage {args.abs_dtype} | {len(spectra)} spectra, {width} | wall {plain_ms:.2f} ms "

@@ -167,6 +167,11 @@ def test_lls_copies_bit_for_bit(num_samples):
                               TL.lls_model_posteriors(-501.0, evs, **kw))
 
 
+# the port's scripts that run on the card's machine, which has no JAX
+TORCH_SCRIPTS = ("train_fullscale_torch.py", "train_throughput_torch.py",
+                 "profile_torch_slice.py")
+
+
 def _imports_of(path: Path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -178,8 +183,8 @@ def _imports_of(path: Path):
 
 
 def test_port_names_no_module_of_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "scripts" / "kernel_ablate_torch.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "scripts" / name for name in TORCH_SCRIPTS + ("kernel_ablate_torch.py",)]
     offenders = [
         (str(f.relative_to(ROOT)), name)
         for f in files
@@ -652,3 +657,38 @@ print("ok")
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_training_scripts_run_without_jax(tmp_path):
+    """With ``jax`` and the JAX package blocked, the port's training
+    scripts load, the reference-scale script trains 8 spectra on the CPU
+    and writes its artifact, and the throughput twin fits both objectives;
+    neither package is imported."""
+    code = f"""
+import importlib.util, json, os, sys
+sys.modules["jax"] = None
+sys.modules["gpy_dla_detection_tpu"] = None
+os.environ.update(TRAIN_Q="8", TRAIN_ITERS="1")
+import torch
+torch.set_num_threads(2)
+mods = {{}}
+for name in {TORCH_SCRIPTS[:2]!r}:
+    spec = importlib.util.spec_from_file_location(name[:-3], {str(ROOT / "scripts")!r} + "/" + name)
+    mods[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mods[name])
+out = {str(tmp_path / "train.json")!r}
+art = mods["train_fullscale_torch.py"].main(["--device", "cpu", "--num-spectra", "8",
+    "--chunks", "2", "--iters", "2", "--gate-n", "0", "--output", out])
+assert json.load(open(out))["num_iterations"] == 2 and art["device"] == "cpu"
+res = mods["train_throughput_torch.py"].main(["--device", "cpu"])
+assert res["Q"] == 8
+loaded = [m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] in ("jax", "gpy_dla_detection_tpu"))]
+assert loaded == [], loaded
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "ok"
