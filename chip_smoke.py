@@ -179,6 +179,19 @@ Phases, one line each; any failure exits non-zero before the result:
      iterations, a 16-spectrum detection gate at Parameters(): the JAX
      artifact's keys with "device", a falling trajectory, launches K1 16,
      K2 and K3 80 in the gate and K3 / its adjoint 8 / 4 an evaluation
+ 21. the survey's plumbing and the repaired L-BFGS: (a) the native host
+     library (gpy_dla_detection_tpu_torch/native, built with g++) and
+     data/preload on 8 FITS spectra written here, native against Python
+     within rtol 1e-12 with equal filter flags, and the preloaded batch
+     through process_batch giving the catalog CLI's arrays on the same
+     files bit for bit (the same batch_generator); (b) two processes on
+     the one card joined by parallel.distributed.initialize (gloo), each
+     running its host_shard of the 8 spectra through process_batch with
+     generators keyed on the global batch start, their arrays concatenated
+     against one process's run bit for bit; (c) fit_lbfgs_stepwise on
+     phase 19's problem (Q = 4,096, float32) for 200 iterations: no
+     iteration after the first repeats its predecessor's parameters; ms
+     and evaluations an iteration beside phase 19's
 Every other phase asserts that the Weideman window is never launched, and
 every phase before 14 that no int16 instantiation is.
 Then a JSON line of the kernels, the card line, and the result line.
@@ -193,6 +206,7 @@ import contextlib
 import io
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -255,6 +269,12 @@ TRAIN_GOLDEN_CHUNKS = 4  # the training golden's 64 spectra in chunks of 16
 TRAIN_STAGE_ITERS = 3  # L-BFGS iterations of each stage of the two-stage fit
 TRAIN_E2E_Q, TRAIN_E2E_CHUNKS, TRAIN_E2E_ITERS = 2048, 4, 20  # the script end to end
 TRAIN_GATE_N = 16  # its detection gate's spectra
+NUM_SURVEY = 8  # FITS spectra preloaded and sharded (phase 21)
+SURVEY_BATCH = 4  # their batches: one a process of two
+SURVEY_PROCESSES = 2
+MOVING_FIT_ITERS = 200  # the repaired L-BFGS on phase 19's problem (phase 21)
+REL_NATIVE = 1e-12  # the native preprocessing against Python (tests/test_native.py)
+WORKER_FLAG = "--survey-shard"  # the mode phase 21's processes run this file in
 # the keys of scripts/train_fullscale.py's artifact (:413-448)
 TRAIN_JAX_ARTIFACT_KEYS = frozenset((
     "backend", "num_spectra", "rest_grid_pixels", "rank_k", "num_iterations", "chunks", "dtype",
@@ -2735,16 +2755,16 @@ def main() -> None:
           f"{REL_TRAIN_LOSS}), gradients {gt_chunk_grad} (tol {REL_TRAIN_GRAD})")
 
     # (c) the two-stage schedule at Q = 65,024, 3 + 3 iterations: a fresh
-    # L-BFGS for stage B, re-shifted at stage A's end
+    # L-BFGS state for stage B, re-shifted at stage A's end
     optimizers = []
 
-    class CountedLBFGS(torch.optim.LBFGS):
+    class CountedState(TT.LBFGSState):
         def __init__(self, *args, **kwargs):
             optimizers.append(self)
             super().__init__(*args, **kwargs)
 
-    lbfgs = torch.optim.LBFGS
-    torch.optim.LBFGS = CountedLBFGS
+    lbfgs_state = TT.LBFGSState
+    TT.LBFGSState = CountedState
     try:
         torch.cuda.synchronize()
         two_held = torch.cuda.memory_allocated()
@@ -2756,11 +2776,12 @@ def main() -> None:
         two_ms = (time.perf_counter() - t0) * 1e3 / (2 * TRAIN_STAGE_ITERS)
         two_peak = (torch.cuda.max_memory_allocated() - two_held) / 2**20
     finally:
-        torch.optim.LBFGS = lbfgs
+        TT.LBFGSState = lbfgs_state
     path_launches["train_two_stage"] = launches
     two_evals = sum(s.evaluations for s in two_stages)
     check(len(optimizers) == 2 and len(two_stages) == 2,
-          f"two-stage fit: {len(optimizers)} optimizers, {len(two_stages)} stages (want 2, 2)")
+          f"two-stage fit: {len(optimizers)} L-BFGS states, {len(two_stages)} stages "
+          f"(want 2, 2)")
     check(launches == {"logmvn_chain": 2 * TRAIN_CHUNKS * (1 + two_evals),
                        "logmvn_chain_grad": TRAIN_CHUNKS * two_evals},
           f"two-stage fit: launches {launches} for {two_evals} evaluations and 2 shift passes")
@@ -2841,7 +2862,7 @@ def main() -> None:
           f"{REL_TRAIN_LOSS}), gradients " + ", ".join(f"{n} {r:.3e}"
                                                        for n, r in gt_chunk_grad.items())
           + f"; launches {path_launches['train_golden_chunked']} | (c) {TRAIN_STAGE_ITERS} + "
-          f"{TRAIN_STAGE_ITERS} iterations, {len(optimizers)} optimizers: shifts "
+          f"{TRAIN_STAGE_ITERS} iterations, {len(optimizers)} L-BFGS states: shifts "
           f"{stage_a.shift:.4f} -> {stage_b.shift:.4f} / spectrum, loss {two_values[0]:.1f} -> "
           f"{two_values[-1]:.1f}; stage B starts at {stage_b.values[0]:.3f}, stage A ended at "
           f"{stage_b.start_loss:.3f} (tol {shift_res:.3f}); {two_ms:.1f} ms an iteration, "
@@ -2854,6 +2875,162 @@ def main() -> None:
           f"{art['evaluations_per_iteration']:.2f} evaluations an iteration, launches "
           f"{launches}; quality {art['model_quality_vs_generating']}; gate ({TRAIN_GATE_N} "
           f"spectra at Parameters()) {gate_numbers} | {time.perf_counter() - t20:.1f} s")
+
+    # 21. the survey's plumbing (native host library, preloader, one
+    # process per card, shard arrays) and the repaired L-BFGS
+    t21 = time.perf_counter()
+    from gpy_dla_detection_tpu_torch import native
+    from gpy_dla_detection_tpu_torch.data.preload import compute_snrs, preload_spectra
+    from gpy_dla_detection_tpu_torch.data.spectrum import stack
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
+        work = Path(work)
+        # (a) the native library, built here, and the preloader both ways
+        t0 = time.perf_counter()
+        native.load()
+        native_build_s = time.perf_counter() - t0
+        z_sv = [float(z) for z in np.linspace(2.7, 3.5, NUM_SURVEY)]
+        truths_sv = [(z - 0.3, 21.2) if i % 2 else None for i, z in enumerate(z_sv)]
+        files_sv = [
+            write_speclite(work / f"spec-0002-55555-{i:04d}.fits", *synthetic_observation(
+                params, arrays, z, seed=2000 + i, dlas=None if tr is None else [tr]))
+            for i, (z, tr) in enumerate(zip(z_sv, truths_sv))
+        ]
+        t0 = time.perf_counter()
+        pre_py, flags_py = preload_spectra(files_sv, z_sv, params)
+        preload_py_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pre_nat, flags_nat = preload_spectra(files_sv, z_sv, params, use_native=True)
+        preload_nat_s = time.perf_counter() - t0
+        check(np.array_equal(flags_py, flags_nat) and not flags_py.any()
+              and all(s_ is not None for s_ in pre_py + pre_nat),
+              f"preload: flags {flags_py} (Python) / {flags_nat} (native)")
+        native_rel = 0.0
+        for a_, b_ in zip(pre_nat, pre_py):
+            check(np.array_equal(a_.mask, b_.mask), "preload: native and Python masks differ")
+            for f_ in ("padded_wavelengths", "flux", "noise_variance", "normalization_median",
+                       "min_z_dla", "max_z_dla"):
+                x_, y_ = np.asarray(getattr(a_, f_)), np.asarray(getattr(b_, f_))
+                rel_ = np.abs(x_ - y_) / np.maximum(np.abs(y_), np.finfo(float).tiny)
+                native_rel = max(native_rel, float(np.nanmax(np.where(y_ == x_, 0.0, rel_))))
+        check(native_rel <= REL_NATIVE,
+              f"preload: native vs Python {native_rel:.2e} > {REL_NATIVE}")
+        snrs_sv = compute_snrs(pre_py)
+        check(bool((snrs_sv > 0).all()), f"preload: SNRs {snrs_sv}")
+        native_f32_same = all(
+            np.asarray(getattr(a_, f_), np.float32).tobytes()
+            == np.asarray(getattr(b_, f_), np.float32).tobytes()
+            for a_, b_ in zip(pre_nat, pre_py) for f_ in ("flux", "noise_variance"))
+
+        def survey_batches(spectra):
+            """The survey's batches through process_batch, each generator
+            keyed on its batch's global start, as the catalog CLI keys it."""
+            out = []
+            for start in range(0, NUM_SURVEY, SURVEY_BATCH):
+                out += process_batch(learned, spectra[start:start + SURVEY_BATCH], dla_samples,
+                                     sub_samples, prior, params,
+                                     run_bayes_select.batch_generator(0, start, device),
+                                     MAX_DLAS)
+            return out
+
+        pre_results, launches = count_launches(lambda: survey_batches(pre_py))
+        pre_arrays = results_to_arrays(pre_results, params, MAX_DLAS)
+        path_launches["survey_preloaded"] = launches
+        check(launches.get("absorption_all", 0) == NUM_SURVEY
+              and launches.get("logmvn_cap", 0) == 5 * NUM_SURVEY,
+              f"the preloaded batch: launches {launches}")
+        nat_results = survey_batches(pre_nat)
+        det_sv = check_detections(nat_results, truths_sv, "native preload")
+        cli_sv = quiet(lambda: run_bayes_select.run([
+            "--qso_list", *files_sv, "--z_qso_list", *map(repr, z_sv), "--max_dlas",
+            str(MAX_DLAS), "--batch-size", str(SURVEY_BATCH), "--output",
+            str(work / "survey.h5")]))
+        differ = same_bits(pre_arrays, cli_sv.arrays, cli_sv.arrays)
+        check(sorted(pre_arrays) == sorted(cli_sv.arrays) and not differ,
+              f"preloaded batch vs the catalog CLI: {differ} differ")
+        nat_arrays = results_to_arrays(nat_results, params, MAX_DLAS)
+        nat_diff = max(float(np.abs(nat_arrays[n] - cli_sv.arrays[n]).max())
+                       for n in ("log_likelihoods_no_dla", "log_likelihoods_lls",
+                                 "log_likelihoods_dla"))
+        check(nat_diff == 0.0 or not native_f32_same,
+              f"the native preload's float32 inputs equal Python's, its evidences differ by "
+              f"{nat_diff}")
+
+        # (b) one process per card's share: two processes on the one card,
+        # each its host_shard of the batches, against one process's run
+        np.savez(work / "survey.npz", **{f_: getattr(stack(pre_py), f_)
+                                          for f_ in pre_py[0]._fields})
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            port = s_.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), WORKER_FLAG,
+                                   str(port), str(pid), str(SURVEY_PROCESSES), str(work)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for pid in range(SURVEY_PROCESSES)]
+        try:
+            worker_out = [p_.communicate(timeout=600)[0].decode(errors="replace")
+                          for p_ in procs]
+        finally:
+            for p_ in procs:
+                p_.kill()
+                p_.wait()
+        shard_s = time.perf_counter() - t0
+        for p_, out_ in zip(procs, worker_out):
+            check(p_.returncode == 0, f"survey shard process failed:\n{out_[-3000:]}")
+        shards = [np.load(work / f"survey.shard{pid:04d}.npz")
+                  for pid in range(SURVEY_PROCESSES)]
+        merged = {n: np.concatenate([sh[n] for sh in shards]) for n in pre_arrays}
+        shard_diff = {n: float(np.nanmax(np.abs(merged[n].astype(np.float64)
+                                                - pre_arrays[n].astype(np.float64))))
+                      for n in same_bits(merged, pre_arrays, pre_arrays)}
+        check(not shard_diff, f"two processes vs one: arrays differ, largest |d| {shard_diff}")
+
+    # (c) the repaired fit at phase 19's problem: it moves every iteration
+    p_m, args_m = train_problem(TRAIN_Q, params.k, seed=0)
+    seen_m, repeats, last_m = {}, [], []
+
+    def moving_objective(p_, *a_):
+        seen_m["p"] = p_
+        return TT.total_objective(p_, *a_)
+
+    def moved(i, v):
+        flat = torch.cat([q.detach().reshape(-1) for q in seen_m["p"].parameters()])
+        if last_m and torch.equal(flat, last_m[0]):
+            repeats.append(i)
+        last_m[:] = [flat.clone()]
+        return False
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (_, moving_values), launches = count_launches(lambda: TT.fit_lbfgs_stepwise(
+        p_m, *args_m, params, MOVING_FIT_ITERS, objective=moving_objective, callback=moved,
+        callback_every=1))
+    moving_ms = (time.perf_counter() - t0) * 1e3 / MOVING_FIT_ITERS
+    path_launches["train_moving_fit"] = launches
+    moving_evals = launches.get("logmvn_chain", 0)
+    check(launches == {"logmvn_chain": moving_evals, "logmvn_chain_grad": moving_evals},
+          f"the repaired fit: launches {launches}")
+    check(not repeats and bool(np.isfinite(moving_values).all())
+          and moving_values[-1] < moving_values[0],
+          f"the repaired fit repeats its parameters at iterations {repeats[:10]}; loss "
+          f"{moving_values[0]} -> {moving_values[-1]}")
+    del p_m, args_m, last_m
+    print(f"[21 survey + L-BFGS] {card} | (a) native library ready in {native_build_s:.1f} s; "
+          f"preload of {NUM_SURVEY} FITS spectra: Python {preload_py_s:.2f} s, native "
+          f"{preload_nat_s:.2f} s, native vs Python max rel {native_rel:.2e} (tol "
+          f"{REL_NATIVE}), flags equal ({flags_py.tolist()}), float32 inputs "
+          f"{'equal' if native_f32_same else 'differ'}, SNRs {np.round(snrs_sv, 2).tolist()}; "
+          f"the preloaded batch vs the catalog CLI: bit for bit, launches "
+          f"{path_launches['survey_preloaded']}; native route's evidences vs the CLI's max "
+          f"|d| {nat_diff:.3e}; {det_sv} | (b) {SURVEY_PROCESSES} processes on one card "
+          f"(gloo), batches of {SURVEY_BATCH}: shards concatenated = one process bit for bit "
+          f"({shard_s:.1f} s with start-up) | (c) fit_lbfgs_stepwise at Q={TRAIN_Q}, "
+          f"{MOVING_FIT_ITERS} iterations: {moving_ms:.2f} ms and "
+          f"{moving_evals / MOVING_FIT_ITERS:.2f} evaluations an iteration (phase 19's 20: "
+          f"{fit_ms:.2f} ms, {evals / TRAIN_ITERS:.2f}), parameters moved in every iteration, "
+          f"loss {moving_values[0]:.1f} -> {moving_values[-1]:.1f} "
+          f"| {time.perf_counter() - t21:.1f} s")
 
     # phase 15's numbers beside each K5 and K6 row of the kernels line
     tail_extra = {n: {"device_ms_profiler": tail_dev[n], "bound_share": tail_share[n][0],
@@ -2920,5 +3097,50 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def survey_shard_worker(port: str, pid: str, num_processes: str, work: str) -> None:
+    """Phase 21(b)'s process: join the group, run this process's
+    host_shard of the preloaded survey's batches on the card, and save the
+    arrays (no h5py on the card's machine)."""
+    from gpy_dla_detection_tpu_torch.catalog_io import results_to_arrays
+    from gpy_dla_detection_tpu_torch.data.samples import (
+        generate_dla_samples,
+        generate_subdla_samples,
+    )
+    from gpy_dla_detection_tpu_torch.data.spectrum import Spectrum
+    from gpy_dla_detection_tpu_torch.data.synthetic import (
+        synthetic_learned_model,
+        synthetic_prior_catalog,
+    )
+    from gpy_dla_detection_tpu_torch.models.learned import LearnedModel
+    from gpy_dla_detection_tpu_torch.parallel import distributed
+    from gpy_dla_detection_tpu_torch.parallel.batch import process_batch
+    from gpy_dla_detection_tpu_torch.params import Parameters
+    from gpy_dla_detection_tpu_torch.run_bayes_select import batch_generator
+
+    distributed.initialize(f"tcp://localhost:{port}", int(num_processes), int(pid))
+    device = torch.device("cuda", torch.cuda.current_device())
+    params = Parameters()
+    learned = LearnedModel.from_numpy(synthetic_learned_model(params), device, torch.float32)
+    with np.load(Path(work) / "survey.npz") as f:
+        batch = Spectrum(*[f[n] for n in Spectrum._fields])
+    spectra = [Spectrum(*[x[i] for x in batch]) for i in range(batch.flux.shape[0])]
+    mine = distributed.host_shard(list(range(len(spectra) // SURVEY_BATCH)))
+    results = []
+    for b in mine:
+        start = b * SURVEY_BATCH
+        results += process_batch(
+            learned, spectra[start:start + SURVEY_BATCH], generate_dla_samples(params),
+            generate_subdla_samples(params), synthetic_prior_catalog(params), params,
+            batch_generator(0, start, device), MAX_DLAS)
+    out = distributed.shard_filename(str(Path(work) / "survey.npz"))
+    np.savez(out, **results_to_arrays(results, params, MAX_DLAS))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(f"process {pid}: batches {mine} -> {out}")
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == WORKER_FLAG:
+        survey_shard_worker(*sys.argv[2:6])
+    else:
+        main()

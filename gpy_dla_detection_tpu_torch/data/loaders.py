@@ -9,12 +9,17 @@ order (:class:`~.synthetic.LearnedArrays`), which
 imported inside each loader: the CLIs import this module on machines
 without it.  ``load_z_learned_model`` returns the port's
 ``models.zqso.ZLearnedModel`` with numpy fields, and
-``save_z_learned_model`` writes one in the reference's layout.
+``save_z_learned_model`` writes one in the reference's layout;
+``save_learned_model`` writes a null-model GP (``models.training.
+train_model``'s ``LearnedModel`` on any device, or ``LearnedArrays``) in
+the layout ``load_learned_model`` and the catalog CLIs' ``--learned-file``
+read.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..models.zqso import ZLearnedModel
 from ..params import Parameters
@@ -88,6 +93,29 @@ def load_subdla_samples(filename: str, params: Parameters) -> SubDLASamples:
             Z_lls=float(f["Z_lls"][0, 0]),
             Z_dla=float(f["Z_dla"][0, 0]),
         )
+
+
+def _host(x) -> np.ndarray:
+    """A field as a host array: tensors (any device) in float64."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float64).numpy()
+    return np.asarray(x)
+
+
+def save_learned_model(filename: str, learned) -> None:
+    """Write a learned model in the reference's .mat v7.3 layout, so the
+    reference Python package can load models trained here."""
+    import h5py
+
+    with h5py.File(filename, "w") as f:
+        f.create_dataset(
+            "rest_wavelengths", data=_host(learned.rest_wavelengths)[:, None]
+        )
+        f.create_dataset("mu", data=_host(learned.mu)[:, None])
+        f.create_dataset("M", data=_host(learned.M).T)
+        f.create_dataset("log_omega", data=_host(learned.log_omega)[:, None])
+        for name in ["log_c_0", "log_tau_0", "log_beta"]:
+            f.create_dataset(name, data=_host(getattr(learned, name)).reshape(1, 1))
 
 
 def save_z_learned_model(filename: str, learned: ZLearnedModel) -> None:

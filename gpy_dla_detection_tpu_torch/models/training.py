@@ -12,9 +12,12 @@ spectrum_loss_lyseries.m):
   the Q small Cholesky factorizations run on K3 with its adjoint kernel as
   the backward (``ops/logmvn_kernels.chain_loglik``); the five gradient
   blocks come from ``torch.autograd``;
-* L-BFGS is ``torch.optim.LBFGS`` with a strong-Wolfe line search, one
-  iteration a step (the reference uses optax's L-BFGS, whose zoom line
-  search differs, so trajectories are not compared).
+* L-BFGS is the port's own (:func:`fit_lbfgs_stepwise`): torch's
+  recursion and strong-Wolfe zoom search with optax's approximate-Wolfe
+  acceptance and safe-step fallback (:mod:`.linesearch`), one iteration a
+  step (the reference runs optax's L-BFGS, whose search differs where the
+  strong-Wolfe search succeeds, so trajectories are compared only in their
+  end point).
 
 Everything runs on the card unless the caller asks for the CPU; float64 is
 the CPU's conformance path and raises on the card.
@@ -36,11 +39,11 @@ from ..ops.logmvn import LOG_2PI
 from ..ops.logmvn_kernels import chain_loglik, packed_pair_basis
 from ..params import Parameters
 from .learned import LearnedModel
+from .linesearch import strong_wolfe
 
 PARAM_FIELDS = ("M", "log_omega", "log_c_0", "log_tau_0", "log_beta")
 # evaluations the line search may take an iteration, as optax's zoom search
-# (``max_linesearch_steps``); torch.optim.LBFGS's own budget at max_iter=1
-# (max_eval = 1, the iteration's first evaluation) would leave it none
+# (``max_linesearch_steps``)
 LINE_SEARCH_STEPS = 20
 
 
@@ -342,12 +345,21 @@ def fit_lbfgs_stepwise(
     callback_every: int = 50,
 ):
     """L-BFGS maximum-likelihood fit, one iteration a step (reference:
-    minFunc's per-iteration loop, learn_qso_model.m:100-123):
-    ``torch.optim.LBFGS`` with optax's memory of 10 and a strong-Wolfe line
-    search of up to ``LINE_SEARCH_STEPS`` evaluations, ``max_iter=1``, one
-    ``step`` an iteration.  A trial point whose objective is not finite
-    counts as +inf, so the line search backs off from it, as optax's zoom
-    search does.  ``p0`` is left as it is; the fit runs on a copy.
+    minFunc's per-iteration loop, learn_qso_model.m:100-123; the JAX
+    package runs ``optax.lbfgs``).
+
+    The port's own L-BFGS (:class:`LBFGSState`): torch.optim.LBFGS's
+    two-loop recursion with optax's memory of 10, its curvature guard and
+    first-step scaling, and the strong-Wolfe search of
+    :mod:`.linesearch` with up to ``LINE_SEARCH_STEPS`` evaluations, which
+    accepts optax's approximate-Wolfe decrease and, when it fails, takes
+    optax's safe or last step among the trials that move the parameters,
+    rather than a step of 0.  Each iteration
+    starts from the accepted trial's value and gradient, as optax's
+    ``value_and_grad_from_state`` does, so an iteration costs its line
+    search's evaluations only.  A trial point whose objective is not
+    finite counts as +inf, so the search backs off from it.  ``p0`` is
+    left as it is; the fit runs on a copy.
 
     ``objective`` overrides the loss (the signature of
     :func:`total_objective`); ``callback(i, value)`` is invoked every
@@ -359,19 +371,17 @@ def fit_lbfgs_stepwise(
     obj = total_objective if objective is None else objective
     p = copy.deepcopy(p0)
     data = (flux_centered, lya_1pz, noise_variance, mask, zqso_1pz)
-    opt = torch.optim.LBFGS(p.parameters(), lr=1.0, max_iter=1, max_eval=1 + LINE_SEARCH_STEPS,
-                            history_size=10, line_search_fn="strong_wolfe")
+    state = LBFGSState(list(p.parameters()))
 
     def closure():
-        opt.zero_grad()
+        for q in p.parameters():
+            q.grad = None
         loss = obj(p, *data, params)
         loss.backward()
-        for q in p.parameters():  # LBFGS flattens each gradient by view
-            q.grad = q.grad.contiguous()
-        if not torch.isfinite(loss):  # LBFGS reads every value on the host
+        if not torch.isfinite(loss):
             # a trial point whose objective is not finite (an exp
             # overflowed): +inf is no decrease, and a NaN slope sends the
-            # search's cubic step to bisection (given the NaN value, torch's
+            # search's cubic step to bisection (given the NaN value, the
             # strong-Wolfe search would extrapolate; given +inf with a
             # finite slope, its cubic step is NaN)
             for q in p.parameters():
@@ -381,13 +391,134 @@ def fit_lbfgs_stepwise(
 
     values = []
     for i in range(num_iterations):
-        values.append(opt.step(closure).detach())
+        values.append(state.step(closure))
         if callback is not None and (i + 1) % callback_every == 0:
-            if callback(i, float(values[-1])):
+            if callback(i, values[-1]):
                 break
-    if not values:
-        return p, np.zeros(0)
-    return p, torch.stack(values).cpu().double().numpy()
+    return p, np.asarray(values, np.float64)
+
+
+def _split(flat, like):
+    """``flat`` cut into views shaped as the tensors of ``like``."""
+    views, offset = [], 0
+    for q in like:
+        views.append(flat[offset:offset + q.numel()].view_as(q))
+        offset += q.numel()
+    return views
+
+
+class LBFGSState:
+    """One L-BFGS run over ``params`` (a list of tensors updated in place):
+    the memory, the last direction and step, and the accepted trial's value
+    and gradient that the next iteration starts from.  Each fit, and each
+    stage of a restarted schedule, takes a fresh state, as the reference's
+    ``opt.init`` does.
+
+    The recursion and its constants are torch.optim.LBFGS's (``lr=1``,
+    ``history_size=10``, ``tolerance_grad=1e-7``,
+    ``tolerance_change=1e-9``) at ``max_iter=1``, in its operation order,
+    so where every line search meets the strong-Wolfe conditions the
+    iterates are torch's."""
+
+    history_size = 10
+    tolerance_grad = 1e-7
+    tolerance_change = 1e-9
+    lr = 1.0
+
+    def __init__(self, params):
+        self.params = params
+        self.n_iter = 0
+        self.carried = None  # (value, flat gradient) at the current point
+        self.d = self.t = self.H_diag = self.prev_flat_grad = None
+        self.old_dirs, self.old_stps, self.ro = [], [], []
+
+    def _gather_flat_grad(self):
+        return torch.cat([q.grad.reshape(-1) for q in self.params], 0)
+
+    def _add_grad(self, step_size, update):
+        for q, u in zip(self.params, _split(update, self.params)):
+            q.add_(u, alpha=step_size)
+
+    def _evaluate(self, closure):
+        with torch.enable_grad():
+            loss = float(closure())
+        return loss, self._gather_flat_grad()
+
+    @torch.no_grad()
+    def step(self, closure) -> float:
+        """One iteration: the direction, the line search along it and the
+        move to the accepted trial.  ``closure()`` evaluates the objective
+        at the parameters and leaves the gradients in their ``.grad``.
+
+        :return: the value at the start of the iteration, a host float.
+        """
+        if self.carried is None:
+            self.carried = self._evaluate(closure)
+        loss, flat_grad = self.carried
+        if flat_grad.abs().max() <= self.tolerance_grad:  # optimal
+            return loss
+        self.n_iter += 1
+
+        # the direction: the gradient's negative, then the two-loop
+        # recursion over the memory, updated where the curvature is positive
+        if self.n_iter == 1:
+            d = flat_grad.neg()
+            self.H_diag = 1
+        else:
+            y = flat_grad.sub(self.prev_flat_grad)
+            s = self.d.mul(self.t)
+            ys = y.dot(s)
+            if ys > 1e-10:
+                if len(self.old_dirs) == self.history_size:
+                    self.old_dirs.pop(0)
+                    self.old_stps.pop(0)
+                    self.ro.pop(0)
+                self.old_dirs.append(y)
+                self.old_stps.append(s)
+                self.ro.append(1.0 / ys)
+                self.H_diag = ys / y.dot(y)
+            num_old = len(self.old_dirs)
+            al = [None] * num_old
+            q = flat_grad.neg()
+            for i in range(num_old - 1, -1, -1):
+                al[i] = self.old_stps[i].dot(q) * self.ro[i]
+                q.add_(self.old_dirs[i], alpha=-al[i])
+            d = r = torch.mul(q, self.H_diag)
+            for i in range(num_old):
+                be_i = self.old_dirs[i].dot(r) * self.ro[i]
+                r.add_(self.old_stps[i], alpha=al[i] - be_i)
+        self.d = d
+        self.prev_flat_grad = flat_grad.clone(memory_format=torch.contiguous_format)
+
+        # the first step is scaled by the gradient's 1-norm
+        if self.n_iter == 1:
+            self.t = min(1.0, 1.0 / flat_grad.abs().sum()) * self.lr
+        else:
+            self.t = self.lr
+        gtd = flat_grad.dot(d)
+        if gtd > -self.tolerance_change:  # no descent left along d
+            return loss
+
+        x_init = [q.clone(memory_format=torch.contiguous_format) for q in self.params]
+
+        def obj_func(x, t, d):
+            self._add_grad(t, d)
+            value = self._evaluate(closure)
+            for q, x0 in zip(self.params, x):
+                q.copy_(x0)
+            return value
+
+        def is_step(t):
+            """Whether the step ``t`` changes any parameter (as _add_grad
+            would add it)."""
+            return any(not torch.equal(torch.add(x, u, alpha=t), x)
+                       for x, u in zip(x_init, _split(d, x_init)))
+
+        f_new, g_new, self.t, _ = strong_wolfe(obj_func, x_init, self.t, d, loss, flat_grad,
+                                               gtd, max_ls=LINE_SEARCH_STEPS, is_step=is_step)
+        self._add_grad(self.t, d)
+        self.carried = (f_new, g_new)
+        return loss
 
 
 def fit_lbfgs(

@@ -172,6 +172,13 @@ TORCH_SCRIPTS = ("train_fullscale_torch.py", "train_throughput_torch.py",
                  "profile_torch_slice.py")
 
 
+# the survey's plumbing and the L-BFGS search, ported from the JAX package's
+# modules of the same names (but the search, torch's own)
+SURVEY_MODULES = ("native/__init__.py", "data/preload.py", "parallel/distributed.py",
+                  "analysis/__init__.py", "analysis/catalog_tools.py", "analysis/comparison.py",
+                  "models/linesearch.py")
+
+
 def _imports_of(path: Path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -185,6 +192,7 @@ def _imports_of(path: Path):
 def test_port_names_no_module_of_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
         ROOT / "scripts" / name for name in TORCH_SCRIPTS + ("kernel_ablate_torch.py",)]
+    assert {PORT / name for name in SURVEY_MODULES} <= set(files)
     offenders = [
         (str(f.relative_to(ROOT)), name)
         for f in files
@@ -682,6 +690,97 @@ art = mods["train_fullscale_torch.py"].main(["--device", "cpu", "--num-spectra",
 assert json.load(open(out))["num_iterations"] == 2 and art["device"] == "cpu"
 res = mods["train_throughput_torch.py"].main(["--device", "cpu"])
 assert res["Q"] == 8
+loaded = [m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] in ("jax", "gpy_dla_detection_tpu"))]
+assert loaded == [], loaded
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "ok"
+
+
+def test_survey_plumbing_copies():
+    """The native source is the JAX package's byte for byte; the preloader
+    and the two analysis modules are its code (the module docstring aside);
+    the port's launcher runs the port's CLI."""
+    jax_pkg = ROOT / "gpy_dla_detection_tpu"
+    assert (PORT / "native" / "voigt_native.cc").read_bytes() == \
+        (jax_pkg / "native" / "voigt_native.cc").read_bytes()
+    for name in ("data/preload.py", "analysis/catalog_tools.py", "analysis/comparison.py"):
+        bodies = [[ast.dump(node) for node in ast.parse((pkg / name).read_text()).body[1:]]
+                  for pkg in (jax_pkg, PORT)]
+        assert bodies[0] == bodies[1], name
+    launcher = (ROOT / "scripts" / "launch_survey_torch.sh").read_text()
+    assert "python -m gpy_dla_detection_tpu_torch.run_bayes_select" in launcher
+    assert "gpy_dla_detection_tpu_torch.analysis.catalog_tools" in launcher
+    assert "gpy_dla_detection_tpu." not in launcher
+
+
+def test_survey_plumbing_runs_without_jax(tmp_path):
+    """With ``jax`` and the JAX package blocked, the port preloads spectra
+    both ways (native and Python), writes and reads the preloaded artifact
+    and a learned model, shards a work list outside a process group, merges
+    two shard catalogs and compares the result with a truth catalog, and
+    fits a small problem with its L-BFGS; neither package is imported."""
+    code = f"""
+import os, sys
+sys.modules["jax"] = None
+sys.modules["gpy_dla_detection_tpu"] = None
+sys.path.insert(0, {str(ROOT)!r})
+import numpy as np, torch
+import h5py
+torch.set_num_threads(2)
+from gpy_dla_detection_tpu_torch.analysis.catalog_tools import merge_catalogs
+from gpy_dla_detection_tpu_torch.analysis.comparison import TruthCatalog, compare_catalogs
+from gpy_dla_detection_tpu_torch.data.loaders import load_learned_model, save_learned_model
+from gpy_dla_detection_tpu_torch.data.preload import (
+    compute_snrs, load_preloaded, preload_spectra, save_preloaded)
+from gpy_dla_detection_tpu_torch.data.synthetic import (
+    synthetic_learned_model, synthetic_observation)
+from gpy_dla_detection_tpu_torch.models import training as TT
+from gpy_dla_detection_tpu_torch.parallel import distributed
+from gpy_dla_detection_tpu_torch.params import Parameters
+out = {str(tmp_path)!r}
+params = Parameters()
+learned = synthetic_learned_model(params)
+store = {{i: synthetic_observation(params, learned, z, seed=i) for i, z in enumerate((2.8, 3.2))}}
+py, flags = preload_spectra([0, 1], [2.8, 3.2], params, read_spec=store.__getitem__)
+nat, flags_n = preload_spectra([0, 1], [2.8, 3.2], params, read_spec=store.__getitem__,
+                               use_native=True)
+assert not flags.any() and np.array_equal(flags, flags_n)
+np.testing.assert_allclose(nat[0].flux, py[0].flux, rtol=1e-12)
+assert (compute_snrs(py) > 0).all()
+save_preloaded(os.path.join(out, "pre.h5"), py)
+batch, kept = load_preloaded(os.path.join(out, "pre.h5"))
+assert list(kept) == [0, 1] and np.array_equal(batch.flux[1], py[1].flux)
+save_learned_model(os.path.join(out, "learned.mat"), learned)
+assert np.array_equal(load_learned_model(os.path.join(out, "learned.mat")).M, learned.M)
+distributed.initialize()
+assert distributed.host_shard(list(range(5)), 1, 2) == [3, 4]
+assert distributed.shard_filename("p.h5") == "p.shard0000.h5"
+shards = []
+for i in range(2):
+    shards.append(os.path.join(out, f"p.shard{{i:04d}}.h5"))
+    with h5py.File(shards[-1], "w") as f:
+        f.create_dataset("p_dlas", data=np.array([0.95, 0.05]))
+        f.create_dataset("model_posteriors", data=np.array([[0.05, 0.0, 0.95], [0.95, 0.0, 0.05]]))
+assert merge_catalogs(shards, os.path.join(out, "p.h5")) == 4
+res = compare_catalogs([1, 2, 3, 4], np.array([0.95, 0.05, 0.95, 0.05]),
+                       np.full((4, 1, 1), 2.5), np.full((4, 1, 1), 21.0),
+                       np.array([[0.05, 0.0, 0.95], [0.95, 0.0, 0.05]] * 2),
+                       TruthCatalog.from_flat([1, 3], [2.5, 2.5], [21.0, 21.0]), max_k=1)
+assert res.auc == 1.0
+p0 = TT.TrainingParams.from_numpy((np.ones((3, 1)), np.zeros(3), 0.1, -0.5, 0.2), "cpu",
+                                  torch.float64)
+def objective(p, *_):
+    x = torch.cat([p.M.reshape(-1), p.log_omega, torch.stack([p.log_c_0, p.log_tau_0, p.log_beta])])
+    return torch.sum((x - 0.5) ** 2 * torch.arange(1.0, 10.0, dtype=torch.float64))
+_, values = TT.fit_lbfgs_stepwise(p0, None, None, None, None, None, Parameters(k=1), 20,
+                                  objective=objective)
+assert values[-1] < 1e-6 * values[0], values
 loaded = [m for m, v in sys.modules.items() if v is not None and (
     m.split(".")[0] in ("jax", "gpy_dla_detection_tpu"))]
 assert loaded == [], loaded

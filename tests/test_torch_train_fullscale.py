@@ -240,23 +240,24 @@ def test_cache_loads_across_packages(tmp_path):
 
 
 def test_fit_two_stage_restarts_at_stage_a_end(monkeypatch):
-    """Two stages of two iterations in float64: a fresh L-BFGS each,
+    """Two stages of two iterations in float64: a fresh L-BFGS state each,
     stage B's shift the mean loss at stage A's optimum, stage B's first
     value the true loss there, and the loss falls."""
     m = port_script()
     built = []
 
-    class CountedLBFGS(torch.optim.LBFGS):
+    class CountedState(TT.LBFGSState):
         def __init__(self, *args, **kwargs):
             built.append(self)
             super().__init__(*args, **kwargs)
 
-    monkeypatch.setattr(torch.optim, "LBFGS", CountedLBFGS)
+    monkeypatch.setattr(TT, "LBFGSState", CountedState)
     params = Parameters(k=K)
     p0, t = _port(F64)
     p, values, stages = m.fit_two_stage(p0, t, params, 2, 2, chunks=3)
     assert len(built) == 2 and len(stages) == 2 and values.shape == (4,)
     assert all(s.evaluations >= 2 for s in stages)
+    assert [len(s.evaluations_by_iteration) for s in stages] == [2, 2]
     assert np.isfinite(values).all() and values[-1] < values[0]
     # stage B starts at stage A's end (the same deterministic two
     # iterations): its first value is the true loss there, and so is its
