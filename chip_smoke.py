@@ -192,6 +192,27 @@ Phases, one line each; any failure exits non-zero before the result:
      phase 19's problem (Q = 4,096, float32) for 200 iterations: no
      iteration after the first repeats its predecessor's parameters; ms
      and evaluations an iteration beside phase 19's
+ 22. the catalog's science stage on the port's own catalog, with no h5py,
+     no matplotlib and no JAX: (a) phase 17's 32 FITS spectra written again
+     from their seeds through run_bayes_select.run at Parameters(), float32,
+     --max_dlas 4, its launches exact (K1 32, K2 and K3 160, nothing else),
+     and --plot-figures refused at its argument parsing where matplotlib
+     does not import (no launch, nothing written); ProcessedCatalog built
+     from CatalogRun.arrays (base_sample_inds as (Q, S, max_dlas - 1),
+     0-based) and the QMC samples: map_from_samples at one and two DLAs
+     picking the catalog's MAP samples (the chained first absorber through
+     base_sample_inds), the CDDF, dN/dX, both Omega_DLA and the three LaTeX
+     tables finite where the searched path is > 0, the 16 injected DLAs
+     counted at logNHI 20.8-21.6; (b) the JAX package's float64 statistics
+     of the seeded two-level catalog (tests/data/torch_golden_analysis.npz)
+     within rtol 1e-10, the same NaN pattern and tables; (c) the figure
+     curves of 8 of (a)'s spectra on the card (the MAP-absorbed mean, 16
+     posterior draws of phase 9's DLA chain, the mean-flux-suppressed mean;
+     K5 twice a spectrum, counted) against the same functions on the CPU in
+     float32 (within 2e-6 on all but 1e-3 of the pixels) and float64
+     (within 1.5x the CPU float32's own error); (d) (a)'s catalog tiled to
+     Q = 4,096 (S = 10,000): the host's seconds for each statistic and for
+     get_sample_errors(nsample=5), and the rise of its resident set (printed, no gate)
 Every other phase asserts that the Weideman window is never launched, and
 every phase before 14 that no int16 instantiation is.
 Then a JSON line of the kernels, the card line, and the result line.
@@ -231,6 +252,7 @@ GOLDEN_CIV = ROOT / "tests" / "data" / "torch_golden_civ.npz"
 GOLDEN_I16 = ROOT / "tests" / "data" / "torch_golden_i16.npz"
 GOLDEN_ZQSO = ROOT / "tests" / "data" / "torch_golden_zqso.npz"
 GOLDEN_TRAIN = ROOT / "tests" / "data" / "torch_golden_train.npz"
+GOLDEN_ANALYSIS = ROOT / "tests" / "data" / "torch_golden_analysis.npz"
 ABLATE_SCRIPT = ROOT / "scripts" / "kernel_ablate_torch.py"
 NUM_SPECTRA = 16
 NUM_EXACT = 4
@@ -275,6 +297,17 @@ SURVEY_PROCESSES = 2
 MOVING_FIT_ITERS = 200  # the repaired L-BFGS on phase 19's problem (phase 21)
 REL_NATIVE = 1e-12  # the native preprocessing against Python (tests/test_native.py)
 WORKER_FLAG = "--survey-shard"  # the mode phase 21's processes run this file in
+NUM_CURVES = 8  # spectra whose figure curves run on the card (phase 22)
+CURVE_DRAWS = 16  # posterior draws of phase 9's DLA chain a spectrum
+SURVEY_Q = 4096  # the tiled catalog whose host statistics are timed (phase 22)
+# the science stage against the JAX package's float64 statistics
+# (tests/test_torch_cddf.py)
+GOLDEN_ANALYSIS_RTOL = 1e-10
+# a figure curve on the card against the CPU's (tests/test_torch_voigt_tail.py's
+# float32 bound: within 2e-6 on all but 1e-3 of the pixels of the CPU
+# float32 curve, and within 1.5x the CPU float32's own error of float64)
+TOL_F32_CURVE = 2e-6
+F32_CURVE_OUTLIER_SHARE = 1e-3
 # the keys of scripts/train_fullscale.py's artifact (:413-448)
 TRAIN_JAX_ARTIFACT_KEYS = frozenset((
     "backend", "num_spectra", "rest_grid_pixels", "rank_k", "num_iterations", "chunks", "dtype",
@@ -3031,6 +3064,292 @@ def main() -> None:
           f"{fit_ms:.2f} ms, {evals / TRAIN_ITERS:.2f}), parameters moved in every iteration, "
           f"loss {moving_values[0]:.1f} -> {moving_values[-1]:.1f} "
           f"| {time.perf_counter() - t21:.1f} s")
+
+    # 22. the catalog's science stage on the port's catalog from the card:
+    # the statistics and tables on the host (no h5py, no matplotlib), the
+    # golden replay, the figure curves through K5, and the host's time at a
+    # survey-like count
+    t22 = time.perf_counter()
+    import importlib.util
+
+    from gpy_dla_detection_tpu_torch import plotting
+    from gpy_dla_detection_tpu_torch.analysis import tables
+    from gpy_dla_detection_tpu_torch.analysis.cddf import ProcessedCatalog
+    from gpy_dla_detection_tpu_torch.data.synthetic import (
+        catalog_statistics,
+        synthetic_processed_catalog,
+    )
+
+    S = params.num_dla_samples
+    z_sci = [float(z) for z in np.linspace(2.6, 3.4, NUM_CLI)]
+    truths_sci = [(z - 0.3, 21.2) if i % 2 else None for i, z in enumerate(z_sci)]
+    n_injected = sum(t is not None for t in truths_sci)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
+        work = Path(work)
+        # (a) phase 17's FITS spectra, written again from the same seeds: 16
+        # DLAs of logNHI 21.2 fill the CDDF's bin there
+        files = [
+            write_speclite(work / f"spec-0001-55555-{i:04d}.fits", *synthetic_observation(
+                params, arrays, z, seed=1000 + i, dlas=None if tr is None else [tr]))
+            for i, (z, tr) in enumerate(zip(z_sci, truths_sci))
+        ]
+        sci_argv = ["--qso_list", *files, "--z_qso_list", *map(repr, z_sci), "--max_dlas",
+                    str(MAX_DLAS), "--batch-size", str(CLI_BATCH), "--inflight", "3",
+                    "--output", str(work / "science.h5")]
+        # --plot-figures where matplotlib does not import stops at its
+        # argument parsing: no spectrum runs, nothing is written
+        guard = "matplotlib imports here: not exercised"
+        if importlib.util.find_spec("matplotlib") is None:
+            def refused():
+                err_ = io.StringIO()
+                try:
+                    with contextlib.redirect_stderr(err_):
+                        run_bayes_select.run(sci_argv + ["--plot-figures"])
+                except SystemExit as e_:
+                    return e_.code, err_.getvalue()
+                return 0, err_.getvalue()
+
+            (code_, err_text), launches = count_launches(refused)
+            check(code_ == 2 and "--plot-figures draws with matplotlib" in err_text
+                  and not any(launches.values())
+                  and not (work / "science.h5.metrics.jsonl").exists(),
+                  f"--plot-figures without matplotlib: exit {code_}, launches {launches}, "
+                  f"stderr {err_text[-300:]!r}")
+            guard = "--plot-figures refused at parsing (exit 2), no launch, nothing written"
+        t0 = time.perf_counter()
+        sci, launches = count_launches(lambda: quiet(lambda: run_bayes_select.run(sci_argv)))
+        sci_s = time.perf_counter() - t0
+        path_launches["science_catalog"] = launches
+        need = {"absorption_all": NUM_CLI, "logmvn_cap": 5 * NUM_CLI,
+                "logmvn_chain": 5 * NUM_CLI, "absorption_all_weideman": 0,
+                "absorption_tail": 0, "absorption_windowed": 0}
+        for name, n in need.items():
+            check(launches.get(name, 0) == n,
+                  f"science catalog: {name} launched {launches.get(name, 0)} != {n}")
+        det_sci = check_detections(sci.results, truths_sci, "science catalog")
+        specs_sci = [preprocess(*read_spec(f), z, params) for f, z in zip(files, z_sci)]
+
+    a = sci.arrays
+    Q = a["min_z_dlas"].size
+    bsi = a["base_sample_inds"]
+    check(bsi.shape == (Q, S, MAX_DLAS - 1) and bsi.min() >= 0 and bsi.max() < S,
+          f"science: base_sample_inds {bsi.shape} in [{bsi.min()}, {bsi.max()}], not (Q, S, "
+          f"max_dlas - 1) 0-based")
+    pc = ProcessedCatalog(a["min_z_dlas"], a["max_z_dlas"], a["model_posteriors"],
+                          a["sample_log_likelihoods_dla"], a["log_likelihoods_dla"], bsi,
+                          dla_samples.offset_samples, dla_samples.log_nhi_samples)
+    check(pc.base_sample_inds.shape == bsi.shape, "science: the catalog re-oriented the indices")
+    # the MAP from the samples against the catalog's, at one and two DLAs:
+    # the same sample (its log NHI equal in float32, its z within the float32
+    # rounding of z_min + dz * offset); at two DLAs the chained first
+    # absorber through base_sample_inds as the catalog chains it
+    map_diffs = []
+    for level in (0, 1):
+        finite = np.isfinite(a["log_likelihoods_dla"][:, level])
+        map_z, map_n = pc.map_from_samples(level)
+        dz = np.abs(map_z - a["MAP_z_dlas"][:, level, 0])[finite]
+        check(bool(np.array_equal(np.float32(map_n[finite]),
+                                  a["MAP_log_nhis"][finite, level, 0]) and (dz <= 1e-5).all()),
+              f"map_from_samples({level}) picks another sample than the catalog: |dz| "
+              f"{dz.max():.3e}, log NHI equal {np.array_equal(np.float32(map_n[finite]), a['MAP_log_nhis'][finite, level, 0])}")
+        if level:
+            lls = a["sample_log_likelihoods_dla"][:, :, level]
+            best = np.nanargmax(np.where(np.isnan(lls), -np.inf, lls), axis=1)
+            chained = np.array([pc.sample_params(i, level)[1][best[i]] for i in range(Q)])
+            dz2 = np.abs(chained - a["MAP_z_dlas"][:, level, 1])[finite]
+            check(bool((dz2 <= 1e-5).all()),
+                  f"the chained absorber differs from the catalog's MAP: |dz| {dz2.max():.3e}")
+            dz = np.maximum(dz, dz2)
+        map_diffs.append((int(finite.sum()), float(dz.max())))
+    # the statistics: finite wherever the searched path is > 0, and the
+    # injected DLAs found
+    l_cent, cddf, cddf68, cddf95, _ = pc.column_density_function()
+    z_cent, dndx, dndx68, dndx95, _ = pc.line_density()
+    z_om, omega, omega_err = pc.omega_dla()
+    z_oc, omega_c, omega_c68, omega_c95, _ = pc.omega_dla_cddf()
+    edges = np.linspace(2.0, 4.0, len(z_cent) + 1)
+    searched = np.array([pc.path_length(lo, hi) > 0 for lo, hi in zip(edges[:-1], edges[1:])])
+    check(pc.path_length(1.0, 6.0) > 0 and bool(np.isfinite(np.c_[cddf, cddf68, cddf95]).all()),
+          "science: the CDDF is not finite")
+    for name, values in (("line_density", np.c_[dndx, dndx68, dndx95]),
+                         ("omega_dla_cddf", np.c_[omega_c, omega_c68, omega_c95])):
+        check(bool(np.isfinite(values[searched]).all() and np.isnan(values[~searched]).all()),
+              f"science: {name} not finite where the path is > 0, or not NaN where it is 0")
+    # omega_dla's variance-mode error is the reference's sum of w^2 p (1 - p)
+    # (analysis/cddf.py:z_nhi_histogram): it goes negative, and the error
+    # NaN, only where a per-sample probability exceeds 1, which float32
+    # likelihoods of a posterior on one sample allow (printed)
+    p_max = max(float(pc.prob_dla_per_sample(i, np.arange(S)).max())
+                for i in pc.filter_dla_spectra())
+    err_nan = int(np.isnan(omega_err).sum())
+    check(bool(np.isfinite(omega).all()) and len(z_om) == searched.sum()
+          and (err_nan == 0 or p_max > 1.0),
+          f"science: omega_dla not finite on the searched bins ({err_nan} errors NaN, "
+          f"largest per-sample probability {p_max!r})")
+    sci_tables = (tables.cddf_table(l_cent, cddf, cddf68, cddf95),
+                  tables.line_density_table(z_cent, dndx, dndx68, dndx95),
+                  tables.omega_table(z_om, omega, omega_err))
+    check("nan" not in sci_tables[0] and sci_tables[2].count("nan") == err_nan
+          and sci_tables[1].count("nan") == 5 * int((~searched).sum()),
+          "science: a table holds NaN for a searched bin")
+    # every injected DLA counted, in log N 20.8-21.6 (logNHI 21.2 +- 0.4)
+    counted, _, c95 = pc.confidence_intervals(np.array([20.3, 20.8, 21.6, 23.0]), lred=1.0,
+                                              ured=6.0, lnhi_min=20.3, nhi=True)
+    check(c95[1][0] <= n_injected <= c95[1][1] and counted[0] == counted[2] == 0,
+          f"science: {counted} DLAs counted in log N 20.3-20.8, 20.8-21.6, 21.6-23 (95% "
+          f"{c95}) for {n_injected} injected at 21.2")
+
+    # (b) the golden replay: the JAX package's float64 statistics of a
+    # catalog drawn again here from its seed
+    golden_a = np.load(GOLDEN_ANALYSIS)
+    g_arrays = synthetic_processed_catalog(int(golden_a["num_spec"]),
+                                           int(golden_a["num_samples"]), int(golden_a["seed"]))
+    checksum = float(np.nansum(g_arrays["sample_log_likelihoods"]))
+    check(abs(checksum - float(golden_a["likelihood_checksum"]))
+          <= 1e-12 * abs(float(golden_a["likelihood_checksum"])),
+          f"analysis golden: the catalog drawn here differs (checksum {checksum!r})")
+    g_stats = catalog_statistics(ProcessedCatalog(**g_arrays, max_k=2), tables)
+    golden_rel, nan_off = 0.0, []
+    for key, value in g_stats.items():
+        want = golden_a[key]
+        if want.dtype.kind in "US":
+            check(str(value) == str(want), f"analysis golden: {key} differs")
+            continue
+        check(value.shape == want.shape, f"analysis golden: {key} shape {value.shape}")
+        if not np.array_equal(np.isnan(value), np.isnan(want)):
+            nan_off.append(key)
+        ok = ~np.isnan(want) & (want != 0)
+        golden_rel = max(golden_rel, float(np.abs(value[ok] / want[ok] - 1).max(initial=0.0)))
+        check(bool(np.all(value[want == 0] == 0)), f"analysis golden: {key} nonzero where 0")
+    check(not nan_off and golden_rel <= GOLDEN_ANALYSIS_RTOL,
+          f"analysis golden: max rel {golden_rel:.3e} (tol {GOLDEN_ANALYSIS_RTOL}), NaN pattern "
+          f"differs in {nan_off}")
+
+    # (c) the figure curves of 8 of (a)'s spectra on the card (float32, the
+    # absorption through K5) against the same functions on the CPU in float32
+    # (K5's twin) and float64: the MAP-absorbed mean, 16 posterior draws from
+    # phase 9's DLA chain, and the mean-flux-suppressed mean
+    learned_c32 = LearnedModel.from_numpy(arrays, "cpu", torch.float32)
+    learned_c64 = LearnedModel.from_numpy(arrays, "cpu", torch.float64)
+    dla_chain = chain.cpu().numpy()
+    tail_burn = dla_chain.shape[0] - dla_chain.shape[0] // 4
+
+    def curves(model_learned, spec, r, seed, device_, dtype_):
+        model = build_spectrum_model(model_learned, to_torch(spec, device_, dtype_), params)
+        nth = max(int(np.argmax(r.selection.model_posteriors)) - 1, 1)
+        return [
+            plotting.absorbed_mean(model, params, r.map_z_dlas[nth - 1, :nth],
+                                   r.map_log_nhis[nth - 1, :nth]),
+            plotting.sample_prediction_curves(dla_chain, model, params, CURVE_DRAWS,
+                                              burn_in=tail_burn, seed=seed),
+            plotting.mean_flux_curve(model_learned, float(spec.z_qso))[1],
+        ]
+
+    on_card, launches = count_launches(lambda: [
+        [c.cpu().numpy() for c in curves(learned, spec, r, i, device, torch.float32)]
+        for i, (spec, r) in enumerate(zip(specs_sci[:NUM_CURVES], sci.results))])
+    path_launches["science_curves"] = launches
+    check(launches == {"absorption_tail": 2 * NUM_CURVES},
+          f"the figure curves: launches {launches} (want absorption_tail {2 * NUM_CURVES})")
+    curve_err = {}
+    for i, (spec, r) in enumerate(zip(specs_sci[:NUM_CURVES], sci.results)):
+        c32 = [c.numpy() for c in curves(learned_c32, spec, r, i, "cpu", torch.float32)]
+        c64 = [c.numpy() for c in curves(learned_c64, spec, r, i, "cpu", torch.float64)]
+        for name, card_, cpu32, cpu64 in zip(("map", "draws", "mean_flux"), on_card[i], c32,
+                                             c64):
+            e = curve_err.setdefault(name, [0.0, 0, 0, 0.0, 0.0])
+            d32 = np.abs(card_ - cpu32)
+            e[0] = max(e[0], float(d32.max()))
+            e[1] += int((d32 > TOL_F32_CURVE).sum())
+            e[2] += d32.size
+            e[3] = max(e[3], float(np.abs(card_ - cpu64).max()))
+            e[4] = max(e[4], float(np.abs(cpu32 - cpu64).max()))
+    for name, (d32, out, n, d64, own) in curve_err.items():
+        check(out <= F32_CURVE_OUTLIER_SHARE * n and d64 <= 1.5 * max(own, TOL_F32_CURVE),
+              f"the {name} curve on the card: vs the CPU float32 max |d| {d32:.3e}, {out} of {n} "
+              f"pixels above {TOL_F32_CURVE}; vs float64 {d64:.3e} (the CPU float32's own "
+              f"{own:.3e})")
+
+    # (d) the host's time at a survey-like count: (a)'s catalog tiled; the
+    # resident set sampled every 20 ms on a thread while the statistics run
+    # (the card's machine reports no peak of its own)
+    import resource
+
+    def rss_mib():
+        """The resident set from /proc/self/statm, else the process's peak
+        (getrusage), which then includes the earlier phases."""
+        try:
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+        except (OSError, ValueError, IndexError):
+            rss_from[0] = "getrusage's process peak"
+            return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+    rss_from = ["/proc/self/statm"]
+
+    rss0, rss_peak, sampling = rss_mib(), [0.0], [True]
+
+    def sample_rss():
+        while sampling[0]:
+            rss_peak[0] = max(rss_peak[0], rss_mib())
+            time.sleep(0.02)
+
+    sampler = ThreadPoolExecutor(1)
+    sampled = sampler.submit(sample_rss)
+    reps = SURVEY_Q // Q
+    tile = lambda x: np.concatenate([x] * reps)
+    big = ProcessedCatalog(*(tile(a[k]) for k in (
+        "min_z_dlas", "max_z_dlas", "model_posteriors", "sample_log_likelihoods_dla",
+        "log_likelihoods_dla", "base_sample_inds")), dla_samples.offset_samples,
+        dla_samples.log_nhi_samples)
+    host_s = {}
+    for name, fn in (("column_density_function", big.column_density_function),
+                     ("line_density", big.line_density), ("omega_dla", big.omega_dla),
+                     ("omega_dla_cddf", big.omega_dla_cddf),
+                     ("map_from_samples", lambda: big.map_from_samples(0)),
+                     ("get_sample_errors(nsample=5)", lambda: big.get_sample_errors(
+                         nsample=5, rng=0))):
+        t0 = time.perf_counter()
+        out_ = fn()
+        host_s[name] = time.perf_counter() - t0
+    big_counted = big.confidence_intervals(np.array([20.3, 23.0]), lred=1.0, ured=6.0,
+                                           lnhi_min=20.3, nhi=True)[0][0]
+    check(bool(np.isfinite(out_["dndx_sample"][:len(z_cent)][searched]).all()),
+          "science at the survey count: the bootstrap dN/dX is not finite")
+    sampling[0] = False
+    sampled.result()
+    sampler.shutdown()
+    rss1 = rss_mib()
+    del big, out_
+    print(f"[22 science] {card} | (a) run_bayes_select.run on {NUM_CLI} FITS spectra (phase "
+          f"17's, written again) at S={S} max_dlas={MAX_DLAS}, float32, in {sci_s:.2f} s: "
+          f"launches {path_launches['science_catalog']} | {det_sci} | {guard} | "
+          f"ProcessedCatalog from CatalogRun.arrays (base_sample_inds {bsi.shape} 0-based, "
+          f"as taken), max_k 1: map_from_samples at 1 and 2 DLAs the catalog's MAP "
+          f"sample on {map_diffs[0][0]} and {map_diffs[1][0]} spectra (max |dz| "
+          f"{map_diffs[0][1]:.2e}, {map_diffs[1][1]:.2e}, log NHI equal) | {int(counted[1])} "
+          f"DLAs counted in log N 20.8-21.6 (95% {tuple(int(x) for x in c95[1])}), "
+          f"{int(counted[0])} and {int(counted[2])} beside, for {n_injected} injected; CDDF, "
+          f"dN/dX, Omega_DLA (both), 3 LaTeX tables finite on the {int(searched.sum())} of "
+          f"{len(searched)} z bins with path (dN/dX 2-4: {np.round(dndx, 4).tolist()}), but "
+          f"omega_dla's variance error NaN on {err_nan} (largest per-sample probability "
+          f"{p_max!r}) | (b) golden (tests/data/torch_golden_analysis.npz, "
+          f"Q={int(golden_a['num_spec'])} S={int(golden_a['num_samples'])} max_k 2): "
+          f"{len(g_stats)} statistics, max rel {golden_rel:.3e} (tol {GOLDEN_ANALYSIS_RTOL}), "
+          f"NaN pattern equal, tables equal | (c) curves of {NUM_CURVES} spectra, launches "
+          f"{path_launches['science_curves']}: "
+          + ", ".join(f"{n} card vs CPU float32 max|d| {d32:.2e} ({o} of {t} above "
+                      f"{TOL_F32_CURVE}), vs float64 {d64:.2e} (CPU float32's own {own:.2e})"
+                      for n, (d32, o, t, d64, own) in curve_err.items())
+          + f" | (d) host at Q={SURVEY_Q} ({reps}x (a)'s catalog, S={S}, max_k 1; "
+          f"{big_counted} DLAs counted): "
+          + ", ".join(f"{n} {s_:.2f} s" for n, s_ in host_s.items())
+          + f", total {sum(host_s.values()):.2f} s; resident {rss0:.0f} MiB before, peak "
+          f"{rss_peak[0]:.0f} (+{rss_peak[0] - rss0:.0f}), {rss1:.0f} after ({rss_from[0]}) | "
+          f"matplotlib imported: {'matplotlib' in sys.modules} | "
+          f"{time.perf_counter() - t22:.1f} s")
+    check("matplotlib" not in sys.modules and "h5py" not in sys.modules,
+          "the science stage imported matplotlib or h5py")
 
     # phase 15's numbers beside each K5 and K6 row of the kernels line
     tail_extra = {n: {"device_ms_profiler": tail_dev[n], "bound_share": tail_share[n][0],

@@ -289,6 +289,107 @@ def synthetic_training_problem(Q: int, R: int, k: int, seed: int = 0):
     return fields, (flux * mask, lya_1pz, nv, mask, zqso)
 
 
+def _log_sum_exp(x: np.ndarray) -> np.ndarray:
+    """log sum exp over the last axis, NaN entries left out (NaN where
+    every entry is)."""
+    x = np.where(np.isnan(x), -np.inf, x)
+    top = x.max(axis=-1, keepdims=True)
+    shift = np.where(np.isfinite(top), top, 0.0)
+    with np.errstate(divide="ignore"):
+        out = (shift + np.log(np.exp(x - shift).sum(axis=-1, keepdims=True)))[..., 0]
+    return np.where(np.isfinite(top[..., 0]), out, np.nan)
+
+
+def synthetic_processed_catalog(num_spec: int = 64, num_samples: int = 2000, seed: int = 0):
+    """A processed catalog whose statistics can be checked by hand, for
+    ``analysis.cddf.ProcessedCatalog(**arrays, max_k=2)``: the toy catalog
+    of ``tests/test_cddf.py`` (a detected spectrum's whole likelihood on
+    one sample, log evidences normalized so that the per-sample
+    probabilities sum to one) with two DLA levels.
+
+    About half the spectra hold a DLA at a picked sample (p_dla 0.95), a
+    third of those a second one at another sample whose chained first
+    absorber (``base_sample_inds``, 0-based, (Q, S, 1)) is mostly the first
+    pick; the chained level's likelihoods are NaN where the pair cut would
+    drop a sample.  Search ranges vary per spectrum over 2.0-2.3 to
+    3.0-4.5, and the last spectrum's likelihoods are NaN throughout (an
+    evidence that failed; its posterior is the null model's).  ``scripts/make_torch_golden.py analysis`` and
+    ``chip_smoke.py`` draw the same catalog from ``seed``.
+
+    :return: dict of the constructor's arrays.
+    """
+    rng = np.random.default_rng(seed)
+    Q, S = num_spec, num_samples
+    z_min = 2.0 + 0.3 * rng.uniform(size=Q)
+    z_max = 3.0 + 1.5 * rng.uniform(size=Q)
+    offsets = rng.uniform(size=S)
+    lnhi = rng.uniform(20.0, 22.5, size=S)
+
+    picked = rng.integers(0, S, size=Q)
+    picked2 = rng.integers(0, S, size=Q)
+    detected = rng.uniform(size=Q) < 0.5
+    double = detected & (rng.uniform(size=Q) < 1.0 / 3.0)
+    detected[-1] = double[-1] = False
+    chained = rng.uniform(size=(Q, S)) < 0.8
+    base = np.where(chained, picked[:, None], rng.integers(0, S, size=(Q, S)))[..., None]
+
+    sll = np.full((Q, S, 2), -200.0)
+    sll[detected, picked[detected], 0] = 0.0
+    sll[:, :, 1][rng.uniform(size=(Q, S)) < 0.05] = np.nan
+    sll[double, picked2[double], 1] = 0.0
+    sll[-1] = np.nan
+    log_ev = np.stack(
+        [_log_sum_exp(sll[:, :, 0]) - np.log(S), _log_sum_exp(sll[:, :, 1]) - 2 * np.log(S)],
+        axis=1,
+    )
+
+    p_one = np.where(detected & ~double, 0.95, np.where(double, 0.04, 1e-4))
+    p_two = np.where(double, 0.91, 1e-6)
+    mp = np.stack([1 - p_one - p_two - 1e-5, np.full(Q, 1e-5), p_one, p_two], axis=1)
+    return dict(
+        min_z_dlas=z_min,
+        max_z_dlas=z_max,
+        model_posteriors=mp,
+        sample_log_likelihoods=sll,
+        log_likelihoods_dla=log_ev,
+        base_sample_inds=base,
+        offset_samples=offsets,
+        log_nhi_samples=lnhi,
+    )
+
+
+def catalog_statistics(cat, tables) -> dict[str, np.ndarray]:
+    """The science stage's statistics of a ``ProcessedCatalog`` at their
+    default ranges, flat by ``<statistic>.<field>``: ``column_density_function``,
+    ``line_density``, ``omega_dla``, ``omega_dla_cddf``, ``map_from_samples``
+    at k = 1 and 2, ``get_sample_errors(nsample=5, rng=0)``, and the three
+    LaTeX tables of ``tables`` (``cddf_table``, ``line_density_table``,
+    ``omega_table``) as strings.  Either package's catalog and tables
+    module: the golden fixture holds the JAX package's, ``chip_smoke.py``
+    and the tests compare the port's with it."""
+    out = {}
+
+    def put(name, fields, values):
+        for field, value in zip(fields, values):
+            out[f"{name}.{field}"] = np.asarray(value)
+
+    cddf = cat.column_density_function()
+    dndx = cat.line_density()
+    omega = cat.omega_dla()
+    put("cddf", ("l_cent", "cddf", "cddf68", "cddf95", "xerrs"), cddf)
+    put("line_density", ("z_cent", "dNdX", "dndx68", "dndx95", "xerrs"), dndx)
+    put("omega_dla", ("z_cent", "omega", "omega_err"), omega)
+    put("omega_dla_cddf", ("z_cent", "omega", "omega68", "omega95", "xerrs"),
+        cat.omega_dla_cddf())
+    for k in (1, 2):
+        put(f"map_k{k}", ("z", "log_nhi"), cat.map_from_samples(k - 1))
+    put("sample_errors", *zip(*cat.get_sample_errors(nsample=5, rng=0).items()))
+    put("tables", ("cddf", "line_density", "omega"), (
+        tables.cddf_table(*cddf[:4]), tables.line_density_table(*dndx[:4]),
+        tables.omega_table(*omega)))
+    return out
+
+
 def synthetic_spectrum(
     params: Parameters,
     learned: LearnedArrays,

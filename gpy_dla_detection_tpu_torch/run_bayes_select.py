@@ -1,12 +1,15 @@
 """CLI: batched Bayesian DLA detection over a list of spectra.
 
 The port's twin of ``gpy_dla_detection_tpu/run_bayes_select.py``, with its
-arguments (less ``--plot-figures``: the plots are not ported) and
-``--device``: loads (or synthesizes) the learned model, prior catalog and
+arguments and ``--device``: loads (or synthesizes) the learned model, prior catalog and
 QMC samples, reads and preprocesses the spectra on a worker thread, keeps
 ``--inflight`` dispatched batches queued on the device while one finalize
 thread reads them back, checkpoints each batch to a part file, logs a
-``.metrics.jsonl`` sidecar, and writes the processed HDF5 catalog.
+``.metrics.jsonl`` sidecar, and writes the processed HDF5 catalog.  With
+``--plot-figures`` it draws one PNG a spectrum into ``<output>_figures/``
+(``plotting.plot_dla_model``: the sample likelihoods and the MAP-absorbed
+mean, the model built in the run's dtype on the run's device); matplotlib
+is checked at argument parsing, before any spectrum runs.
 
 It runs on the CUDA card unless ``--device cpu`` is given; ``--dtype
 float64`` runs on the CPU only.  The reference's ``GPY_DLA_*`` kernel flags
@@ -88,6 +91,13 @@ def build_parser() -> argparse.ArgumentParser:
         help="override the QMC sample count (default: Parameters default)",
     )
     parser.add_argument(
+        "--plot-figures",
+        action="store_true",
+        help="write a per-spectrum model plot (sample-likelihood scatter "
+        "+ MAP-absorbed mean) next to the output catalog "
+        "(reference: run_bayes_select.py:238-244); needs matplotlib",
+    )
+    parser.add_argument(
         "--checkpoint",
         action="store_true",
         help="persist every batch's results to a part file and resume "
@@ -145,6 +155,21 @@ def run(argv=None) -> CatalogRun:
     """Parse ``argv`` and run the catalog up to its arrays."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.plot_figures:
+        if args.no_sample_lls:
+            parser.error(
+                "--plot-figures needs the per-sample likelihoods that "
+                "--no-sample-lls omits"
+            )
+        # the figures are drawn after the whole survey: a missing
+        # matplotlib must stop the run here, not lose the catalog there
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            parser.error(
+                f"--plot-figures draws with matplotlib, which does not import "
+                f"here ({e}); install it or run without --plot-figures"
+            )
     dtype = torch.float32 if args.dtype == "float32" else torch.float64
     try:
         options = kernel_options(dtype)
@@ -262,7 +287,8 @@ def run(argv=None) -> CatalogRun:
         per-spectrum failure capture (the reference records
         all_exceptions per QSO,
         multi_dlas/process_qsos_multiple_dlas_meanflux.m:222-233)."""
-        if checkpoint and os.path.exists(part_path(start)):
+        resumed = checkpoint and os.path.exists(part_path(start))
+        if resumed and not args.plot_figures:
             return start, None, [], []  # results come from the part file
         specs, kept, errors = [], [], []
         for idx in range(start, min(start + args.batch_size, total)):
@@ -281,6 +307,7 @@ def run(argv=None) -> CatalogRun:
         return start, specs, kept, errors
 
     results = []
+    spectra_by_idx = {}  # retained only for --plot-figures
     kept_all, all_exceptions = [], []
     t0 = time.time()
     done = computed = 0
@@ -337,7 +364,11 @@ def run(argv=None) -> CatalogRun:
             if checkpoint and os.path.exists(part_path(start)):
                 drain_all()  # keep results in batch order
                 batch_kept, batch_errors, batch_results = read_part(start)
+                # the part file is the source of truth for this batch: any
+                # errors from the (--plot-figures-only) re-read are ignored
                 all_exceptions.extend(idx for idx, _, _ in batch_errors)
+                if specs is not None and args.plot_figures:
+                    spectra_by_idx.update(zip(kept, specs))
                 results.extend(batch_results)
                 kept_all.extend(batch_kept)
                 done += len(batch_results)
@@ -347,6 +378,8 @@ def run(argv=None) -> CatalogRun:
                 print(f"[skip] {filename}: {msg}")
                 metrics.failure(filename, msg)
                 all_exceptions.append(idx)
+            if args.plot_figures:
+                spectra_by_idx.update(zip(kept, specs))
             kept_all.extend(kept)
             if not specs:
                 if checkpoint:
@@ -384,6 +417,11 @@ def run(argv=None) -> CatalogRun:
             f"{name}: p_dla={r.p_dla:.4f} "
             f"MAP z={r.map_z_dlas[0, 0]:.4f} logNHI={r.map_log_nhis[0, 0]:.3f}"
         )
+    if args.plot_figures:
+        plot_dir = args.output + "_figures"
+        write_figures(plot_dir, results, kept_all, qso_list, spectra_by_idx,
+                      inputs.learned, dla_samples, params)
+        print(f"wrote figures to {plot_dir}/")
     metrics.finish(
         spectra_processed=len(results),
         spectra_failed=len(all_exceptions),
@@ -400,6 +438,45 @@ def run(argv=None) -> CatalogRun:
         max_dlas=args.max_dlas,
         output=args.output,
     )
+
+
+def write_figures(plot_dir, results, kept_all, qso_list, spectra_by_idx, learned,
+                  dla_samples, params) -> None:
+    """One ``plot_dla_model`` PNG a spectrum, ``<file stem>.png``, its model
+    built from ``learned`` (the run's device and dtype).  ``results`` and
+    ``kept_all`` are aligned; spectra are looked up by catalog index, so a
+    resumed batch whose file can no longer be read skips its figure."""
+    import matplotlib.pyplot as plt
+
+    from .data.spectrum import to_torch
+    from .models.learned import build_spectrum_model
+    from .plotting import plot_dla_model
+
+    os.makedirs(plot_dir, exist_ok=True)
+    device, dtype = learned.mu.device, learned.mu.dtype
+    for r, idx, name in zip(results, kept_all, qso_list):
+        spec = spectra_by_idx.get(idx)
+        if spec is None:
+            print(f"[figures] {name}: spectrum unavailable, skipped")
+            continue
+        model = build_spectrum_model(learned, to_torch(spec, device, dtype), params)
+        z_s = float(spec.min_z_dla) + (
+            float(spec.max_z_dla) - float(spec.min_z_dla)
+        ) * np.asarray(dla_samples.offset_samples)
+        fig = plot_dla_model(
+            model,
+            params,
+            sample_z_dlas=z_s,
+            log_nhi_samples=np.asarray(dla_samples.log_nhi_samples),
+            sample_log_likelihoods=r.sample_log_likelihoods_dla,
+            map_z_dlas=r.map_z_dlas,
+            map_log_nhis=r.map_log_nhis,
+            nth_dla=max(int(np.argmax(r.selection.model_posteriors)) - 1, 1),
+            title=f"{name}  p_dla={r.p_dla:.3f}",
+        )
+        base = os.path.splitext(os.path.basename(name))[0]
+        fig.savefig(os.path.join(plot_dir, f"{base}.png"), dpi=100)
+        plt.close(fig)  # survey-scale runs: don't retain figures
 
 
 def main(argv=None):

@@ -49,14 +49,22 @@ A rest), through the JAX package's ``prepare_training_set`` and
 ``batched_spectrum_losses``, the ``total_objective`` and its five gradient
 blocks by ``jax.grad``.
 
+``analysis``: the catalog's science stage on the port's
+``synthetic_processed_catalog(ANALYSIS_Q, ANALYSIS_S, ANALYSIS_SEED)``
+(the toy catalog of tests/test_cddf.py with two DLA levels and chained
+``base_sample_inds``), the JAX package's ``ProcessedCatalog(max_k=2)``
+and ``tables``: the port's ``catalog_statistics`` of it in float64, with
+the catalog's size, seed and a checksum of its likelihoods.
+
 Run from the repository root, naming the fixtures to write (all by
 default; each run rewrites the file, so name only the one that changes):
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [dla] [lls] [civ] [i16] [zqso] [train]
+    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [dla] [lls] [civ] [i16] [zqso] [train] [analysis]
 
 Output: tests/data/torch_golden_fullscale.npz, tests/data/torch_golden_lls.npz,
 tests/data/torch_golden_civ.npz, tests/data/torch_golden_i16.npz,
-tests/data/torch_golden_zqso.npz, tests/data/torch_golden_train.npz
+tests/data/torch_golden_zqso.npz, tests/data/torch_golden_train.npz,
+tests/data/torch_golden_analysis.npz
 """
 
 from __future__ import annotations
@@ -439,9 +447,36 @@ def write_train() -> None:
     print(f"wrote {OUT_TRAIN} ({OUT_TRAIN.stat().st_size} bytes)")
 
 
+OUT_ANALYSIS = ROOT / "tests" / "data" / "torch_golden_analysis.npz"
+ANALYSIS_Q, ANALYSIS_S, ANALYSIS_SEED = 64, 2000, 17
+
+
+def write_analysis() -> None:
+    from gpy_dla_detection_tpu.analysis import tables
+    from gpy_dla_detection_tpu.analysis.cddf import ProcessedCatalog
+    from gpy_dla_detection_tpu_torch.data.synthetic import (
+        catalog_statistics,
+        synthetic_processed_catalog,
+    )
+
+    arrays = synthetic_processed_catalog(ANALYSIS_Q, ANALYSIS_S, ANALYSIS_SEED)
+    stats = catalog_statistics(ProcessedCatalog(**arrays, max_k=2), tables)
+    print(f"analysis: Q={ANALYSIS_Q} S={ANALYSIS_S} seed={ANALYSIS_SEED}, "
+          f"{len(stats)} arrays, dN/dX {np.round(stats['line_density.dNdX'], 4)}")
+    np.savez_compressed(
+        OUT_ANALYSIS,
+        num_spec=np.int64(ANALYSIS_Q),
+        num_samples=np.int64(ANALYSIS_S),
+        seed=np.int64(ANALYSIS_SEED),
+        likelihood_checksum=np.nansum(arrays["sample_log_likelihoods"]),
+        **stats,
+    )
+    print(f"wrote {OUT_ANALYSIS} ({OUT_ANALYSIS.stat().st_size} bytes)")
+
+
 def main(argv: list[str]) -> None:
     writers = {"dla": write_dla, "lls": write_lls, "civ": write_civ, "i16": write_i16,
-               "zqso": write_zqso, "train": write_train}
+               "zqso": write_zqso, "train": write_train, "analysis": write_analysis}
     which = argv or list(writers)
     unknown = set(which) - set(writers)
     if unknown:

@@ -177,6 +177,11 @@ TORCH_SCRIPTS = ("train_fullscale_torch.py", "train_throughput_torch.py",
 SURVEY_MODULES = ("native/__init__.py", "data/preload.py", "parallel/distributed.py",
                   "analysis/__init__.py", "analysis/catalog_tools.py", "analysis/comparison.py",
                   "models/linesearch.py")
+# the catalog's science stage, ported from the JAX package's modules of the
+# same names: the numpy copies (same code) and the ports
+SCIENCE_COPIES = ("analysis/cddf.py", "analysis/external.py", "analysis/tables.py",
+                  "analysis/paper_plots.py", "data/download.py", "run_analysis.py")
+SCIENCE_MODULES = SCIENCE_COPIES + ("analysis/paper_plots_multi.py", "plotting.py")
 
 
 def _imports_of(path: Path):
@@ -192,7 +197,7 @@ def _imports_of(path: Path):
 def test_port_names_no_module_of_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
         ROOT / "scripts" / name for name in TORCH_SCRIPTS + ("kernel_ablate_torch.py",)]
-    assert {PORT / name for name in SURVEY_MODULES} <= set(files)
+    assert {PORT / name for name in SURVEY_MODULES + SCIENCE_MODULES} <= set(files)
     offenders = [
         (str(f.relative_to(ROOT)), name)
         for f in files
@@ -709,7 +714,8 @@ def test_survey_plumbing_copies():
     jax_pkg = ROOT / "gpy_dla_detection_tpu"
     assert (PORT / "native" / "voigt_native.cc").read_bytes() == \
         (jax_pkg / "native" / "voigt_native.cc").read_bytes()
-    for name in ("data/preload.py", "analysis/catalog_tools.py", "analysis/comparison.py"):
+    for name in ("data/preload.py", "analysis/catalog_tools.py", "analysis/comparison.py",
+                 *SCIENCE_COPIES):
         bodies = [[ast.dump(node) for node in ast.parse((pkg / name).read_text()).body[1:]]
                   for pkg in (jax_pkg, PORT)]
         assert bodies[0] == bodies[1], name
@@ -783,6 +789,53 @@ _, values = TT.fit_lbfgs_stepwise(p0, None, None, None, None, None, Parameters(k
 assert values[-1] < 1e-6 * values[0], values
 loaded = [m for m, v in sys.modules.items() if v is not None and (
     m.split(".")[0] in ("jax", "gpy_dla_detection_tpu"))]
+assert loaded == [], loaded
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "ok"
+
+
+def test_science_stage_runs_without_jax(tmp_path):
+    """With ``jax`` and the JAX package blocked, the port computes the
+    statistics of a processed catalog at two DLA levels (the four
+    statistics, the MAP from the samples, the bootstrap errors), writes its
+    three LaTeX tables, and computes the figure curves (the MAP-absorbed
+    mean, posterior draws, the mean-flux-suppressed mean) on the CPU in
+    float32; neither package is imported, and no matplotlib either."""
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["gpy_dla_detection_tpu"] = None
+sys.path.insert(0, {str(ROOT)!r})
+import numpy as np, torch
+torch.set_num_threads(2)
+from gpy_dla_detection_tpu_torch import plotting
+from gpy_dla_detection_tpu_torch.analysis import tables
+from gpy_dla_detection_tpu_torch.analysis.cddf import ProcessedCatalog
+from gpy_dla_detection_tpu_torch.data.synthetic import (
+    catalog_statistics, synthetic_learned_model, synthetic_processed_catalog, synthetic_spectrum)
+from gpy_dla_detection_tpu_torch.data.spectrum import to_torch
+from gpy_dla_detection_tpu_torch.models.learned import LearnedModel, build_spectrum_model
+from gpy_dla_detection_tpu_torch.params import Parameters
+stats = catalog_statistics(ProcessedCatalog(**synthetic_processed_catalog(24, 300, 1),
+                                            max_k=2), tables)
+assert np.isfinite(stats["line_density.dNdX"][:3]).all() and "tabular" in str(stats["tables.omega"])
+params = Parameters(num_dla_samples=16)
+arrays = synthetic_learned_model(params)
+learned = LearnedModel.from_numpy(arrays, "cpu", torch.float32)
+model = build_spectrum_model(learned, to_torch(synthetic_spectrum(params, arrays, 3.0, seed=1),
+                                               "cpu", torch.float32), params)
+mean = plotting.absorbed_mean(model, params, np.array([2.7]), np.array([21.0]))
+draws = plotting.sample_prediction_curves(np.full((4, 2, 2), [2.7, 21.0]), model, params, 3)
+rest, mu = plotting.mean_flux_curve(learned, 3.0)
+assert mean.dtype == draws.dtype == mu.dtype == torch.float32 and draws.shape[0] == 3
+assert bool(torch.isfinite(mean).all()) and float(mean.min()) < 0.1 * float(model.mu.max())
+loaded = [m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] in ("jax", "gpy_dla_detection_tpu", "matplotlib"))]
 assert loaded == [], loaded
 print("ok")
 """
