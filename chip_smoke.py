@@ -213,6 +213,24 @@ Phases, one line each; any failure exits non-zero before the result:
      (within 1.5x the CPU float32's own error); (d) (a)'s catalog tiled to
      Q = 4,096 (S = 10,000): the host's seconds for each statistic and for
      get_sample_errors(nsample=5), and the rise of its resident set (printed, no gate)
+ 23. the heads' in-flight window and the JAX package's last entry points:
+     (a) lls_inference_many on 24 LLS spectra at batch 8 (the LLS search's
+     width, max_lya = 4) with max_in_flight 2 against 0, civ_inference_many
+     on 48 CIV spectra at batch 16 with 4 against 0: the same bits, the
+     launches exact (K1 one a spectrum and K2 + K3 max_lya; K5, K2 and K3
+     one a spectrum), then the window once more with every dispatch under
+     sync debug mode "error", the walls of both windows; (b)
+     scripts/accuracy_gates_torch.py's three gates at the JAX script's
+     sizes (zQSO 300 at Z = 10,000, LLS and CIV 200 at S = 10,000, float32)
+     passing the reference's thresholds, printed beside ACCURACY.json's TPU
+     figures; (c) the four examples with --no-plots: the zQSO demo's three
+     MAPs within 0.5, the LLS walkthrough's prior normalised within 1e-6
+     and its absorber found, the CIV demo's P(CIV|D) > 0.5, the demo's
+     training loss falling, its detections right and its chain's median z
+     within 0.01 of the injected one, each example's launches; (d) the
+     throughput twins at reduced counts (heads --count 32, MCMC_REPS=1
+     with 1,000-step chains, survey --runs 2 --spectra 96 --batch-size
+     8), their lines beside the card's name and power limit
 Every other phase asserts that the Weideman window is never launched, and
 every phase before 14 that no int16 instantiation is.
 Then a JSON line of the kernels, the card line, and the result line.
@@ -238,9 +256,21 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # the card's machine has no JAX, and the port stands alone: fail loudly if
-# either is reached
-sys.modules["jax"] = None
-sys.modules["gpy_dla_detection_tpu"] = None
+# either is reached.  An import hook, not None in sys.modules: scipy's
+# array-API helpers look a module named "jax" up there and fail on None.
+BLOCKED = ("jax", "gpy_dla_detection_tpu")
+
+
+class _Blocked:
+    """Refuses to find JAX and the JAX package (and their submodules)."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked: the port stands alone")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -300,6 +330,17 @@ WORKER_FLAG = "--survey-shard"  # the mode phase 21's processes run this file in
 NUM_CURVES = 8  # spectra whose figure curves run on the card (phase 22)
 CURVE_DRAWS = 16  # posterior draws of phase 9's DLA chain a spectrum
 SURVEY_Q = 4096  # the tiled catalog whose host statistics are timed (phase 22)
+NUM_LLS_WINDOW, LLS_WINDOW_BATCH = 24, 8  # the LLS head's in-flight window (phase 23)
+NUM_CIV_WINDOW, CIV_WINDOW_BATCH = 48, 16  # the CIV head's
+GATE_N = {"zqso": 300, "lls": 200, "civ": 200}  # the accuracy gates' spectra (the JAX script's)
+GATE_SAMPLES = 10_000
+ACCURACY_JAX = ROOT / "ACCURACY.json"  # the JAX script's TPU record, printed beside
+HEADS_COUNT = 32  # scripts/heads_throughput_torch.py --count
+MCMC_TWIN_STEPS = 1000  # scripts/mcmc_throughput_torch.py's chains, MCMC_REPS=1
+# scripts/survey_throughput_torch.py: runs, spectra, batch size (12 batches,
+# so that the batches after the skipped two span a time: at 3 batches the
+# in-flight window drains the last ones together)
+SURVEY_RUNS, SURVEY_SPECTRA, SURVEY_TWIN_BATCH = 2, 96, 8
 # the science stage against the JAX package's float64 statistics
 # (tests/test_torch_cddf.py)
 GOLDEN_ANALYSIS_RTOL = 1e-10
@@ -429,38 +470,6 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
-
-
-def write_speclite(path: Path, wavelengths, flux, noise_variance, pixel_mask) -> str:
-    """An SDSS speclite FITS file: an empty primary HDU and one COADD
-    binary table of flux, loglam, ivar and and_mask (BRIGHTSKY, bit 24,
-    where ``pixel_mask``), big-endian, in 2,880-byte blocks."""
-    def card(key, value):
-        if isinstance(value, str):
-            return f"{key:<8}= '{value:<8}'".ljust(80)
-        text = ("T" if value else "F") if isinstance(value, bool) else str(value)
-        return f"{key:<8}= {text:>20}".ljust(80)
-
-    def block(cards):
-        text = "".join(cards) + "END".ljust(80)
-        return (text + " " * (-len(text) % 2880)).encode("ascii")
-
-    rec = np.zeros(len(flux), dtype=[("flux", ">f4"), ("loglam", ">f4"), ("ivar", ">f4"),
-                                     ("and_mask", ">i4")])
-    rec["flux"], rec["loglam"] = flux, np.log10(wavelengths)
-    rec["ivar"], rec["and_mask"] = 1.0 / noise_variance, np.where(pixel_mask, 1 << 24, 0)
-    columns = [card(f"{k}{i}", v) for i, (name, form) in enumerate(
-        (("flux", "E"), ("loglam", "E"), ("ivar", "E"), ("and_mask", "J")), 1)
-        for k, v in (("TTYPE", name), ("TFORM", form))]
-    data = rec.tobytes()
-    with open(path, "wb") as f:
-        f.write(block([card("SIMPLE", True), card("BITPIX", 8), card("NAXIS", 0)]))
-        f.write(block([card("XTENSION", "BINTABLE"), card("BITPIX", 8), card("NAXIS", 2),
-                       card("NAXIS1", rec.dtype.itemsize), card("NAXIS2", len(rec)),
-                       card("PCOUNT", 0), card("GCOUNT", 1), card("TFIELDS", 4), *columns,
-                       card("EXTNAME", "COADD")]))
-        f.write(data + b"\x00" * (-len(data) % 2880))
-    return str(path)
 
 
 def same_bits(got: dict, want: dict, names) -> list[str]:
@@ -666,6 +675,7 @@ def main() -> None:
         synthetic_learned_model,
         synthetic_prior_catalog,
         synthetic_spectrum,
+        write_speclite,
     )
     from gpy_dla_detection_tpu_torch.models.absorber_mcmc import run_civ_mcmc, run_dla_mcmc
     from gpy_dla_detection_tpu_torch.models.civ import (
@@ -729,14 +739,12 @@ def main() -> None:
     from gpy_dla_detection_tpu_torch.models.pipeline import spectrum_result
     from gpy_dla_detection_tpu_torch.params import CIVParameters, Parameters
     from gpy_dla_detection_tpu_torch.parallel.batch import process_batch
+    from gpy_dla_detection_tpu_torch.utils.timing import card_line
 
     device = torch.device("cuda", 0)
 
     # 1. environment
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line(device)
     nvcc = subprocess.run(
         [_build._nvcc(), "--version"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[-1]
@@ -3350,6 +3358,252 @@ def main() -> None:
           f"{time.perf_counter() - t22:.1f} s")
     check("matplotlib" not in sys.modules and "h5py" not in sys.modules,
           "the science stage imported matplotlib or h5py")
+
+    # 23. the heads' in-flight window, the accuracy gates, the examples and
+    # the throughput twins
+    t23 = time.perf_counter()
+    from gpy_dla_detection_tpu_torch.models import civ as civ_module
+    from gpy_dla_detection_tpu_torch.models import lls as lls_module
+    from gpy_dla_detection_tpu_torch.utils import pipeline
+
+    # (a) the LLS and CIV heads at their reference windows against 0: the
+    # same bits; then the window once more with every dispatch under CUDA's
+    # sync debug mode set to error (the readback waits are outside it)
+    win_lls_z = [3.0 + 0.2 * (i % 2) + 0.05 * (i // 2) for i in range(NUM_LLS_WINDOW)]
+    win_lls = [
+        synthetic_spectrum(lls_params, lls_arrays, z, seed=300 + i, with_lls_break=True,
+                           dlas=[(z - 0.2, LLS_LOG_NHI)] if i % 2 else None)
+        for i, z in enumerate(win_lls_z)
+    ]
+    win_civ = [
+        synthetic_civ_spectrum(civ_params, civ_arrays, float(z), seed=400 + i,
+                               civ=(float(z) - 0.1, 14.4, 2.5e6) if i % 2 else None)
+        for i, z in enumerate(np.linspace(2.0, 2.3, NUM_CIV_WINDOW))
+    ]
+
+    def lls_window(window):
+        return lls_inference_many(lls_learned, win_lls, lya_samples,
+                                  torch.Generator(device=device).manual_seed(23), MAX_LYA,
+                                  lls_params, batch_size=LLS_WINDOW_BATCH, max_in_flight=window)
+
+    def civ_window(window):
+        return civ_inference_many(civ_learned, win_civ, civ_samples, civ_params,
+                                  batch_size=CIV_WINDOW_BATCH, max_in_flight=window)
+
+    def strict_dispatch(items, batch_size, max_in_flight, dispatch_fn, finalize_fn, aux=None):
+        """pipelined_batches with each dispatch under sync debug mode
+        "error": a synchronising call in it raises."""
+        def dispatch(chunk, chunk_aux):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return dispatch_fn(chunk, chunk_aux)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        return pipeline.pipelined_batches(items, batch_size, max_in_flight, dispatch,
+                                          finalize_fn, aux)
+
+    lls_bits = lambda out: [(n, *[a.tobytes() for a in r]) for n, r in out]
+    window_walls, window_launches, window_outs = {}, {}, {}
+    for head, run, window, need, bits in (
+            ("lls", lls_window, 2,
+             {"absorption_all": NUM_LLS_WINDOW, "logmvn_cap": MAX_LYA * NUM_LLS_WINDOW,
+              "logmvn_chain": MAX_LYA * NUM_LLS_WINDOW}, lls_bits),
+            ("civ", civ_window, 4,
+             {"absorption_tail": NUM_CIV_WINDOW, "logmvn_cap": NUM_CIV_WINDOW,
+              "logmvn_chain": NUM_CIV_WINDOW}, lambda out: np.array(out).tobytes())):
+        outs = {}
+        for w in (0, window):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[w], launches = count_launches(lambda: run(w))
+            window_walls[f"{head} window {w}"] = time.perf_counter() - t0
+            path_launches[f"{head}_window_{w}"] = launches
+            check(launches == need, f"{head} at max_in_flight {w}: launches {launches} != {need}")
+        check(bits(outs[window]) == bits(outs[0]),
+              f"{head}: max_in_flight {window} differs from 0")
+        module = lls_module if head == "lls" else civ_module
+        module.pipelined_batches = strict_dispatch
+        try:
+            strict, launches = count_launches(lambda: run(window))
+        except RuntimeError as e:
+            fail(f"{head}: a dispatch synchronises under sync debug mode: {e}")
+        finally:
+            module.pipelined_batches = pipeline.pipelined_batches
+        path_launches[f"{head}_window_strict"] = launches
+        check(bits(strict) == bits(outs[0]), f"{head}: the strict run differs")
+        window_launches[head], window_outs[head] = launches, outs[0]
+    # the injected absorbers (odd spectra) found, the clean spectra not
+    win_p = {
+        "lls": [1.0 - float(lls_model_posteriors(n, r.log_evidences)[0])
+                for n, r in window_outs["lls"]],
+        "civ": [p for p, _, _ in window_outs["civ"]],
+    }
+    for head, ps in win_p.items():
+        check(all((p > 0.5) == bool(i % 2) for i, p in enumerate(ps)),
+              f"{head} window: detections {np.round(ps, 3).tolist()}")
+    print(f"[23 heads window] {card} | (a) LLS {NUM_LLS_WINDOW} spectra at batch "
+          f"{LLS_WINDOW_BATCH} (S={lls_params.num_dla_samples} N={lls_params.num_pixels_padded} "
+          f"max_lya={MAX_LYA}), CIV {NUM_CIV_WINDOW} at batch {CIV_WINDOW_BATCH} "
+          f"(S={civ_params.num_civ_samples}): max_in_flight 2 and 4 bit for bit their 0; "
+          f"walls " + ", ".join(f"{k} {v:.3f} s" for k, v in window_walls.items())
+          + f"; launches {window_launches} a run; every dispatch free of synchronising calls "
+          f"(sync debug mode error) | injected found, clean not: LLS P(k>=1) clean max "
+          f"{max(win_p['lls'][0::2]):.3e}, injected min {min(win_p['lls'][1::2]):.6f}; p_civ "
+          f"clean max {max(win_p['civ'][0::2]):.3e}, injected min {min(win_p['civ'][1::2]):.6f}")
+
+    # (b) the accuracy gates at the JAX script's sizes, float32 on the card
+    gates = load_script(ROOT / "scripts" / "accuracy_gates_torch.py", "accuracy_gates_torch")
+    report, gate_s = {}, {}
+    gate_need = {
+        "zqso": {"logmvn_chain": GATE_N["zqso"]},
+        "lls": {"absorption_all": GATE_N["lls"], "logmvn_cap": 2 * GATE_N["lls"],
+                "logmvn_chain": 2 * GATE_N["lls"]},
+        "civ": {"absorption_tail": GATE_N["civ"], "logmvn_cap": GATE_N["civ"],
+                "logmvn_chain": GATE_N["civ"]},
+    }
+    for name in ("zqso", "lls", "civ"):
+        gate = getattr(gates, f"{name}_gate")
+        t0 = time.perf_counter()
+        report[name], launches = count_launches(
+            lambda: gate(GATE_N[name], device, torch.float32, GATE_SAMPLES))
+        gate_s[name] = time.perf_counter() - t0
+        path_launches[f"gate_{name}"] = launches
+        check(launches == gate_need[name],
+              f"{name} gate: launches {launches} != {gate_need[name]}")
+    tpu = json.loads(ACCURACY_JAX.read_text())
+    check(gates.gates_pass(report),
+          "accuracy gates failed: " + json.dumps({k: {m: v for m, v in r.items()
+                                                     if "recall" in m or "rate" in m or "P(" in m}
+                                                 for k, r in report.items()}))
+    print(f"[23 accuracy gates] {card} | float32, S=Z={GATE_SAMPLES}, "
+          + " | ".join(
+              f"{k} n={GATE_N[k]} in {gate_s[k]:.1f} s (script's seconds {report[k]['seconds']}), "
+              f"launches {path_launches['gate_' + k]}: "
+              + ", ".join(f"{m} {report[k][m]!r} (TPU {tpu[k][m]!r})" for m in report[k]
+                          if m not in ("n", "seconds", "reference_gate", "completeness_curve",
+                                       "num_zqso_samples", "num_samples", "num_civ_samples",
+                                       "injected_lognhi_range", "injected_logn_range"))
+              + (f", completeness {report[k]['completeness_curve']} (TPU "
+                 f"{tpu[k]['completeness_curve']})"
+                 if "completeness_curve" in report[k] else "")
+              for k in ("zqso", "lls", "civ"))
+          + " | GATES: PASS")
+
+    # (c) the four examples, --no-plots (no matplotlib here): their results
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
+        work = Path(work)
+        ex_out, ex_launches = {}, {}
+        for name, argv in (
+                ("zqso_demo_torch", [str(work / "zqso")]),
+                ("lls_walkthrough_torch", [str(work / "lls")]),
+                ("civ_mcmc_demo_torch", [str(work / "civ")]),
+                ("demo_synthetic_torch", ["--out-dir", str(work / "demo")])):
+            example = load_script(ROOT / "examples" / f"{name}.py", name)
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                out, launches = count_launches(
+                    lambda: example.main([*argv, "--device", "cuda", "--no-plots"]))
+            ex_out[name] = (out, printed.getvalue(), time.perf_counter() - t0)
+            path_launches[name] = ex_launches[name] = launches
+        written = [str(p.relative_to(work)) for p in work.rglob("*") if p.is_file()]
+        check(not written, f"the examples wrote {written} under --no-plots")
+    z_maps, zq_text, _ = ex_out["zqso_demo_torch"]
+    check(len(z_maps) == 3 and all(abs(z - t) < 0.5 for z, t in zip(z_maps, (2.5, 3.1, 4.0)))
+          and zq_text.count("-> z_map =") == 3, f"zqso demo: z_map {z_maps}")
+    check(ex_launches["zqso_demo_torch"] == {"logmvn_chain": 3},
+          f"zqso demo: launches {ex_launches['zqso_demo_torch']}")
+    lw, lw_text, _ = ex_out["lls_walkthrough_torch"]
+    check(abs(lw["norm"] - 1.0) < 1e-6 and lw["p_lls"] > 0.99 and abs(lw["map_z"] - 3.15) < 0.02
+          and "P(at least one strong absorber | D)" in lw_text,
+          f"lls walkthrough: norm {lw['norm']!r}, p_lls {lw['p_lls']}, MAP z {lw['map_z']}")
+    check(ex_launches["lls_walkthrough_torch"] == {"absorption_all": 1, "logmvn_cap": 4,
+                                                   "logmvn_chain": 4, "absorption_tail": 1},
+          f"lls walkthrough: launches {ex_launches['lls_walkthrough_torch']}")
+    cd, cd_text, _ = ex_out["civ_mcmc_demo_torch"]
+    civ_steps = cd["chain"].shape[0]
+    check(cd["p_civ"] > 0.5 and "P(CIV | D)" in cd_text, f"civ demo: P(CIV|D) {cd['p_civ']}")
+    check(ex_launches["civ_mcmc_demo_torch"] == {"absorption_tail": 1 + 2 * civ_steps + 1,
+                                                 "logmvn_cap": 1, "logmvn_chain": 1},
+          f"civ demo: launches {ex_launches['civ_mcmc_demo_torch']}")
+    demo, demo_text, _ = ex_out["demo_synthetic_torch"]
+    demo_steps = demo["chain"].shape[0]
+    demo_p = [r.p_dla for r in demo["results"]]
+    demo_z_true = demo["injected"][1][0][0]
+    demo_med_z = float(np.median(demo["chain"][-(3 * demo_steps // 8):, :, 0]))
+    n_demo = len(demo_p)
+    check(demo["losses"][-1] < demo["losses"][0]
+          and all((p > 0.5) == (inj is not None) for p, inj in zip(demo_p, demo["injected"]))
+          and abs(demo_med_z - demo_z_true) < 0.01,
+          f"demo: loss {demo['losses'][0]:.1f} -> {demo['losses'][-1]:.1f}, p_dla "
+          f"{np.round(demo_p, 3).tolist()}, MCMC median z {demo_med_z:.4f} vs {demo_z_true:.4f}")
+    dl = ex_launches["demo_synthetic_torch"]
+    check(dl.get("absorption_all") == n_demo and dl.get("logmvn_cap") == 5 * n_demo
+          and dl.get("logmvn_chain", 0) > 5 * n_demo and dl.get("logmvn_chain_grad", 0) > 0
+          and dl.get("absorption_tail") == 2 * demo_steps + 1 + 1,
+          f"demo: launches {dl}")
+    print(f"[23 examples] {card} | --no-plots, float32, nothing drawn or written | zqso_demo: "
+          f"z_map {[round(z, 4) for z in z_maps]} for 2.5, 3.1, 4.0 | lls_walkthrough: prior "
+          f"norm {lw['norm']!r}, P(LLS|D) {lw['p_lls']:.6f}, MAP z {lw['map_z']:.4f} logNHI "
+          f"{lw['map_log_nhi']:.2f} (truth 3.15, 19.6) | civ_mcmc_demo: P(CIV|D) "
+          f"{cd['p_civ']:.6f}, acceptance {cd['acceptance']:.2f} | demo_synthetic: loss "
+          f"{demo['losses'][0]:.1f} -> {demo['losses'][-1]:.1f} in {len(demo['losses'])} values, "
+          f"p_dla {np.round(demo_p, 3).tolist()}, MCMC median z {demo_med_z:.4f} (injected "
+          f"{demo_z_true:.4f}) | seconds "
+          + ", ".join(f"{k} {v[2]:.1f}" for k, v in ex_out.items())
+          + f" | launches {ex_launches}")
+
+    # (d) the throughput twins at reduced counts, in this process but the
+    # survey's runs (a fresh process each)
+    twin_lines = {}
+    heads = load_script(ROOT / "scripts" / "heads_throughput_torch.py", "heads_throughput_torch")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        head_rates, launches = count_launches(
+            lambda: heads.main(["--count", str(HEADS_COUNT)]))
+    path_launches["heads_twin"] = launches
+    twin_lines["heads"] = printed.getvalue().strip().splitlines()
+    check(set(head_rates) == {"lls", "civ", "zqso"} and all(r > 0 for r in head_rates.values())
+          and set(launches) == {"absorption_all", "absorption_tail", "logmvn_cap", "logmvn_chain"},
+          f"heads twin: {head_rates}, launches {launches}")
+    saved = {k: os.environ.get(k) for k in ("MCMC_REPS", "MCMC_STEPS")}
+    os.environ.update(MCMC_REPS="1", MCMC_STEPS=str(MCMC_TWIN_STEPS))
+    try:
+        mcmc_twin = load_script(ROOT / "scripts" / "mcmc_throughput_torch.py",
+                                "mcmc_throughput_torch")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        mcmc_rates, launches = count_launches(lambda: mcmc_twin.main([]))
+    path_launches["mcmc_twin"] = launches
+    twin_lines["mcmc"] = printed.getvalue().strip().splitlines()
+    check(launches == {"absorption_tail": 2 * (2 * (mcmc_twin.WARM_STEPS + MCMC_TWIN_STEPS) + 2)},
+          f"mcmc twin: launches {launches}")
+    survey = load_script(ROOT / "scripts" / "survey_throughput_torch.py",
+                         "survey_throughput_torch")
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed), contextlib.redirect_stderr(printed):
+            survey_line = survey.main(["--runs", str(SURVEY_RUNS), "--spectra",
+                                       str(SURVEY_SPECTRA), "--batch-size",
+                                       str(SURVEY_TWIN_BATCH), "--out", work])
+    twin_lines["survey"] = printed.getvalue().strip().splitlines()
+    check(len(survey_line["runs"]) == SURVEY_RUNS and survey_line["p50"] > 0,
+          f"survey twin: {survey_line}")
+    print(f"[23 throughput twins] {card} | heads --count {HEADS_COUNT}: "
+          + " / ".join(twin_lines["heads"]) + f" | mcmc MCMC_REPS=1 MCMC_STEPS="
+          f"{MCMC_TWIN_STEPS}: " + " / ".join(twin_lines["mcmc"]) + f" | survey --runs "
+          f"{SURVEY_RUNS} --spectra {SURVEY_SPECTRA} --batch-size {SURVEY_TWIN_BATCH}: "
+          + " / ".join(twin_lines["survey"])
+          + f" | {time.perf_counter() - t23:.1f} s")
+
+
 
     # phase 15's numbers beside each K5 and K6 row of the kernels line
     tail_extra = {n: {"device_ms_profiler": tail_dev[n], "bound_share": tail_share[n][0],

@@ -118,6 +118,30 @@ def resolve_device(
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def device_and_dtype(
+    parser: argparse.ArgumentParser, device: str
+) -> tuple[torch.device, torch.dtype]:
+    """The device of an example or an accuracy gate (or a
+    ``parser.error``, as :func:`resolve_device`) and its dtype: float32 on
+    the card, where the kernels run, float64 on the CPU, the JAX package's
+    conformance dtype."""
+    placed = resolve_device(parser, device, torch.float32, KernelOptions())
+    return placed, torch.float32 if placed.type == "cuda" else torch.float64
+
+
+def require_matplotlib(parser: argparse.ArgumentParser, what: str, remedy: str) -> None:
+    """``parser.error`` where matplotlib does not import: a run that would
+    draw stops at its argument parsing, before any work, and never skips
+    its drawing silently."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        parser.error(
+            f"{what} draws with matplotlib, which does not import here ({e}); "
+            f"install it or {remedy}"
+        )
+
+
 def device_count(device: torch.device) -> int:
     """Devices of the run, for the metrics sidecar: the visible cards on
     CUDA, 1 on the CPU."""

@@ -7,7 +7,8 @@ reference's ``LearnedModel``, which
 ``models.learned.LearnedModel.from_numpy`` moves to a device; the zQSO GP
 as the port's ``models.zqso.ZLearnedModel`` with numpy fields, which its
 ``to`` moves.  For the same seed every array is bit-identical to the
-reference's.
+reference's.  ``write_speclite`` writes an observation as the SDSS
+speclite FITS file the CLIs read.
 """
 
 from __future__ import annotations
@@ -524,3 +525,39 @@ def synthetic_z_observation(
     flux += noise * rng.normal(size=wl.shape)
     pm = np.zeros(wl.shape, bool)
     return learned, (wl, flux, nv, pm)
+
+
+def write_speclite(path, wavelengths, flux, noise_variance, pixel_mask) -> str:
+    """Write an observation as an SDSS speclite FITS file, the subset
+    ``data.fits.read_spec`` reads: an empty primary HDU and one COADD
+    binary table of flux, loglam, ivar and and_mask (BRIGHTSKY, bit 24,
+    where ``pixel_mask``), big-endian, in 2,880-byte blocks.
+
+    :return: ``path`` as a string.
+    """
+    def card(key, value):
+        if isinstance(value, str):
+            return f"{key:<8}= '{value:<8}'".ljust(80)
+        text = ("T" if value else "F") if isinstance(value, bool) else str(value)
+        return f"{key:<8}= {text:>20}".ljust(80)
+
+    def block(cards):
+        text = "".join(cards) + "END".ljust(80)
+        return (text + " " * (-len(text) % 2880)).encode("ascii")
+
+    rec = np.zeros(len(flux), dtype=[("flux", ">f4"), ("loglam", ">f4"), ("ivar", ">f4"),
+                                     ("and_mask", ">i4")])
+    rec["flux"], rec["loglam"] = flux, np.log10(wavelengths)
+    rec["ivar"], rec["and_mask"] = 1.0 / noise_variance, np.where(pixel_mask, 1 << 24, 0)
+    columns = [card(f"{k}{i}", v) for i, (name, form) in enumerate(
+        (("flux", "E"), ("loglam", "E"), ("ivar", "E"), ("and_mask", "J")), 1)
+        for k, v in (("TTYPE", name), ("TFORM", form))]
+    data = rec.tobytes()
+    with open(path, "wb") as f:
+        f.write(block([card("SIMPLE", True), card("BITPIX", 8), card("NAXIS", 0)]))
+        f.write(block([card("XTENSION", "BINTABLE"), card("BITPIX", 8), card("NAXIS", 2),
+                       card("NAXIS1", rec.dtype.itemsize), card("NAXIS2", len(rec)),
+                       card("PCOUNT", 0), card("GCOUNT", 1), card("TFIELDS", 4), *columns,
+                       card("EXTNAME", "COADD")]))
+        f.write(data + b"\x00" * (-len(data) % 2880))
+    return str(path)

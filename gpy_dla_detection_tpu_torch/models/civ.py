@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import math
 from collections.abc import Iterable
-from itertools import islice
 from typing import NamedTuple
 
 import numpy as np
@@ -28,6 +27,7 @@ from ..data.spectrum import Spectrum, stack, to_torch
 from ..ops.logmvn import batched_log_mvnpdf, likelihood_pair_basis, log_mvnpdf_low_rank
 from ..ops.voigt import voigt_absorption_civ
 from ..params import CIVParameters
+from ..utils.pipeline import pipelined_batches
 from .learned import LearnedModel, SpectrumModel, build_spectrum_model
 
 
@@ -143,21 +143,26 @@ def civ_inference_many(
     p_civ_prior: float = 0.5,
     batch_size: int = 16,
     use_kernels: bool | None = None,
+    max_in_flight: int = 4,
 ) -> list[tuple[float, float, float]]:
     """CIV detection over many spectra.  Each batch of ``batch_size``
     spectra is stacked, moved to the device and modelled in one pass; the
-    QMC evidence then runs per spectrum on the device, and the batch is
-    read back once.
+    QMC evidence then runs per spectrum on the device, and the copies of
+    the batch's evidences to the host are queued behind it.  Up to
+    ``max_in_flight`` batches are dispatched ahead of the readback
+    (``utils.pipeline.pipelined_batches``); the results do not depend on
+    it.
 
     :param specs: any iterable of preprocessed spectra.
     :param use_kernels: as for :func:`civ_qmc_log_evidence`.
+    :param max_in_flight: batches dispatched ahead of the readback (0:
+        each batch is read back before the next is dispatched).
     :return: per spectrum (p_civ, log_evidence_null, log_evidence_civ).
     """
     device, dtype = learned.mu.device, learned.mu.dtype
     sample_t = CIVSamples(*[torch.as_tensor(x, dtype=dtype, device=device) for x in samples])
-    it = iter(specs)
-    out = []
-    while batch := list(islice(it, batch_size)):
+
+    def dispatch(batch, _):
         models = civ_spectrum_model(learned, stack(batch), params)
         null = civ_null_log_evidence(models)
         civ = torch.stack([
@@ -165,9 +170,12 @@ def civ_inference_many(
                                  use_kernels)[0]
             for i in range(len(batch))
         ])
-        null_np, civ_np = torch.stack([null, civ]).detach().cpu().numpy()
-        out += [
-            (civ_model_posterior(n, c, p_civ_prior), float(n), float(c))
-            for n, c in zip(null_np, civ_np)
+        return torch.stack([null, civ])
+
+    def finalize(n, out):
+        return [
+            (civ_model_posterior(null, civ, p_civ_prior), float(null), float(civ))
+            for null, civ in zip(*out)
         ]
-    return out
+
+    return pipelined_batches(specs, batch_size, max_in_flight, dispatch, finalize)

@@ -22,7 +22,6 @@ are the port's own copies of the reference's, under the same names.
 from __future__ import annotations
 
 from collections.abc import Iterable
-from itertools import islice
 from typing import NamedTuple
 
 import numpy as np
@@ -37,6 +36,7 @@ from ..data.samples import (
 )
 from ..data.spectrum import Spectrum, stack, to_torch
 from ..params import Parameters
+from ..utils.pipeline import pipelined_batches
 from .evidence import QMCEvidenceResult, null_log_evidence, qmc_log_evidences
 from .learned import FIELDS, LearnedModel, SpectrumModel, build_spectrum_model
 from .pipeline import sample_tensors
@@ -270,13 +270,17 @@ def lls_inference_many(
     window_tier: bool = True,
     use_kernels: bool | None = None,
     resampler: str = "multinomial",
+    max_in_flight: int = 2,
 ) -> list[tuple[float, QMCEvidenceResult]]:
     """The LLS search over many spectra.  Each batch of ``batch_size``
     spectra is stacked, moved to the device and modelled in one pass; the
-    QMC levels then run per spectrum on the device, and the batch is read
-    back once.  ``generator`` is consumed in stream order, so the results
-    equal :func:`lls_log_evidences` called on the same spectra in turn
-    with the same generator.
+    QMC levels then run per spectrum on the device, and the copies of the
+    batch's results to the host are queued behind them.  Up to
+    ``max_in_flight`` batches are dispatched ahead of the readback
+    (``utils.pipeline.pipelined_batches``).  ``generator`` is consumed in
+    stream order, so the results equal :func:`lls_log_evidences` called on
+    the same spectra in turn with the same generator, whatever
+    ``max_in_flight`` is.
 
     :param specs: any iterable of preprocessed spectra.
     :param voigt_impl: as for :func:`lls_log_evidences`.
@@ -284,6 +288,8 @@ def lls_inference_many(
         resampling indices replacing the draws, in the order of ``specs``.
     :param abs_dtype, window_tier, use_kernels, resampler: as for
         :func:`lls_log_evidences`.
+    :param max_in_flight: batches dispatched ahead of the readback (0:
+        each batch is read back before the next is dispatched).
     :return: per spectrum (null evidence, QMC result as numpy arrays).
     """
     device, dtype = learned.mu.device, learned.mu.dtype
@@ -292,29 +298,27 @@ def lls_inference_many(
         base_inds_override = torch.as_tensor(
             np.asarray(base_inds_override, np.int64), device=device
         )
-    it = iter(specs)
-    out = []
-    while batch := list(islice(it, batch_size)):
+
+    def dispatch(batch, batch_inds):
         models = build_spectrum_model(learned, to_torch(stack(batch), device, dtype), params)
         null = null_log_evidence(models)
-        first = len(out)
         results = [
             qmc_log_evidences(
                 SpectrumModel(*[f[i] for f in models]), *sample_t, generator,
                 max_lya, params, voigt_impl=voigt_impl, profile="lls",
                 abs_dtype=abs_dtype, window_tier=window_tier, use_kernels=use_kernels,
                 resampler=resampler,
-                base_inds_override=(
-                    None if base_inds_override is None else base_inds_override[first + i]
-                ),
+                base_inds_override=None if batch_inds is None else batch_inds[i],
             )
             for i in range(len(batch))
         ]
-        host = lambda t: t.detach().cpu().numpy()
-        null_np = host(null)
-        stacked = [host(torch.stack(f)) for f in zip(*results)]
-        out += [
-            (float(null_np[i]), QMCEvidenceResult(*[f[i] for f in stacked]))
-            for i in range(len(batch))
+        return null, [torch.stack(f) for f in zip(*results)]
+
+    def finalize(n, out):
+        null, stacked = out
+        return [
+            (float(null[i]), QMCEvidenceResult(*[f[i] for f in stacked])) for i in range(n)
         ]
-    return out
+
+    return pipelined_batches(specs, batch_size, max_in_flight, dispatch, finalize,
+                             aux=base_inds_override)

@@ -4,7 +4,8 @@ Port of ``gpy_dla_detection_tpu/ops/faddeeva.py``: a Weideman (1994)
 rational approximation inside ``|z| <= RADIUS`` blended with a truncated
 continued fraction outside it, with dtype-tiered term counts (float64
 N=40 / K=14, float32 N=20 / K=5).  It serves the exact absorption
-profile and the windowed unit optical depth's window corrections; the
+profile, the windowed unit optical depth's window corrections and the
+normalized Voigt profile (``voigt_profile``); the
 default float32 catalog path uses the per-line polynomial of
 ``ops/voigt_kernels.py`` instead.
 """
@@ -110,3 +111,16 @@ def wofz_parts(x: torch.Tensor, y: torch.Tensor):
     w_re = torch.where(inner, wr_in, wr_out)
     w_im = torch.where(inner, wi_in, wi_out)
     return w_re, sign * w_im
+
+
+def voigt_profile(v: torch.Tensor, sigma, gamma) -> torch.Tensor:
+    """Normalized Voigt profile in velocity space,
+    ``Re[w((v + i gamma) / (sqrt(2) sigma))] / (sqrt(2 pi) sigma)``
+    (``gpy_dla_detection_tpu/ops/faddeeva.py:voigt_profile``); broadcasts
+    ``v``, ``sigma`` and ``gamma``, which may be tensors or numbers."""
+    v = torch.as_tensor(v)
+    sigma = torch.as_tensor(sigma, dtype=v.dtype, device=v.device)
+    gamma = torch.as_tensor(gamma, dtype=v.dtype, device=v.device)
+    inv = 1.0 / (np.sqrt(2.0) * sigma)
+    w_re, _ = wofz_parts(v * inv, gamma * inv)
+    return w_re * (inv / SQRT_PI)

@@ -54,6 +54,7 @@ from ..models.pipeline import (
     spectrum_result,
 )
 from ..params import Parameters
+from ..utils.pipeline import host_copy
 
 
 def _stack_results(results: list[QMCEvidenceResult]) -> QMCEvidenceResult:
@@ -204,25 +205,19 @@ def _start_readback(out: EvidenceOutputs, with_sample_lls: bool) -> BatchReadbac
     """Enqueue the copies of a batch's outputs to the host, behind the
     work already queued on the current stream, and return at once
     (the counterpart of the reference's ``copy_to_host_async``)."""
-    cuda = out.log_evidence_null.is_cuda
-
-    def copy(t):
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
-        return host.copy_(t.detach(), non_blocking=cuda)
-
-    sample = lambda t: copy(t) if with_sample_lls else None
+    sample = lambda t: host_copy(t) if with_sample_lls else None
     fields = (
-        copy(out.log_evidence_null),
-        copy(out.dla.log_evidences),
-        copy(out.subdla.log_evidences),
+        host_copy(out.log_evidence_null),
+        host_copy(out.dla.log_evidences),
+        host_copy(out.subdla.log_evidences),
         sample(out.dla.sample_log_likelihoods),
         sample(out.subdla.sample_log_likelihoods),
         sample(out.dla.base_sample_inds),
-        copy(out.dla.map_z_dlas),
-        copy(out.dla.map_log_nhis),
+        host_copy(out.dla.map_z_dlas),
+        host_copy(out.dla.map_log_nhis),
     )
     done = None
-    if cuda:
+    if out.log_evidence_null.is_cuda:
         done = torch.cuda.Event()
         done.record()
     return BatchReadback(*fields, done)

@@ -37,7 +37,13 @@ import numpy as np
 import torch
 
 from .catalog_io import results_to_arrays, write_catalog
-from .cli_config import add_device_argument, device_count, kernel_options, resolve_device
+from .cli_config import (
+    add_device_argument,
+    device_count,
+    kernel_options,
+    require_matplotlib,
+    resolve_device,
+)
 from .data import loaders
 from .data.catalog import PriorCatalog
 from .data.fits import spec_reader
@@ -163,13 +169,7 @@ def run(argv=None) -> CatalogRun:
             )
         # the figures are drawn after the whole survey: a missing
         # matplotlib must stop the run here, not lose the catalog there
-        try:
-            import matplotlib  # noqa: F401
-        except ImportError as e:
-            parser.error(
-                f"--plot-figures draws with matplotlib, which does not import "
-                f"here ({e}); install it or run without --plot-figures"
-            )
+        require_matplotlib(parser, "--plot-figures", "run without --plot-figures")
     dtype = torch.float32 if args.dtype == "float32" else torch.float64
     try:
         options = kernel_options(dtype)

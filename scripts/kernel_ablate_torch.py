@@ -42,8 +42,20 @@ import subprocess
 import sys
 from pathlib import Path
 
-sys.modules["jax"] = None  # the port stands alone; fail loudly if reached
-sys.modules["gpy_dla_detection_tpu"] = None
+
+class _Blocked:
+    """The port stands alone: refuse to find JAX and the JAX package, so
+    that an import of either fails loudly.  An import hook, not None in
+    sys.modules, which scipy's array-API helpers look up and fail on (this
+    script is also loaded into chip_smoke.py's process)."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "gpy_dla_detection_tpu"):
+            raise ImportError(f"{name} is blocked: the port stands alone")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import numpy as np  # noqa: E402

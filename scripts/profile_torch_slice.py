@@ -33,6 +33,13 @@ sets Q; ``--chunks C`` fits one iteration of the reference-scale
 training's objective instead (``scripts/train_fullscale_torch.py``: C
 checkpointed chunks, shifted by the mean loss at the start), so
 ``--num-spectra 65024 --chunks 16`` profiles one iteration of that run.
+``civ`` runs ``civ_inference_many`` on the 8 CIV spectra of
+``chip_smoke.py`` phase 12 at ``CIVParameters()`` (S = 10,000, N = 768,
+k = 20), ``mcmc`` one DLA chain of ``chip_smoke.py`` phase 9 (32 walkers x
+300 steps on its injected spectrum at ``Parameters()``); both sum the
+device time by part (K5, K2, K3, the GEMMs, the Cholesky and solves, the
+reductions, the gathers, the copies, the other elementwise kernels) and
+give the device's idle share of the profiled wall.
 Every path
 prints the device busy time twice: the union of the device records'
 intervals (each moment once) and the sum of their times, user
@@ -48,7 +55,6 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -83,13 +89,17 @@ from gpy_dla_detection_tpu_torch.ops.timing import (  # noqa: E402
 )
 from gpy_dla_detection_tpu_torch.params import Parameters  # noqa: E402
 from gpy_dla_detection_tpu_torch.parallel.batch import process_batch  # noqa: E402
+from gpy_dla_detection_tpu_torch.utils.timing import card_line  # noqa: E402
 
 NUM_SPECTRA = 16
 NUM_LLS = 8
 NUM_ZQSO = 8
 NUM_ZQSO_RATE = 128  # 4x inference_z_qso_many's window of 32 scans in flight
 ZQSO_Z_SEED = 3  # z_true of chip_smoke.py phase 18's library path
-PATHS = ("windowed", "exact", "windowed_unfused", "windowed_weideman", "lls", "zqso", "train")
+PATHS = ("windowed", "exact", "windowed_unfused", "windowed_weideman", "lls", "zqso", "train",
+         "civ", "mcmc")
+GOLDEN_CIV = ROOT / "tests" / "data" / "torch_golden_civ.npz"  # chip_smoke.py phase 12's spectra
+MCMC_WALKERS, MCMC_STEPS = 32, 300
 TRAIN_Q = 4096
 TRAIN_ITERS = 3  # iterations profiled unchunked; one with --chunks
 # the training's device time by part: (label, test on the kernel's name)
@@ -97,6 +107,20 @@ TRAIN_PARTS = (
     ("K3's adjoint logmvn_chain_grad", lambda n: "logmvn_chain_grad" in n),
     ("K3 logmvn_chain", lambda n: "logmvn_chain" in n),
     ("GEMMs", lambda n: any(w in n.lower() for w in ("gemm", "cutlass", "xmma"))),
+    ("reductions", lambda n: "reduce" in n.lower()),
+    ("gathers and scatters", lambda n: any(w in n.lower() for w in ("index", "scatter",
+                                                                      "gather"))),
+    ("copies", lambda n: "memcpy" in n.lower() or "copy" in n.lower()),
+    ("other elementwise", lambda n: "elementwise" in n.lower()),
+)
+# the CIV head's and the MCMC chain's device time by part
+HEAD_PARTS = (
+    ("K5 absorption_tail", lambda n: "tail_kernel" in n),  # csrc/absorption_stencil.cuh
+    ("K2 logmvn_cap", lambda n: "logmvn_cap" in n),
+    ("K3 logmvn_chain", lambda n: "logmvn_chain" in n),
+    ("GEMMs", lambda n: any(w in n.lower() for w in ("gemm", "cutlass", "xmma"))),
+    ("Cholesky and solves", lambda n: any(w in n.lower() for w in ("potrf", "trsm", "chol",
+                                                                     "getrf", "trsv"))),
     ("reductions", lambda n: "reduce" in n.lower()),
     ("gathers and scatters", lambda n: any(w in n.lower() for w in ("index", "scatter",
                                                                       "gather"))),
@@ -174,10 +198,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     device = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line(device)
     if args.path == "zqso":
         from gpy_dla_detection_tpu_torch.data.synthetic import (
             synthetic_z_learned_model,
@@ -229,6 +250,52 @@ def main() -> None:
 
         def run():
             return fit_lbfgs_stepwise(p0, *data, params, train_iters, objective=objective)
+    elif args.path == "civ":
+        from gpy_dla_detection_tpu_torch.data.synthetic import synthetic_civ_spectrum
+        from gpy_dla_detection_tpu_torch.models.civ import (
+            civ_inference_many,
+            generate_civ_samples,
+        )
+        from gpy_dla_detection_tpu_torch.params import CIVParameters
+
+        params = CIVParameters()
+        arrays = synthetic_learned_model(params)
+        learned = LearnedModel.from_numpy(arrays, device, torch.float32)
+        samples = generate_civ_samples(params)
+        gc = np.load(GOLDEN_CIV)
+        spectra = [
+            synthetic_civ_spectrum(params, arrays, float(z), seed=int(seed),
+                                   civ=(float(cz), float(cn), float(cs)) if inj else None)
+            for z, seed, inj, cz, cn, cs in zip(gc["z_qso"], gc["obs_seed"], gc["injected"],
+                                                gc["civ_z"], gc["civ_log_n"], gc["civ_sigma"])
+        ]
+
+        def run():
+            return civ_inference_many(learned, spectra, samples, params)
+    elif args.path == "mcmc":
+        from gpy_dla_detection_tpu_torch.data.spectrum import to_torch
+        from gpy_dla_detection_tpu_torch.models.absorber_mcmc import run_dla_mcmc
+        from gpy_dla_detection_tpu_torch.models.learned import build_spectrum_model
+
+        params = Parameters()
+        arrays = synthetic_learned_model(params)
+        learned = LearnedModel.from_numpy(arrays, device, torch.float32)
+        # chip_smoke.py phase 9's injected spectrum, walkers started near
+        # the absorber
+        z_dla, log_nhi = 2.82, 21.0
+        spec = synthetic_spectrum(params, arrays, 3.05, seed=11, dlas=[(z_dla, log_nhi)],
+                                  noise_level=0.05)
+        model = build_spectrum_model(learned, to_torch(spec, device, torch.float32), params)
+        spectra = [spec]
+
+        def run():
+            gen = torch.Generator(device=device).manual_seed(2)
+            pos0 = torch.stack([
+                z_dla + 0.01 * torch.randn(MCMC_WALKERS, generator=gen, device=device),
+                log_nhi + 0.3 * torch.randn(MCMC_WALKERS, generator=gen, device=device),
+            ], dim=1)
+            return run_dla_mcmc(model, params, gen, nwalkers=MCMC_WALKERS,
+                                nsamples=MCMC_STEPS, initial_positions=pos0)
     elif args.path == "lls":
         params = Parameters(num_dla_samples=10000, min_lambda=850.0, num_pixels_padded=1664)
         arrays = synthetic_learned_model(params)
@@ -289,6 +356,11 @@ def main() -> None:
     union_ms = union_busy_ms(prof)
     if args.path == "zqso":
         width = f"Z={params.num_zqso_samples}, P={params.num_pixels_padded}, k={params.k}"
+    elif args.path == "mcmc":
+        width = (f"one DLA chain, {MCMC_WALKERS} walkers x {MCMC_STEPS} steps, N="
+                 f"{params.num_pixels_padded}, k={params.k}")
+    elif args.path == "civ":
+        width = f"S={params.num_civ_samples}, N={params.num_pixels_padded}, k={params.k}"
     elif args.path == "train":
         width = (f"R={R}, k={params.k}, {params.num_forest_lines} forest lines, {train_iters} "
                  f"L-BFGS iterations, "
@@ -304,7 +376,8 @@ def main() -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         ms = e.self_device_time_total / 1e3
         print(f"{ms:10.3f} {e.count:6d} {100 * ms / sum_ms:5.1f}%  {e.key[:90]}")
-    part_tests = {"zqso": ZQSO_PARTS, "train": TRAIN_PARTS}.get(args.path)
+    part_tests = {"zqso": ZQSO_PARTS, "train": TRAIN_PARTS, "civ": HEAD_PARTS,
+                  "mcmc": HEAD_PARTS}.get(args.path)
     if part_tests:
         parts = dict.fromkeys([label for label, _ in part_tests] + ["other"], 0.0)
         for e in events:
@@ -313,7 +386,9 @@ def main() -> None:
         print(f"{args.path} device ms by part: " + ", ".join(
             f"{label} {ms:.3f} ({100 * ms / sum_ms:.1f}%)" for label, ms in parts.items())
             + f" | idle {100 * (1 - union_ms / wall_ms):.1f}% of the profiled wall | "
-            f"{sum(e.count for e in events) / len(spectra):.1f} device records a spectrum")
+            f"{sum(e.count for e in events) / len(spectra):.1f} device records a spectrum"
+            + (f", {sum(e.count for e in events) / (2 * MCMC_STEPS):.1f} a half-step"
+               if args.path == "mcmc" else ""))
     if args.trace is not None:
         args.trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(args.trace))

@@ -169,7 +169,14 @@ def test_lls_copies_bit_for_bit(num_samples):
 
 # the port's scripts that run on the card's machine, which has no JAX
 TORCH_SCRIPTS = ("train_fullscale_torch.py", "train_throughput_torch.py",
-                 "profile_torch_slice.py")
+                 "profile_torch_slice.py", "accuracy_gates_torch.py", "heads_throughput_torch.py",
+                 "mcmc_throughput_torch.py", "survey_throughput_torch.py")
+# the port's examples, twins of the JAX package's
+TORCH_EXAMPLES = ("demo_synthetic_torch.py", "lls_walkthrough_torch.py", "zqso_demo_torch.py",
+                  "civ_mcmc_demo_torch.py")
+# the in-flight window and the timers, ported from the JAX package's modules
+# of the same names
+UTILS_MODULES = ("utils/pipeline.py", "utils/timing.py")
 
 
 # the survey's plumbing and the L-BFGS search, ported from the JAX package's
@@ -196,8 +203,10 @@ def _imports_of(path: Path):
 
 def test_port_names_no_module_of_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
-        ROOT / "scripts" / name for name in TORCH_SCRIPTS + ("kernel_ablate_torch.py",)]
-    assert {PORT / name for name in SURVEY_MODULES + SCIENCE_MODULES} <= set(files)
+        ROOT / "scripts" / name for name in TORCH_SCRIPTS + ("kernel_ablate_torch.py",)] + [
+        ROOT / "examples" / name for name in TORCH_EXAMPLES]
+    assert {PORT / name for name in SURVEY_MODULES + SCIENCE_MODULES + UTILS_MODULES} <= set(
+        files)
     offenders = [
         (str(f.relative_to(ROOT)), name)
         for f in files
@@ -704,6 +713,78 @@ print("ok")
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "ok"
+
+
+def test_heads_scripts_and_examples_run_without_jax(tmp_path):
+    """With ``jax`` and the JAX package blocked, the LLS and CIV heads run
+    through the in-flight window and the timers time them, the accuracy
+    gates, the three throughput twins and the four examples run on the CPU
+    at small sizes (the examples without drawing), and neither package is
+    imported."""
+    code = f"""
+import importlib.util, json, os, sys
+class Blocked:  # an import hook: scipy's array-API helpers fail on None in sys.modules
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "gpy_dla_detection_tpu", "matplotlib"):
+            raise ImportError(name + " is blocked")
+sys.meta_path.insert(0, Blocked())
+os.environ.update(MCMC_REPS="1", MCMC_STEPS="3")
+sys.path.insert(0, {str(ROOT)!r})
+import numpy as np, torch
+torch.set_num_threads(2)
+from gpy_dla_detection_tpu_torch.data.synthetic import synthetic_learned_model, synthetic_spectrum
+from gpy_dla_detection_tpu_torch.models.learned import LearnedModel
+from gpy_dla_detection_tpu_torch.models.lls import generate_lya_samples, lls_inference_many
+from gpy_dla_detection_tpu_torch.ops.faddeeva import voigt_profile
+from gpy_dla_detection_tpu_torch.params import Parameters
+from gpy_dla_detection_tpu_torch.utils.timing import StageTimer, block_and_time
+params = Parameters(num_dla_samples=64, k=6)
+arrays = synthetic_learned_model(params)
+specs = [synthetic_spectrum(params, arrays, z, seed=i) for i, z in enumerate((2.9, 3.1, 3.3))]
+timer = StageTimer()
+with timer.stage("lls"):
+    out, best = block_and_time(lls_inference_many, LearnedModel.from_numpy(arrays, "cpu",
+        torch.float32), specs, generate_lya_samples(64), torch.Generator().manual_seed(0), 2,
+        params, batch_size=2, max_in_flight=1, repeats=1, device="cpu")
+assert len(out) == 3 and best > 0 and timer.counts["lls"] == 1
+assert float(voigt_profile(torch.zeros(1, dtype=torch.float64), 1.0, 0.0)) > 0.39
+def load(path):
+    spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+scripts = {{n: load({str(ROOT / "scripts")!r} + "/" + n) for n in {TORCH_SCRIPTS[3:]!r}}}
+report, ok = scripts["accuracy_gates_torch.py"].main(["--device", "cpu", "--n-zqso", "2",
+    "--n-lls", "2", "--n-civ", "2", "--num-samples", "100", "--out", {str(tmp_path / "a.json")!r}])
+assert set(report) == {{"card", "zqso", "lls", "civ"}}
+rates = scripts["heads_throughput_torch.py"].main(["--device", "cpu", "--count", "2",
+                                                  "--num-samples", "100"])
+assert set(rates) == {{"lls", "civ", "zqso"}}
+assert set(scripts["mcmc_throughput_torch.py"].main(["--device", "cpu"])) == {{"dla", "civ"}}
+line = scripts["survey_throughput_torch.py"].main(["--device", "cpu", "--runs", "1", "--spectra",
+    "3", "--batch-size", "1", "--inflight", "1", "--out", {str(tmp_path / "survey")!r},
+    "--extra=--num-samples 400"])
+assert line["spectra"] == 3 and line["p50"] > 0
+examples = {str(ROOT / "examples")!r}
+load(examples + "/zqso_demo_torch.py").main([{str(tmp_path / "z")!r}, "--device", "cpu",
+    "--no-plots", "--num-samples", "300"])
+load(examples + "/demo_synthetic_torch.py").main(["--out-dir", {str(tmp_path / "d")!r},
+    "--device", "cpu", "--no-plots", "--num-spectra", "2", "--num-samples", "100",
+    "--train-iters", "2", "--mcmc-steps", "8"])
+load(examples + "/civ_mcmc_demo_torch.py").main([{str(tmp_path / "c")!r}, "--device", "cpu",
+    "--no-plots", "--num-samples", "300", "--mcmc-steps", "8"])
+load(examples + "/lls_walkthrough_torch.py").main([{str(tmp_path / "l")!r}, "--device", "cpu",
+    "--no-plots", "--num-samples", "1000"])
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "gpy_dla_detection_tpu",
+                                                        "matplotlib")]
+assert loaded == [], loaded
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.splitlines()[-1] == "ok"
 
 

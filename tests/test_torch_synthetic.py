@@ -71,3 +71,28 @@ def test_learned_model_carry_over(dtype):
         assert t.dtype == dtype and t.shape == np.shape(f)
         np.testing.assert_array_equal(t.numpy(), np.asarray(f).astype(t.numpy().dtype))
     assert module.to(torch.float64).M.dtype == torch.float64
+
+
+@pytest.mark.parametrize("dlas", [None, [(2.7, 21.0)]])
+def test_write_speclite_bytes_equal_the_test_writer(tmp_path, dlas):
+    """``write_speclite`` writes the bytes of ``tests/test_fits.py``'s
+    writer on the float32 columns the JAX package's scripts pass it, and
+    the port's reader gives the observation back at float32."""
+    from gpy_dla_detection_tpu_torch.data.fits import read_spec
+
+    from .test_fits import _write_speclite
+
+    params = Parameters()
+    wl, fx, nv, pm = T.synthetic_observation(params, T.synthetic_learned_model(params), 3.0,
+                                             seed=1, dlas=dlas)
+    pm = pm | (np.arange(wl.size) % 97 == 0)
+    got = T.write_speclite(tmp_path / "port.fits", wl, fx, nv, pm)
+    _write_speclite(str(tmp_path / "jax.fits"), fx.astype(np.float32),
+                    np.log10(wl).astype(np.float32), (1.0 / nv).astype(np.float32),
+                    np.where(pm, 1 << 24, 0).astype(np.int32))
+    assert got == str(tmp_path / "port.fits")
+    assert (tmp_path / "port.fits").read_bytes() == (tmp_path / "jax.fits").read_bytes()
+    wl_r, fx_r, _, pm_r = read_spec(got)
+    np.testing.assert_allclose(wl_r, wl, rtol=1e-6)
+    np.testing.assert_array_equal(fx_r, fx.astype(np.float32))
+    np.testing.assert_array_equal(pm_r, pm)
