@@ -101,13 +101,18 @@ Phases, one line each; any failure exits non-zero before the result:
  16. wide GP bases (k = 54, one column past one K2 block at N = 1,280,
      and 65, one past K3's row bounds; S = 10,000, 3 chained streams, on
      the seeded construction tests/test_torch_kernels_gpu.py holds the
-     budget on): the likelihood runs K2 in column slices and K3 (its wide
-     chain at k = 65), counted; each kernel against its twin (|dll| <=
+     budget on): the likelihood runs K2's wide kernel (the tensor cores in
+     3xTF32, csrc/logmvn_cap_wide.cu) and K3 (its wide chain, a warp a
+     sample, at k = 65), counted; each kernel against its twin (|dll| <=
      1e-6 max|ll|); the likelihood against the CPU float64 value of the
      first 2,000 samples within the reference's float32 budget (median
-     |dll| 7.4e-4, max 3.8e-3); device ms beside the bounds, the wide
-     chain's row of the kernels line; K2's library yardstick at both
-     widths (the two float32 SGEMMs, TF32 off).  No phase runs the
+     |dll| 7.4e-4, max 3.8e-3); device ms beside the earlier design's
+     (PERF.md), both bounds of K2 (float32 FMAs, and three TF32 products
+     on the tensor cores) and K3's, the wide chain's row of the kernels
+     line; K2's library yardstick at both widths (the two float32 SGEMMs,
+     TF32 off) and K3's; and the wide kernel launched directly on the main
+     path's k = 20 inputs (0 and 3 streams) against its twin, its device
+     ms beside the PR 6 block's on the same inputs.  No phase runs the
      likelihood's plain composition (checked in every counted run)
  17. the CLIs through the entry points a user calls: 32
      synthetic spectra written as speclite FITS files (odd ones with a DLA
@@ -385,10 +390,15 @@ REL_K3_GRAD = 1e-5  # each output of K3's adjoint within this share of its max |
 REL_TRAIN_LOSS = 1e-5
 REL_TRAIN_GRAD = 1e-3
 
-# published H100 SXM peaks (NVIDIA data sheet; 700 W): HBM3 bytes/s and
-# float32 operations/s outside the tensor cores
+# published H100 SXM peaks (NVIDIA data sheet; 700 W): HBM3 bytes/s,
+# float32 operations/s outside the tensor cores, and dense TF32 on them
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+# the wide route's device ms before its redesign (PERF.md section 6: PR 11's
+# column slices and 128-thread wide chain, the profiler, NVIDIA H100 80GB
+# HBM3, 700.00 W), printed beside this run's
+WIDE_EARLIER_MS = {"K2 k=54": 4.0116, "K2 k=65": 5.3576, "K3 wide k=65": 1.2379}
 
 LOGMVN = "gpy_dla_detection_tpu/ops/logmvn_pallas.py"
 KERNELS = {
@@ -566,6 +576,16 @@ def k2_work(S, N, k, n_extra, elem=4) -> tuple[float, float]:
     return n_bytes, ops
 
 
+def k2_tf32_bound(S, N, k, n_extra, elem=4) -> float:
+    """K2's bound in ms on the tensor cores in 3xTF32 (its wide kernel's
+    arithmetic): three TF32 products a term, 3 x 2 S N (k(k+1)/2 + k)
+    operations over the dense TF32 rate, or its bytes (k2_work's) over the
+    HBM rate, whichever is larger."""
+    kp = k * (k + 1) // 2
+    n_bytes, _ = k2_work(S, N, k, n_extra, elem)
+    return 1e3 * max(n_bytes / HBM_BYTES_PER_S, 3 * 2.0 * S * N * (kp + k) / TF32_OPS_PER_S)
+
+
 def k3_work(S, k) -> tuple[float, float]:
     """Per sample the Cholesky (~k^3/3), the substitution and the logs
     (~2 k^2); reads B, u, misc, writes ll."""
@@ -717,6 +737,8 @@ def main() -> None:
         logmvn_chain_reference,
         packed_pair_basis,
         unpack_capacitance,
+        wide_cap_basis,
+        wide_cap_geometry,
     )
     from gpy_dla_detection_tpu_torch.ops.voigt import (
         FAR_FIELD_LINES,
@@ -1913,8 +1935,8 @@ def main() -> None:
           + " | K6 bound by the padded count: "
           + ", ".join(f"{n} {b:.4f} ms" for n, b in k6_old.items()))
 
-    # 16. wide GP bases through the kernels: K2 in column slices (k = 54
-    # and 65, one past one block and one past K3's row bounds) and K3's wide
+    # 16. wide GP bases through the kernels: K2's wide kernel (k = 54 and
+    # 65, one past one block and one past K3's row bounds) and K3's wide
     # chain (k = 65), on the construction the reference's float32 budget is
     # held on in tests/test_torch_kernels_gpu.py (seeded, N = 1,280, 3
     # chained streams): the path's counts, each kernel against its twin, the
@@ -1942,7 +1964,7 @@ def main() -> None:
             "logmvn_chain_wide": sum(k_ > 64 for k_ in WIDE_KS)}
     check(launches == need, f"wide bases: launches {launches} != {need}")
     cpu64 = lambda x: x.cpu().double() if x.is_floating_point() else x.cpu()
-    wide_f64, wide_twin, wide_dev, wide_lib = {}, {}, {}, {}
+    wide_f64, wide_twin, wide_dev, wide_lib, wide_tf32 = {}, {}, {}, {}, {}
     for k_, (b_, a_, e_) in wide.items():
         ll_ = lls_wide[k_]
         check(bool(torch.isfinite(ll_).all()), f"k={k_}: non-finite likelihood")
@@ -1970,8 +1992,12 @@ def main() -> None:
         chain_name = "logmvn_chain_wide" if k_ > 64 else "logmvn_chain"
         err[chain_name] = max(err.get(chain_name, 0.0), e3)
         wide_twin[k_] = (e2 / scale_, e3 / scale_)
-        wide_dev[f"K2 k={k_}"] = (device_ms(lambda: logmvn_cap(r_, M_, Mp_, a_, e_))[0],
-                                  bound(*k2_work(S, M_.shape[0], k_, 3))[0])
+        # the wrapper's device records: the kernel and the padded basis's
+        # layout (a fill and two copies), all counted
+        wide_dev[f"K2 k={k_}"] = (
+            device_ms(lambda: logmvn_cap(r_, M_, Mp_, a_, e_), kernels=None)[0],
+            bound(*k2_work(S, M_.shape[0], k_, 3))[0])
+        wide_tf32[f"K2 k={k_}"] = k2_tf32_bound(S, M_.shape[0], k_, 3)
         # K2's library yardstick at this width: the two float32 products on
         # the twin's w and r, TF32 off
         _, w_, rr_, *_ = assemble_reference(r_, a_, e_)
@@ -1987,21 +2013,61 @@ def main() -> None:
                 torch.linalg.cholesky_ex(full_)[0], rhs_, upper=False))
             k3_device[name] = device_ms(lambda: logmvn_chain(*cap_t))
             wide_dev[f"K3 wide k={k_}"] = (k3_device[name][0], bounds[name][0])
-    print(f"[16 wide bases] S={S} N=1280, 3 chained streams, k = "
-          f"{', '.join(map(str, WIDE_KS))}: launches {launches} (K2 in column slices, K3's warp "
+    # the wide kernel launched directly (uncounted: no path takes it at k =
+    # 20) on the main path's k = 20 inputs, against its twin and beside the
+    # PR 6 block the route takes there
+    wide_k20 = {}
+    for n_x, ex_ in ((0, []), (3, extras3)):
+        g20 = wide_cap_geometry(S, A.shape[1], model.M.shape[1], Mp.shape[1], n_x)
+        P20 = wide_cap_basis(model.M, Mp, g20)
+        out20 = (torch.empty((S, Mp.shape[1]), device=device),
+                 torch.empty((S, model.M.shape[1]), device=device),
+                 torch.empty((S, 2), device=device))
+        ptrs20 = [_build.ptr(x) for x in ex_] + [_build.ptr(None)] * (3 - n_x)
+
+        def wide20():
+            e20 = _build.load_library().logmvn_cap_wide_launch(
+                _build.ptr(rows), A.shape[1], _build.ptr(P20), model.M.shape[1],
+                Mp.shape[1], _build.ptr(A), *ptrs20, n_x, 0, S, g20.samples,
+                g20.pixels, g20.pair_columns, g20.tiles, g20.threads, g20.shared_bytes,
+                g20.grid, *[_build.ptr(x) for x in out20], _build.stream_ptr(device))
+            _build.check_launch("logmvn_cap_wide", e20)
+
+        wide20()
+        ll_t20 = logmvn_chain_reference(*logmvn_cap_reference(rows, model.M, Mp, A, ex_))
+        e20 = float((logmvn_chain_reference(*out20) - ll_t20).abs().max())
+        sc20 = float(ll_t20.abs().max())
+        check(e20 <= REL_K23 * sc20, f"K2's wide kernel at k=20 ({n_x} streams): |dll| "
+                                     f"{e20:.3e} > {REL_K23} x {sc20:.4g}")
+        wide_k20[n_x] = (device_ms(wide20)[0],
+                         device_ms(lambda: logmvn_cap(rows, model.M, Mp, A, ex_))[0], e20 / sc20,
+                         bound(*k2_work(S, A.shape[1], model.M.shape[1], n_x))[0],
+                         k2_tf32_bound(S, A.shape[1], model.M.shape[1], n_x))
+    print(f"[16 wide bases] {card} | S={S} N=1280, 3 chained streams, k = "
+          f"{', '.join(map(str, WIDE_KS))}: launches {launches} (K2's wide kernel, K3's warp "
           f"chain at k <= 64 and its wide chain beyond; no composition) | vs CPU float64 (first "
           f"{WIDE_F64} samples; budget median {MEDIAN_VS_F64}, max {MAX_VS_F64}): "
           + ", ".join(f"k={k_} median |dll| {m_:.3e}, max {x_:.3e} (max|ll| {sc_:.4g})"
                       for k_, (m_, x_, sc_) in wide_f64.items())
           + f" | kernel vs twin, |dll| / max|ll| (tol {REL_K23}): "
           + ", ".join(f"k={k_} K2 {a_:.2e}, K3 {b_:.2e}" for k_, (a_, b_) in wide_twin.items())
-          + " | device ms (profiler, 50 calls) and bound: "
-          + ", ".join(f"{n} {d:.4f} (bound {b:.4f})" for n, (d, b) in wide_dev.items())
+          + " | device ms (profiler, 50 calls), earlier design's (PERF.md) and bounds: "
+          + ", ".join(f"{n} {d:.4f} (earlier {WIDE_EARLIER_MS[n]:.4f}; bound {b:.4f}"
+                      + (f" float32, {wide_tf32[n]:.4f} 3xTF32" if n in wide_tf32 else "")
+                      + ")" for n, (d, b) in wide_dev.items())
           + " | K2 library yardstick (two float32 SGEMMs, TF32 off, synchronised median): "
           + ", ".join(f"k={k_} {t_:.3f} ms" for k_, t_ in wide_lib.items())
           + f" | wide chain {ms['logmvn_chain_wide'][0]:.3f} ms vs twin "
           f"{ms['logmvn_chain_wide'][1]:.3f} ms, library yardstick "
-          f"{library['logmvn_chain_wide']:.3f} ms | every phase took the kernels (no composition)")
+          f"{library['logmvn_chain_wide']:.3f} ms | a level at k={max(WIDE_KS)}: K2 + K3 "
+          f"{wide_dev[f'K2 k={max(WIDE_KS)}'][0] + wide_dev[f'K3 wide k={max(WIDE_KS)}'][0]:.4f}"
+          f" ms device against the library pair's "
+          f"{wide_lib[max(WIDE_KS)] + library['logmvn_chain_wide']:.3f} ms | the wide kernel "
+          f"at the main path's k = 20, device ms (profiler, 50 calls) beside the PR 6 block's: "
+          + ", ".join(f"{n_x} streams {w_:.4f} vs {b_:.4f} (|dll| / max|ll| {r_:.2e}; bounds "
+                      f"{bf_:.4f} float32, {bt_:.4f} 3xTF32)"
+                      for n_x, (w_, b_, r_, bf_, bt_) in wide_k20.items())
+          + " | every phase took the kernels (no composition)")
 
     # 17. the CLIs through their run(), on FITS files written
     # here; their own per-spectrum prints are kept out of this output
@@ -3634,7 +3700,13 @@ def main() -> None:
          **train_chunk_extra.get(name, {}),
          **({"library_ms_by_k": {f"k={k_}": t_ for k_, t_ in wide_lib.items()},
              "device_ms_by_k": {n.split()[-1]: d for n, (d, _) in wide_dev.items()
-                                if n.startswith("K2")}} if name == "logmvn_cap" else {}),
+                                if n.startswith("K2")},
+             "wide_source": "gpy_dla_detection_tpu_torch/csrc/logmvn_cap_wide.cu",
+             "bound_ms_by_k": {n.split()[-1]: b for n, (_, b) in wide_dev.items()
+                               if n.startswith("K2")},
+             "bound_ms_3xtf32_by_k": {n.split()[-1]: b for n, b in wide_tf32.items()},
+             "wide_device_ms_k20": {f"{n_x} streams": w_ for n_x, (w_, *_) in wide_k20.items()}}
+            if name == "logmvn_cap" else {}),
          **({"launches_zqso": sum(p.get(name, 0) for n, p in path_launches.items()
                                   if "zqso" in n),
              "device_ms_zqso": k3_zqso_ms, "bound_ms_zqso": k3_zqso_bound[0],

@@ -20,10 +20,9 @@
 // Design: K2's block, logmvn_cap_block.cuh (8 x 8 register tiles, warps of
 // 2 x 16 tiles, cp.async double buffering, the assembly one chunk ahead of
 // the FMAs; int16 codes decoded in the assembly), which K7's stage kernel
-// shares.  The epilogue here stores misc (by the assembly's lanes of the
-// first column slice) and each thread's 8 x 8 tile of B | u.  A basis wider
-// than one block holds runs in column slices along the grid's y
-// (cap_block::run; ops/logmvn_kernels.py: sliced_cap_geometry).
+// shares.  The epilogue here stores misc (by the assembly's lanes) and each
+// thread's 8 x 8 tile of B | u.  A basis wider than one block holds runs on
+// K2's wide kernel, logmvn_cap_wide.cu (ops/logmvn_kernels.py: k2_geometry).
 
 #include <cuda_runtime.h>
 
@@ -47,7 +46,7 @@ struct CapOut {
                                          const double (&q_acc)[kMaxQuads],
                                          const double (&ld_acc)[kMaxQuads],
                                          const double (&)[kMaxQuads]) const {
-    if (b.nl_lo == 0 && blockIdx.y == 0) {
+    if (b.nl_lo == 0) {
 #pragma unroll
       for (int qi = 0; qi < kMaxQuads; ++qi) {
         const int quad = b.warp + qi * b.nwarps;
@@ -77,26 +76,25 @@ struct CapOut {
 };
 
 // T: the sample streams' storage (float, or int16_t codes); VB: the bytes
-// of a staging copy; kSliced: a column slice a block (cap_block::run)
-template <int TN, int VB, typename T, bool kSliced>
+// of a staging copy (cap_block::run)
+template <int TN, int VB, typename T>
 __global__ void __launch_bounds__(kMaxThreads, 1) logmvn_cap_kernel(
     const float* __restrict__ rows, int N, const float* __restrict__ M, int k,
     const float* __restrict__ Mp, int kp, const T* __restrict__ A,
     const T* __restrict__ e0, const T* __restrict__ e1,
-    const T* __restrict__ e2, int n_extra, int S, int TS, int ncb,
+    const T* __restrict__ e2, int n_extra, int S, int TS,
     float* __restrict__ B, float* __restrict__ u, float* __restrict__ misc) {
-  run<TN, VB, T, CapOut, kSliced>(rows, N, M, k, Mp, kp, A, e0, e1, e2, n_extra, S, TS,
-                                  CapOut{B, u, misc}, ncb);
+  run<TN, VB, T>(rows, N, M, k, Mp, kp, A, e0, e1, e2, n_extra, S, TS, CapOut{B, u, misc});
 }
 
-template <int TN, bool kSliced>
+template <int TN>
 void* pick_kernel(int store, int vb) {
   if (store == 0)
-    return vb == 16 ? reinterpret_cast<void*>(logmvn_cap_kernel<TN, 16, float, kSliced>)
-                    : reinterpret_cast<void*>(logmvn_cap_kernel<TN, 4, float, kSliced>);
-  return vb == 16  ? reinterpret_cast<void*>(logmvn_cap_kernel<TN, 16, int16_t, kSliced>)
-         : vb == 4 ? reinterpret_cast<void*>(logmvn_cap_kernel<TN, 4, int16_t, kSliced>)
-                   : reinterpret_cast<void*>(logmvn_cap_kernel<TN, 0, int16_t, kSliced>);
+    return vb == 16 ? reinterpret_cast<void*>(logmvn_cap_kernel<TN, 16, float>)
+                    : reinterpret_cast<void*>(logmvn_cap_kernel<TN, 4, float>);
+  return vb == 16  ? reinterpret_cast<void*>(logmvn_cap_kernel<TN, 16, int16_t>)
+         : vb == 4 ? reinterpret_cast<void*>(logmvn_cap_kernel<TN, 4, int16_t>)
+                   : reinterpret_cast<void*>(logmvn_cap_kernel<TN, 0, int16_t>);
 }
 
 inline bool aligned(const void* p, int bytes) {
@@ -106,21 +104,20 @@ inline bool aligned(const void* p, int bytes) {
 }  // namespace
 
 // store: A and the streams as float32 (0) or int16 codes (1).  The
-// geometry (ts samples a block, tn pixels a chunk, ncb padded columns a
-// slice, slices, threads, shared bytes, grid) comes from the caller and must
-// be the one cap_geometry or sliced_cap_geometry gives for (S, N, k, kp,
-// n_extra) and the store's element size; anything else is refused, as is a
-// float32 stream not 4-byte aligned.
+// geometry (ts samples a block, tn pixels a chunk, threads, shared bytes,
+// grid) comes from the caller and must be the one cap_geometry gives for
+// (S, N, k, kp, n_extra) and the store's element size; anything else is
+// refused, as is a float32 stream not 4-byte aligned.
 extern "C" int logmvn_cap_launch(
     const float* rows, int N, const float* M, int k, const float* Mp, int kp,
     const void* A, const void* e0, const void* e1, const void* e2,
-    int n_extra, int store, int S, int ts, int tn, int ncb, int slices, int threads,
-    int smem, int grid, float* B, float* u, float* misc, void* stream) {
+    int n_extra, int store, int S, int ts, int tn, int threads, int smem, int grid,
+    float* B, float* u, float* misc, void* stream) {
   if (k < 1 || kp < 1 || N < 1 || S < 1 || n_extra < 0 || n_extra > 3 ||
       (store != 0 && store != 1))
     return (int)cudaErrorInvalidValue;
   const int elem = store ? 2 : 4;
-  if (!geometry_ok(S, k, kp, n_extra, elem, ts, tn, ncb, slices, threads, smem, grid))
+  if (!geometry_ok(S, k, kp, n_extra, elem, ts, tn, threads, smem, grid))
     return (int)cudaErrorInvalidValue;
   // the widest copy every row of every stream allows
   const void* ps[4] = {A, e0, e1, e2};
@@ -131,15 +128,13 @@ extern "C" int logmvn_cap_launch(
   }
   const int vb = (N * elem) % 16 == 0 && a16 ? 16 : (N * elem) % 4 == 0 && a4 ? 4 : 0;
   if (store == 0 && vb == 0) return (int)cudaErrorInvalidValue;
-  void* kern = slices > 1  ? pick_kernel<16, true>(store, vb)
-               : tn == 32  ? pick_kernel<32, false>(store, vb)
-                           : pick_kernel<16, false>(store, vb);
+  void* kern = tn == 32 ? pick_kernel<32>(store, vb) : pick_kernel<16>(store, vb);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&rows, &N, &M, &k, &Mp, &kp, &A, &e0, &e1, &e2,
-                  &n_extra, &S, &ts, &ncb, &B, &u, &misc};
-  e = cudaLaunchKernel(kern, dim3(grid, slices), dim3(threads), args, (size_t)smem,
+                  &n_extra, &S, &ts, &B, &u, &misc};
+  e = cudaLaunchKernel(kern, dim3(grid), dim3(threads), args, (size_t)smem,
                        (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -23,16 +23,8 @@
 // columns), 125 blocks: one wave on 132 SMs, one block per SM; 134,144
 // shared bytes with no extra stream, 210,944 with three.
 //
-// A basis wider than one block holds (k > 53 packed at N = 1,280) is cut
-// into column slices of ncb padded columns (whole warps), one slice a
-// block along the grid's y: block (x, y) takes samples x TS.. and the
-// padded columns y ncb..(y + 1) ncb - 1, stages only its slice of the
-// basis, and assembles w | r of its samples as every block does (the
-// assembly is O(TS N), the FMAs O(TS N ncb)).  Each output is still one
-// thread's FMA chain over the pixels.  The slicing is an instantiation of
-// its own (kSliced, always with 16-pixel chunks: a slice is 7 to 12 warps
-// across, whose 32-pixel basis chunks do not fit): the block that holds
-// every column (K2 at k <= 53, and K7) compiles as it did.
+// A basis wider than one block holds (k > 53 packed at N = 1,280) goes
+// to K2's wide kernel (logmvn_cap_wide.cu), on the tensor cores.
 //
 // The pixels are walked in chunks of TN with one barrier a chunk.  The raw
 // sample tile (A and the extra streams) is staged by cp.async two chunks
@@ -115,26 +107,14 @@ __host__ __device__ inline int block_warps(int ts, int ncp) {
 }
 
 // The geometry a launcher takes: TS whole warps of sample groups, a chunk
-// of 16 or 32 pixels, slices of ncb padded columns (whole warps) that
-// cover the padded columns, the threads of the block's warps within the
-// bound, the shared bytes of a block's slice, a block for every TS samples
-// and slice.
-inline bool geometry_ok(int S, int k, int kp, int n_extra, int elem, int ts, int tn,
-                        int ncb, int slices, int threads, int smem, int grid) {
-  const int ncp = padded_columns(k, kp);
-  return ts >= kTile * kWarpSG && ts % (kTile * kWarpSG) == 0 && (tn == 16 || tn == 32) &&
-         (slices == 1 || tn == 16) &&
-         ncb >= kTile * kWarpCG && ncb % (kTile * kWarpCG) == 0 && ncb <= ncp &&
-         slices == cdiv(ncp, ncb) && threads == 32 * block_warps(ts, ncb) &&
-         threads <= kMaxThreads && (size_t)smem == shared_bytes(ts, tn, ncb, n_extra, elem) &&
-         grid == cdiv(S, ts);
-}
-
-// one slice of all the padded columns: cap_geometry's block
+// of 16 or 32 pixels, the threads of the block's warps within the bound,
+// cap_geometry's shared bytes, a block for every TS samples.
 inline bool geometry_ok(int S, int k, int kp, int n_extra, int elem, int ts, int tn,
                         int threads, int smem, int grid) {
   const int ncp = padded_columns(k, kp);
-  return geometry_ok(S, k, kp, n_extra, elem, ts, tn, ncp, 1, threads, smem, grid);
+  return ts >= kTile * kWarpSG && ts % (kTile * kWarpSG) == 0 && (tn == 16 || tn == 32) &&
+         threads == 32 * block_warps(ts, ncp) && threads <= kMaxThreads &&
+         (size_t)smem == shared_bytes(ts, tn, ncp, n_extra, elem) && grid == cdiv(S, ts);
 }
 
 __device__ inline void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -179,21 +159,17 @@ struct Block {
 
 // T: the sample streams' storage (float, or int16_t codes).  VB: the bytes
 // of a staging copy, 16 (rows a whole number of 16-byte groups, aligned) or
-// 4 by cp.async, or 0: plain loads and stores (int16 codes of odd N).
-// kSliced: the block takes the ncb padded columns of slice blockIdx.y
-// (else every column, and ncb is not read).
-template <int TN, int VB, typename T, class Epi, bool kSliced = false>
+// 4 by cp.async, or 0: plain loads and stores (int16 codes of odd N)
+template <int TN, int VB, typename T, class Epi>
 __device__ __forceinline__ void run(
     const float* __restrict__ rows, int N, const float* __restrict__ M, int k,
     const float* __restrict__ Mp, int kp, const T* __restrict__ A,
     const T* __restrict__ e0, const T* __restrict__ e1,
-    const T* __restrict__ e2, int n_extra, int S, int TS, const Epi& epi,
-    int ncb = 0) {
+    const T* __restrict__ e2, int n_extra, int S, int TS, const Epi& epi) {
   constexpr int TNP = TN + 8;  // staged row length (bank spread)
   const int TSP = TS + 4;      // w | r row length (4 x odd: bank spread)
   const int gp = cdiv(kp, kTile);
-  const int ncp = kSliced ? ncb : padded_columns(k, kp);  // the block's columns
-  const int col0 = kSliced ? (int)blockIdx.y * ncp : 0;   // its first padded column
+  const int ncp = padded_columns(k, kp);
   const int half = ncp / 2;
   const int n_streams = 1 + n_extra;
   const int n_chunks = cdiv(N, TN);
@@ -212,8 +188,7 @@ __device__ __forceinline__ void run(
   const int warp = tid >> 5;
   const int nwarps = nthreads >> 5;
   const int wc = ncp / (kTile * kWarpCG);  // warps across the columns
-  const int lcg = (warp % wc) * kWarpCG + lane % kWarpCG;  // in the slice
-  const int cg = col0 / kTile + lcg;                          // in the basis
+  const int cg = (warp % wc) * kWarpCG + lane % kWarpCG;
   const int sg = (warp / wc) * kWarpSG + lane / kWarpCG;
   const int s0 = blockIdx.x * TS;
   const int nl_lo = lane & 7;  // the assembly's 4 samples x 8 pixels
@@ -251,13 +226,12 @@ __device__ __forceinline__ void run(
     }
   };
 
-  // a padded column of the slice a thread, down the chunk's pixels; a
-  // warp's lanes read neighbouring columns of a row
+  // a padded column a thread, down the chunk's pixels; a warp's lanes
+  // read neighbouring columns of a row
   auto stage_basis = [&](int c, int buf) {
     const int n0 = c * TN;
     float* dst = Mc + buf * TN * ncp;
-    for (int lcol = tid; lcol < ncp; lcol += nthreads) {
-      const int col = col0 + lcol;
+    for (int col = tid; col < ncp; col += nthreads) {
       const int g = col / kTile;
       const int j = col % kTile;
       const float* src = nullptr;
@@ -271,7 +245,7 @@ __device__ __forceinline__ void run(
         src = M + (col - gp * kTile);
         stride = k;
       }
-      float* d = dst + (j >> 2) * half + (lcol / kTile) * 4 + (j & 3);
+      float* d = dst + (j >> 2) * half + g * 4 + (j & 3);
 #pragma unroll 4
       for (int nl = 0; nl < TN; ++nl) {
         const int n = n0 + nl;
@@ -365,7 +339,7 @@ __device__ __forceinline__ void run(
       if (c >= 0) {
         const float* Wc = WR + buf * 2 * TN * TSP;
         const float* L = (cg < gp ? Wc : Wc + TN * TSP) + sg * kTile;
-        const float* Mb = Mc + buf * TN * ncp + lcg * 4;
+        const float* Mb = Mc + buf * TN * ncp + cg * 4;
         float4 l0 = *reinterpret_cast<const float4*>(L);
         float4 l1 = *reinterpret_cast<const float4*>(L + 4);
         float4 c0 = *reinterpret_cast<const float4*>(Mb);

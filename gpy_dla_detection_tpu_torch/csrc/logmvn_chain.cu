@@ -37,17 +37,26 @@
 // (ops/chain_geometry_sweep.py; PERF.md, PR 7).
 //
 // The wide chain, for k beyond the warp chain's row bounds (k > 64): a
-// block of 128 threads per sample, the triangle in shared memory (or, past
-// the block's shared bytes, in a global workspace of the block's own),
-// right-looking with one barrier a step.  Step j: every thread reads the
-// pivot d_j = the diagonal (I added when the triangle is staged, before
-// any update, as the twin adds it) and u_j, and takes inv = rsqrt(d_j) and
-// t_j = u_j inv; thread 0 sums log d_j and t_j^2 j = 0..k-1; column j is
-// scaled on the fly (l_aj = entry (a, j) inv, rounded as the stored
-// product would be), u_a -= t_j l_aj, and the trailing entries (a, c), a >=
-// c > j, -= l_aj l_cj, a warp a column and a lane a row (consecutive
-// floats).  Column j is read and never written in step j, so the
-// barrier at the step's end is the only one.  Geometry: wide_chain_geometry.
+// warp a sample too, several samples in flight on every SM and no block
+// barrier.  The warp stages its sample's triangle with 16-byte copies into
+// a buffer of its own (as the warp chain does), u beside it, and factors it
+// there left-looking, one column a step: lanes on consecutive rows a = j +
+// lane + 32 q (up to 4 slots q a pass, passes of 128 rows; a pass compiled
+// for its number of live slots, so it loads nothing for a slot past the
+// triangle: the chain is bound by its shared-memory loads), each entry (a,
+// j) = B_aj + I_aj - sum_{c<j} l_ac l_jc with c ascending (the FMAs, in
+// the order, of the right-looking twin), l_jc a broadcast read of the
+// warp's buffer and l_ac a read of consecutive floats.  The pivot d_j is
+// row j's entry, broadcast by a shuffle; the column is scaled by rsqrt(d_j)
+// and stored, t_j = u_j rsqrt(d_j), quad += t_j^2, logdet += log d_j, and
+// u_a -= t_j l_aj; a __syncwarp ends the step.  A buffer holds the
+// triangle, 3 floats of alignment, 32 of padding (a pass's lanes past the
+// last row read into it) and u: k <= 339 fits a block's shared memory.
+// Past that the triangle lives in a global workspace and a block of 128
+// threads takes a sample, right-looking with one barrier a step (step j:
+// the pivot, t_j, column j scaled on the fly, u_a -= t_j l_aj and the
+// trailing entries updated, a warp a column).  Geometry:
+// wide_chain_geometry.
 
 #include <cuda_runtime.h>
 
@@ -135,19 +144,122 @@ int launch(const float* B, const float* u, const float* misc, int S, int k, int 
   return (int)cudaGetLastError();
 }
 
-constexpr int kWideThreads = 128;
+constexpr int kWideThreads = 128;  // the global-workspace chain's block
+constexpr int kWideWarps = 8;      // the warp chain's widest block
+constexpr int kWidePad = 32;       // floats past the triangle a pass reads
 
-// kGlobal: the triangle and u live in work (the block's kp + k floats)
-// instead of shared memory
-template <bool kGlobal>
+// floats of a wide warp's buffer: the triangle at its source's offset
+// modulo 16 bytes, the padding, then u (float4-aligned)
+__host__ __device__ inline int wide_tri_floats(int k) {
+  return 4 * ((k * (k + 1) / 2 + 3 + kWidePad + 3) / 4);
+}
+__host__ __device__ inline int wide_warp_floats(int k) {
+  return wide_tri_floats(k) + 4 * ((k + 3) / 4);
+}
+
+// One pass of step j of the wide warp chain over rows r0 + lane + 32 q, q <
+// NQ (all of them rows of the triangle but for lanes past k - 1 in the last
+// slot, which read the padding): the dot products of column j, and at the
+// pass that holds row j the pivot, t_j and logdet's and quad's terms;
+// column j scaled and stored, u updated.  NQ is the pass's live slots, so
+// no load is issued for a slot past the triangle.
+template <int NQ>
+__device__ __forceinline__ void wide_pass(float* T, float* uu, int k, int j, int r0, int offj,
+                                          int lane, float& d, float& inv, float& t) {
+  float* const colj = T + offj - j;  // entry (a, j) at colj[a]
+  float x[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int a = r0 + 32 * q + lane;
+    x[q] = colj[a] + (a == j ? 1.0f : 0.0f);  // + I, before the updates
+  }
+  const float* colc = T + r0 + lane;  // entry (r0 + lane, c), from c = 0
+  const float* rowj = T + j;          // entry (j, c)
+#pragma unroll 4
+  for (int c = 0; c < j; ++c) {
+    const float l = *rowj;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) x[q] -= colc[32 * q] * l;
+    colc += k - 1 - c;
+    rowj += k - 1 - c;
+  }
+  if (r0 == j) {
+    d = __shfl_sync(0xffffffffu, x[0], 0);
+    inv = rsqrtf(d);
+    t = uu[j] * inv;
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int a = r0 + 32 * q + lane;
+    if (a < k) {
+      const float l = x[q] * inv;
+      colj[a] = l;
+      if (a > j) uu[a] -= t * l;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32 * kWideWarps) logmvn_chain_wide_warp_kernel(
+    const float* __restrict__ B, const float* __restrict__ u,
+    const float* __restrict__ misc, int S, int k, int buf, float* __restrict__ ll) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  float* const Tb = reinterpret_cast<float*>(smem4) + warp * buf;
+  float* const uu = Tb + wide_tri_floats(k);
+  const int kp = k * (k + 1) / 2;
+  const long long nwarps = (long long)gridDim.x * nw;
+  const long long w = (long long)blockIdx.x * nw + warp;
+  const int first = (int)(w * S / nwarps);
+  const int last = (int)((w + 1) * S / nwarps);
+
+  for (int s = first; s < last; ++s) {
+    const float* src = B + (size_t)s * kp;
+    const int shift = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+    float* const T = Tb + shift;
+    const int head = min(kp, (4 - shift) & 3);
+    const int nv = (kp - head) >> 2;
+    const int tail = head + 4 * nv;
+    if (lane < head) T[lane] = __ldg(src + lane);
+    const float4* src4 = reinterpret_cast<const float4*>(src + head);
+    float4* dst4 = reinterpret_cast<float4*>(T + head);
+    for (int v = lane; v < nv; v += 32) dst4[v] = __ldg(src4 + v);
+    if (tail + lane < kp) T[tail + lane] = __ldg(src + tail + lane);
+    for (int a = lane; a < k; a += 32) uu[a] = __ldg(u + (size_t)s * k + a);
+    __syncwarp();
+
+    float quad = 0.0f, logdet = 0.0f;
+    int offj = 0;  // column j's first entry, (j, j)
+    for (int j = 0; j < k; ++j) {
+      float d = 0.0f, inv = 0.0f, t = 0.0f;
+      for (int r0 = j; r0 < k; r0 += 128) {
+        switch ((min(k - r0, 128) + 31) / 32) {  // the pass's live slots
+          case 1: wide_pass<1>(T, uu, k, j, r0, offj, lane, d, inv, t); break;
+          case 2: wide_pass<2>(T, uu, k, j, r0, offj, lane, d, inv, t); break;
+          case 3: wide_pass<3>(T, uu, k, j, r0, offj, lane, d, inv, t); break;
+          default: wide_pass<4>(T, uu, k, j, r0, offj, lane, d, inv, t);
+        }
+      }
+      quad += t * t;
+      logdet += logf(d);
+      offj += k - j;
+      __syncwarp();
+    }
+    if (lane == 0)
+      ll[s] = -0.5f * (__ldg(misc + 2 * (size_t)s) - quad + __ldg(misc + 2 * (size_t)s + 1) +
+                       logdet);
+    __syncwarp();  // the buffer is free for the next sample
+  }
+}
+
+// the triangle and u in work (the block's kp + k floats), a block a sample
 __global__ void __launch_bounds__(kWideThreads) logmvn_chain_wide_kernel(
     const float* __restrict__ B, const float* __restrict__ u,
     const float* __restrict__ misc, int S, int k, float* __restrict__ work,
     float* __restrict__ ll) {
-  extern __shared__ float4 smem4[];
   const int kp = k * (k + 1) / 2;
-  float* T = reinterpret_cast<float*>(smem4);
-  if constexpr (kGlobal) T = work + (size_t)blockIdx.x * (kp + k);
+  float* const T = work + (size_t)blockIdx.x * (kp + k);
   float* const uu = T + kp;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -187,31 +299,32 @@ __global__ void __launch_bounds__(kWideThreads) logmvn_chain_wide_kernel(
 
 }  // namespace
 
-// The wide chain's launch (wide_chain_geometry): 128 threads, the grid, and
-// either shared bytes for the triangle and u (work null) or a workspace of
-// grid x (k(k+1)/2 + k) floats (no shared bytes).  Refused: any other
-// block, an empty grid, shared bytes short of the triangle and u, both or
-// neither of the two homes.
+// The wide chain's launch (wide_chain_geometry), either a warp a sample:
+// 32 to 32 kWideWarps threads, shared bytes of a wide_warp_floats buffer for
+// each warp (a whole number of float4s a warp), no workspace; or a block a
+// sample: kWideThreads threads, no shared bytes, a workspace of grid x
+// (k(k+1)/2 + k) floats.  Anything else is refused, as is an empty grid.
 extern "C" int logmvn_chain_wide_launch(const float* B, const float* u, const float* misc,
                                         int S, int k, int threads, int smem, int grid,
                                         float* work, float* ll, void* stream) {
-  const long long need = 4LL * (k * (long long)(k + 1) / 2 + k);
-  if (S < 1 || k < 1 || threads != kWideThreads || grid < 1 || smem < 0 ||
-      smem > 227 * 1024 || (work == nullptr) == (smem == 0) ||
-      (work == nullptr && smem < need))
-    return (int)cudaErrorInvalidValue;
+  if (S < 1 || k < 1 || grid < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (work != nullptr) {
-    logmvn_chain_wide_kernel<true><<<grid, kWideThreads, 0, st>>>(B, u, misc, S, k, work, ll);
+    if (threads != kWideThreads || smem != 0) return (int)cudaErrorInvalidValue;
+    logmvn_chain_wide_kernel<<<grid, kWideThreads, 0, st>>>(B, u, misc, S, k, work, ll);
     return (int)cudaGetLastError();
   }
+  const int warps = threads / 32;
+  if (threads % 32 != 0 || warps < 1 || warps > kWideWarps || smem > 227 * 1024 ||
+      smem % (16 * warps) != 0 || smem / (4 * warps) < wide_warp_floats(k))
+    return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(logmvn_chain_wide_kernel<false>,
+    cudaError_t e = cudaFuncSetAttribute(logmvn_chain_wide_warp_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  logmvn_chain_wide_kernel<false><<<grid, kWideThreads, smem, st>>>(B, u, misc, S, k, nullptr,
-                                                                   ll);
+  logmvn_chain_wide_warp_kernel<<<grid, threads, smem, st>>>(B, u, misc, S, k,
+                                                            smem / (4 * warps), ll);
   return (int)cudaGetLastError();
 }
 

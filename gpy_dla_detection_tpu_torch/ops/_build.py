@@ -35,7 +35,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # that the user paths' library does not wait for.
 LIBRARIES = {
     "kernels": ("absorption_all.cu", "absorption_tail.cu", "absorption_windowed.cu",
-                "logmvn_cap.cu", "logmvn_chain.cu", "logmvn_chain_grad.cu"),
+                "logmvn_cap.cu", "logmvn_cap_wide.cu", "logmvn_chain.cu",
+                "logmvn_chain_grad.cu"),
     "ablate": ("logmvn_ablate.cu",),
 }
 BUILD_DIR = CSRC / "build"
@@ -76,15 +77,19 @@ _SIGNATURES = {"kernels": {
                                    _P, _P],
     # rows, N, M, k, Mp, kp, A, e0, e1, e2, n_extra, store (of A and the
     # streams: 0 float32, 1 int16), S, then the geometry (samples a block,
-    # pixels a chunk, padded columns a slice, slices, threads, shared bytes,
-    # grid), B, u, misc, stream
+    # pixels a chunk, threads, shared bytes, grid), B, u, misc, stream
     "logmvn_cap_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+                          _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # K2's wide kernel: rows, N, the padded basis P, k, kp, then as
+    # logmvn_cap_launch from A on, with its geometry (samples a tile, pixels
+    # a chunk, padded pair columns, column tiles, threads, shared bytes, grid)
+    "logmvn_cap_wide_launch": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # B, u, misc, S, k, then the geometry (row bound, warps a block, shared
     # bytes, grid), ll, stream
     "logmvn_chain_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # B, u, misc, S, k, then the geometry (threads, shared bytes, grid),
-    # the workspace (or null), ll, stream
+    # the workspace (or null: a warp a sample), ll, stream
     "logmvn_chain_wide_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # K3's adjoint: B, u, g, S, k, then the geometry (row bound, warps a
     # block, shared bytes, grid), dB, du, dmisc, stream

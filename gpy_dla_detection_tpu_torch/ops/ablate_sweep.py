@@ -82,7 +82,7 @@ def main() -> None:
             def k2():
                 err = lib.logmvn_cap_launch(
                     P(rows), N, P(M), K, P(Mp), kp, P(A), P(None), P(None), P(None), 0, 0, S,
-                    ts, tn, ncp, 1, threads, smem, grid, P(B), P(u), P(misc),
+                    ts, tn, threads, smem, grid, P(B), P(u), P(misc),
                     _build.stream_ptr(device))
                 _build.check_launch("logmvn_cap", err)
 

@@ -105,8 +105,8 @@ def main() -> None:
                 def run():
                     err = lib.logmvn_cap_launch(
                         _build.ptr(rows), N, _build.ptr(M), K, _build.ptr(Mp), kp,
-                        _build.ptr(A), *streams, n_extra, int(elem == 2), S, ts, tn, ncp, 1,
-                        threads, smem, grid, _build.ptr(B), _build.ptr(u), _build.ptr(misc),
+                        _build.ptr(A), *streams, n_extra, int(elem == 2), S, ts, tn, threads,
+                        smem, grid, _build.ptr(B), _build.ptr(u), _build.ptr(misc),
                         _build.stream_ptr(device))
                     _build.check_launch("logmvn_cap", err)
 

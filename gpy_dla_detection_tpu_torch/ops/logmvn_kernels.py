@@ -6,10 +6,11 @@ model per sample and forms the packed capacitance products; stage B (K3,
 the forward substitution and emits the per-sample log-likelihood.  Each
 wrapper launches its kernel on float32 CUDA tensors and runs its plain
 twin (``*_reference``) on float32 CPU tensors.  Both take a GP basis of
-any width: K2 cuts a basis wider than one block holds into column slices
-(:func:`k2_geometry`), and K3 runs the k > 64 its warp chain's row bounds
-end at on its wide chain (counted as ``logmvn_chain_wide``;
-:func:`k3_geometry`).  K2 also takes the
+any width: K2 runs a basis wider than its block holds on its wide kernel
+(``csrc/logmvn_cap_wide.cu``, the tensor cores in 3xTF32;
+:func:`k2_geometry`), and K3 runs the k > 64 its warp chain's row bounds
+end at on its wide chain, a warp a sample too (counted as
+``logmvn_chain_wide``; :func:`k3_geometry`).  K2 also takes the
 profiles as int16 codes (``ops/kernel_config.py``), which an
 instantiation of its own decodes as it assembles (counted as
 ``logmvn_cap_i16``); its twin decodes with
@@ -62,9 +63,7 @@ H100_SMS = 132
 class CapGeometry(NamedTuple):
     """K2's launch: ``samples`` a block, ``pixels`` a chunk, ``threads``
     a block (whole warps), ``columns`` (both products, padded to whole
-    warps), ``shared_bytes`` a block and ``grid`` blocks of samples; each
-    takes ``slice_columns`` of the padded columns, one of ``slices``
-    column slices (the grid's y)."""
+    warps), ``shared_bytes`` a block and ``grid`` blocks."""
 
     samples: int
     pixels: int
@@ -72,8 +71,6 @@ class CapGeometry(NamedTuple):
     columns: int
     shared_bytes: int
     grid: int
-    slice_columns: int
-    slices: int
 
 
 def _cap_shared_bytes(ts: int, tn: int, ncp: int, n_extra: int, elem: int = 4) -> int:
@@ -113,7 +110,7 @@ def cap_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
     column: the fewest waves over ``sms`` blocks at once, each wave as
     even as the block allows.  Pixel chunks are 32 wide, 16 where N <= 16
     or 32 does not fit in shared memory.  Raises ``ValueError`` where the
-    block cannot hold the bases (:func:`sliced_cap_geometry` can)."""
+    block cannot hold the bases (:func:`wide_cap_geometry` can)."""
     ncp = _padded_columns(k, kp)
     warps_across = ncp // CAP_WARP_COLUMNS
 
@@ -136,50 +133,91 @@ def cap_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
     return CapGeometry(
         samples=ts, pixels=tn, threads=threads_of(ts), columns=ncp,
         shared_bytes=_cap_shared_bytes(ts, tn, ncp, n_extra, elem), grid=-(-S // ts),
-        slice_columns=ncp, slices=1,
     )
 
 
-def sliced_cap_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
-                        elem: int = 4) -> CapGeometry:
-    """K2's launch geometry for bases one block cannot hold: the padded
-    columns cut into the fewest even slices of at most 12 warps across
-    (the thread bound at one warp of sample groups), each slice's block
-    the most samples (whole warps of sample groups, no more than S needs)
-    whose threads and shared bytes fit, in 16-pixel chunks (the sliced
-    instantiation's: a slice of 7 to 12 warps across holds no 32-pixel
-    basis chunk)."""
+# K2's wide kernel (csrc/logmvn_cap_wide.cu): output tiles of 64 samples x
+# 256 columns of B | u, 16 warps of 32 x 32 on the tensor cores, 16-pixel
+# chunks through a ring of 3 stages; the pair basis padded to whole warps
+WIDE_CAP_SAMPLES = 64
+WIDE_CAP_COLUMNS = 256
+WIDE_CAP_PIXELS = 16
+WIDE_CAP_THREADS = 512
+WIDE_CAP_WARP_COLUMNS = 32
+WIDE_CAP_STAGES = 3
+
+
+class WideCapGeometry(NamedTuple):
+    """K2's wide launch: ``samples`` and ``columns`` a tile, ``pixels`` a
+    chunk, ``pair_columns`` (the pair basis padded to whole warps: the M
+    columns start there), ``tiles`` column tiles, ``threads`` and
+    ``shared_bytes`` a block and ``grid`` blocks, one an output tile, the
+    column tiles of a sample tile consecutive."""
+
+    samples: int
+    pixels: int
+    columns: int
+    pair_columns: int
+    tiles: int
+    threads: int
+    shared_bytes: int
+    grid: int
+
+
+def _wide_cap_shared_bytes(n_extra: int, elem: int, samples: int, columns: int,
+                           stages: int) -> int:
+    """The basis ring (rows of ``columns`` + 8 floats), the assembled w | r
+    tile split into hi and lo (two buffers, rows of ``samples`` + 8
+    floats), the ring of the chunk's 5 spectrum rows, and the sample-stream
+    ring (rows of 16 + 16 / elem elements), the rings ``stages`` deep."""
+    floats = (stages * WIDE_CAP_PIXELS * (columns + 8)
+              + 2 * 4 * WIDE_CAP_PIXELS * (samples + 8)
+              + stages * 5 * WIDE_CAP_PIXELS)
+    return 4 * floats + elem * stages * (1 + n_extra) * samples * (
+        WIDE_CAP_PIXELS + 16 // elem)
+
+
+def wide_cap_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0, elem: int = 4,
+                      samples: int = WIDE_CAP_SAMPLES, columns: int = WIDE_CAP_COLUMNS,
+                      stages: int = WIDE_CAP_STAGES) -> WideCapGeometry:
+    """K2's wide launch for S samples, N pixels, a GP basis of k columns, a
+    pair basis of kp (packed or flat) and sample streams of ``elem`` bytes
+    an element: a block for every ``samples`` samples and ``columns``
+    padded columns of B | u (the pair basis padded to a multiple of 32,
+    then M).  The tile and ring are the ones the kernel is compiled for
+    (others only for ``ops/cap_wide_sweep.py``'s builds)."""
     if S < 1 or N < 1 or k < 1:
         raise ValueError(f"empty problem: S={S}, N={N}, k={k}")
-    ncp = _padded_columns(k, kp)
-    warps = ncp // CAP_WARP_COLUMNS
-    across = CAP_MAX_THREADS // 32
-    slices = -(-warps // across)
-    ncb = CAP_WARP_COLUMNS * -(-warps // slices)
-
-    def fits(ts, tn):
-        return (32 * (ncb // CAP_WARP_COLUMNS) * ts // CAP_WARP_SAMPLES <= CAP_MAX_THREADS
-                and _cap_shared_bytes(ts, tn, ncb, n_extra, elem) <= MAX_DYNAMIC_SHARED_BYTES)
-
-    tn = 16
-    ts = CAP_WARP_SAMPLES
-    while ts < S and fits(ts + CAP_WARP_SAMPLES, tn):
-        ts += CAP_WARP_SAMPLES
-    return CapGeometry(
-        samples=ts, pixels=tn, threads=32 * (ncb // CAP_WARP_COLUMNS) * ts // CAP_WARP_SAMPLES,
-        columns=ncp, shared_bytes=_cap_shared_bytes(ts, tn, ncb, n_extra, elem),
-        grid=-(-S // ts), slice_columns=ncb, slices=-(-ncp // ncb),
+    kpp = WIDE_CAP_WARP_COLUMNS * -(-kp // WIDE_CAP_WARP_COLUMNS)
+    tiles = -(-(kpp + k) // columns)
+    return WideCapGeometry(
+        samples=samples, pixels=WIDE_CAP_PIXELS, columns=tiles * columns,
+        pair_columns=kpp, tiles=tiles, threads=WIDE_CAP_THREADS,
+        shared_bytes=_wide_cap_shared_bytes(n_extra, elem, samples, columns, stages),
+        grid=-(-S // samples) * tiles,
     )
+
+
+def wide_cap_basis(M: torch.Tensor, M_pair: torch.Tensor, g: WideCapGeometry) -> torch.Tensor:
+    """The basis as K2's wide kernel reads it: (N, ``g.columns``) rows of
+    ``[M_pair | 0 | M | 0]``, the M columns from ``g.pair_columns`` on, so
+    a tile's chunk is staged in 16-byte copies and each warp's columns take
+    one operand."""
+    N, k = M.shape
+    P = M.new_zeros((N, g.columns))
+    P[:, :M_pair.shape[1]] = M_pair
+    P[:, g.pair_columns:g.pair_columns + k] = M
+    return P
 
 
 def k2_geometry(S: int, N: int, k: int, kp: int, n_extra: int = 0,
-                sms: int = H100_SMS, elem: int = 4) -> CapGeometry:
+                sms: int = H100_SMS, elem: int = 4) -> CapGeometry | WideCapGeometry:
     """The geometry K2's wrapper launches: :func:`cap_geometry` where one
-    block holds the bases (k <= 53 packed at N = 1,280), else
-    :func:`sliced_cap_geometry`."""
+    block holds the bases (k <= 53 packed at N = 1,280), else the wide
+    kernel's :func:`wide_cap_geometry`."""
     if _cap_chunk(N, k, kp, n_extra, elem) is not None:
         return cap_geometry(S, N, k, kp, n_extra, sms, elem)
-    return sliced_cap_geometry(S, N, k, kp, n_extra, elem)
+    return wide_cap_geometry(S, N, k, kp, n_extra, elem)
 
 
 # K3's block (csrc/logmvn_chain.cu, K3_GEOMETRY): a warp per sample; per
@@ -286,8 +324,14 @@ def flat_chain_geometry(S: int, k: int, sms: int = H100_SMS) -> FlatChainGeometr
                              shared_bytes=shared, grid=grid)
 
 
-# K3's wide chain (csrc/logmvn_chain.cu): a block of 128 threads a
-# sample, for k beyond the warp chain's row bounds; at most 16 blocks an SM
+# K3's wide chain (csrc/logmvn_chain.cu), for k beyond the warp chain's row
+# bounds: a warp a sample, up to WIDE_CHAIN_WARPS a block, each warp's
+# buffer (the triangle, 3 floats of alignment, WIDE_CHAIN_PAD of padding, u)
+# in shared memory; past a block's shared bytes, a block of
+# WIDE_CHAIN_THREADS a sample with the triangle in a global workspace (at
+# most WIDE_CHAIN_BLOCKS_PER_SM blocks an SM), as K3's adjoint's wide kernel
+WIDE_CHAIN_WARPS = 8
+WIDE_CHAIN_PAD = 32
 WIDE_CHAIN_THREADS = 128
 WIDE_CHAIN_BLOCKS_PER_SM = 16
 
@@ -296,7 +340,9 @@ class WideChainGeometry(NamedTuple):
     """The wide chain's launch: ``threads`` a block, ``shared_bytes`` a
     block (0 where the triangle lives in the workspace), ``workspace``
     floats a block in global memory (0 where it lives in shared memory)
-    and ``grid`` blocks; block b takes the samples b, b + grid, ..."""
+    and ``grid`` blocks.  In shared memory a warp takes a sample: warp w
+    of the grid's T takes the samples ``w * S // T`` up to ``(w + 1) * S
+    // T``; in the workspace a block does: block b takes b, b + grid, ..."""
 
     threads: int
     shared_bytes: int
@@ -304,17 +350,30 @@ class WideChainGeometry(NamedTuple):
     grid: int
 
 
+def wide_chain_buffer_floats(k: int) -> int:
+    """Floats of a wide warp's buffer: the packed triangle, 3 floats of
+    alignment and WIDE_CHAIN_PAD of padding in whole float4s, then u in
+    whole float4s."""
+    return 4 * -(-(k * (k + 1) // 2 + 3 + WIDE_CHAIN_PAD) // 4) + 4 * -(-k // 4)
+
+
 def wide_chain_geometry(S: int, k: int, sms: int = H100_SMS) -> WideChainGeometry:
     """The wide chain's launch geometry for S samples of a k x k
-    capacitance (k > CHAIN_MAX_K) on ``sms`` SMs: the triangle and u in
-    shared memory where they fit a block, else in a global workspace; as
-    many blocks an SM as the shared bytes allow (at most 16), and no more
-    blocks than samples."""
+    capacitance (k > CHAIN_MAX_K) on ``sms`` SMs: a warp a sample where a
+    warp's buffer fits a block's shared memory (k <= 339), as many warps a
+    block (up to WIDE_CHAIN_WARPS) and blocks an SM as the shared bytes
+    allow, and :func:`_chain_grid`'s grid; else the workspace's block a
+    sample."""
     if k <= CHAIN_MAX_K:
         raise ValueError(f"the wide chain takes k > {CHAIN_MAX_K}, got k={k}")
     if S < 1:
         raise ValueError(f"K3 needs S >= 1, got S={S}")
-    return _wide_geometry(S, k * (k + 1) // 2 + k, sms)
+    buf = 4 * wide_chain_buffer_floats(k)
+    if buf > MAX_DYNAMIC_SHARED_BYTES:
+        return _wide_geometry(S, k * (k + 1) // 2 + k, sms)
+    warps = min(WIDE_CHAIN_WARPS, MAX_DYNAMIC_SHARED_BYTES // buf)
+    per_sm = SM_SHARED_BYTES // (warps * buf + 1024)
+    return WideChainGeometry(32 * warps, warps * buf, 0, _chain_grid(S, warps, per_sm, sms))
 
 
 def _wide_geometry(S: int, floats: int, sms: int) -> WideChainGeometry:
@@ -495,7 +554,7 @@ def logmvn_cap(
 ):
     """Stage A of the Woodbury likelihood: K2 on CUDA, its twin on the
     CPU (float32 ``rows``).  Same contract as :func:`logmvn_cap_reference`:
-    the kernel takes a basis of any width (in column slices where one
+    the kernel takes a basis of any width (on the wide kernel where one
     block cannot hold it, :func:`k2_geometry`), the packed one on the
     catalog paths and the flat k^2 one in the ablation's decoupled split,
     and the profiles as float32 or, all alike, as int16 codes (launched as
@@ -547,13 +606,18 @@ def logmvn_cap(
     misc = torch.empty((S, 2), dtype=torch.float32, device=device)
     e = list(extra) + [None] * (MAX_EXTRA_STREAMS - len(extra))
     lib = load_library()
+    streams = (ptr(absorption), ptr(e[0]), ptr(e[1]), ptr(e[2]), len(extra), int(i16), S)
+    outs = (ptr(B), ptr(u), ptr(misc), stream_ptr(device))
     with torch.cuda.device(device):
-        err = lib.logmvn_cap_launch(
-            ptr(rows), N, ptr(M), k, ptr(M_pair), kp, ptr(absorption),
-            ptr(e[0]), ptr(e[1]), ptr(e[2]), len(extra), int(i16), S,
-            g.samples, g.pixels, g.slice_columns, g.slices, g.threads, g.shared_bytes, g.grid,
-            ptr(B), ptr(u), ptr(misc), stream_ptr(device),
-        )
+        if isinstance(g, WideCapGeometry):
+            P = wide_cap_basis(M, M_pair, g)
+            err = lib.logmvn_cap_wide_launch(
+                ptr(rows), N, ptr(P), k, kp, *streams, g.samples, g.pixels, g.pair_columns,
+                g.tiles, g.threads, g.shared_bytes, g.grid, *outs)
+        else:
+            err = lib.logmvn_cap_launch(
+                ptr(rows), N, ptr(M), k, ptr(M_pair), kp, *streams, g.samples, g.pixels,
+                g.threads, g.shared_bytes, g.grid, *outs)
     name = store_name("logmvn_cap", store)
     check_launch(name, err)
     launch_counts[name] += 1

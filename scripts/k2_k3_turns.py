@@ -18,9 +18,16 @@ packed basis, seed 7) at N = 1,280 with 0 and 3 chained streams and at N
 (``logmvn_cap``) at each of the six and K3 (``logmvn_chain``) on K2's
 float32 output at N = 1,280, by the profiler over 50 launches with every
 launch recorded (this checkout's ``ops/timing.py``, loaded on its own).
-It prints each turn's device ms, then for each output whether the two
-checkouts' are equal bit for bit (through a temporary directory, removed
-at the end).
+The wide bases follow: k = 54 (one column past K2's block at N = 1,280)
+and 65 (one past K3's warp chain), S = 10,000, N = 1,280, 3 chained
+streams, float32 and int16 (the construction of
+``tests/test_torch_kernels_gpu.py``, seed k): K2's device ms at each (every
+device record of a call), K3's on K2's float32 output, and the likelihood
+K3 gives on each checkout's own K2 output.  It prints each turn's device ms, then for each output
+whether the two checkouts' are equal bit for bit, and for the wide
+likelihoods (whose arithmetic a redesign may change) the largest |dll|
+between the checkouts beside the largest |ll| (through a temporary
+directory, removed at the end).
 """
 
 from __future__ import annotations
@@ -35,6 +42,27 @@ from pathlib import Path
 
 TIMING = Path(__file__).resolve().parent.parent / "gpy_dla_detection_tpu_torch" / "ops" / "timing.py"
 SHAPES = {"N1280": (1280, 0), "N1280_3streams": (1280, 3), "N1664": (1664, 0)}
+WIDE_KS = (54, 65)
+
+
+def wide_problem(k, device, np, torch):
+    """tests/test_torch_kernels_gpu.py's construction at S = 10,000, N =
+    1,280, 3 chained streams, seed k: rows, M, the packed basis, A, streams."""
+    from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import packed_pair_basis
+
+    rng = np.random.default_rng(k)
+    S, N = 10_000, 1280
+    put = lambda x: torch.as_tensor(x, device=device)
+    M = (rng.normal(size=(N, k)) / np.sqrt(k) * 0.1).astype(np.float32)
+    y = (1 + 0.1 * rng.normal(size=N)).astype(np.float32)
+    mu = np.ones(N, np.float32)
+    omega2 = rng.uniform(0.01, 0.05, N).astype(np.float32)
+    v = rng.uniform(0.02, 0.1, N).astype(np.float32)
+    mask = rng.uniform(size=N) > 0.1
+    A = np.exp(-rng.random((S, N))).astype(np.float32)
+    extra = [np.exp(-0.3 * rng.random((S, N))).astype(np.float32) for _ in range(3)]
+    rows = put(np.stack([y, mu, omega2, v, mask.astype(np.float32)]))
+    return rows, put(M), packed_pair_basis(put(M)), put(A), [put(e) for e in extra]
 
 
 def worker(root: Path, out: Path) -> None:
@@ -65,6 +93,18 @@ def worker(root: Path, out: Path) -> None:
             if store == "f32" and name == "N1280":
                 arrays[f"{store}_{name}_ll"] = logmvn_chain(*cap)
                 times["K3_f32_N1280"] = timing.device_ms(lambda: logmvn_chain(*cap))[0]
+    for k in WIDE_KS:
+        rows, M, Mp, A, extra = wide_problem(k, device, np, torch)
+        for store, (a, ex) in (("f32", (A, extra)), ("i16", (i16(A), [i16(e) for e in extra]))):
+            cap = logmvn_cap(rows, M, Mp, a, ex)
+            # every device record of the wrapper (the wide kernel's padded
+            # basis is laid out by a fill and two copies)
+            times[f"K2_{store}_k{k}"] = timing.device_ms(
+                lambda: logmvn_cap(rows, M, Mp, a, ex), kernels=None)[0]
+            arrays[f"wide_{store}_k{k}_ll"] = logmvn_chain(*cap)
+            if store == "f32":
+                times[f"K3_f32_k{k}"] = timing.device_ms(lambda: logmvn_chain(*cap))[0]
+        del cap
     np.savez(out, **{k: v.cpu().numpy() for k, v in arrays.items()})
     print(json.dumps({"root": str(root), "card": torch.cuda.get_device_name(0), **times}))
 
@@ -100,7 +140,9 @@ def main() -> None:
     for name in base.files:
         same = np.array_equal(base[name], changed[name], equal_nan=True)
         diff = float(np.nanmax(np.abs(base[name].astype(np.float64) - changed[name])))
-        print(f"{name}: bitwise equal {same}, max |d| {diff:.3e}", flush=True)
+        scale = (f", max |ll| {float(np.nanmax(np.abs(base[name]))):.6g}"
+                 if name.startswith("wide_") else "")
+        print(f"{name}: bitwise equal {same}, max |d| {diff:.3e}{scale}", flush=True)
     tmp.cleanup()
 
 

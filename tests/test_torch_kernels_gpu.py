@@ -33,14 +33,18 @@ of the largest |value| for the stages that stop early; ``chain_nodot``
 k = 1, 4, 5, 20, 24 and the largest k its block holds (53 at N = 1,280),
 at S = 1, 79, 80, 81, 1,001 and 10,000, N = 17, 1,280 and 1,281, and its
 refusal one past; the flat chain at k = 1 to 64 in both layouts, with NaN
-where its twin gives NaN, and its refusal at k = 65.  Wide GP bases: K2
-in column slices (k = 54, 65, 100 and 341 packed, 40 flat) and K3's wide
-chain (k = 65, 100, 339 in shared memory, 340 and 341 in its global
-workspace; NaN where its twin gives NaN) to the same 1e-6 |ll|; the
-likelihood at k = 54 and 65 runs K2 and K3 (never the composition, which
-refuses a card tensor) within the reference's float32 budget (median
-|dll| 7.4e-4, max 3.8e-3) of the CPU float64 value, in both storages, as
-k = 20 does.
+where its twin gives NaN, and its refusal at k = 65.  Wide GP bases: K2's
+wide kernel, on the tensor cores in 3xTF32 (k = 54, 65, 100 and 341
+packed, 40 flat; its edges: sample counts one past and one short of a
+multiple of its 64-sample tile, the odd N = 1,281 in both storages, int16 rows aligned
+to 2 and 4 bytes only, k = 54 and 60 whose column tiles mix the pair
+basis, padding and M, narrow bases k = 1, 5 and 20 launched on it
+directly) and K3's wide chain, a warp a sample (k = 65, 100, 339 in shared
+memory, 340 and 341 in its global workspace; NaN where its twin gives
+NaN) to the same 1e-6 |ll|; the likelihood at k = 54 and 65 runs K2 and
+K3 (never the composition, which refuses a card tensor) within the
+reference's float32 budget (median |dll| 7.4e-4, max 3.8e-3) of the CPU
+float64 value, in both storages, as k = 20 does.
 
 The int16 instantiations (compact profile storage) are held to their twins
 by codes: K1, K5 and K6 to max |dcode| <= 1 (kernel and twin differ by
@@ -93,6 +97,8 @@ from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
     logmvn_chain_grad_reference,
     logmvn_chain_reference,
     packed_pair_basis,
+    wide_cap_basis,
+    wide_cap_geometry,
 )
 from gpy_dla_detection_tpu_torch.ops.voigt import (
     instrumental_broadening,
@@ -228,7 +234,7 @@ def _route_problem(device, k, S, n_extra, store):
 @pytest.mark.parametrize("n_extra", [0, 3])
 @pytest.mark.parametrize("k", [54, 65])
 def test_likelihood_takes_the_kernels_for_a_wide_basis(cuda_device, k, n_extra, store):
-    """A GP basis wider than one K2 block holds runs K2 in column slices
+    """A GP basis wider than one K2 block holds runs K2's wide kernel
     and then K3 (its wide chain past k = 64), never the composition,
     within the float32 budget of the CPU float64 path; the composition
     refuses the card's tensors."""
@@ -301,8 +307,8 @@ def test_cap_kernel_with_uneven_assembly_quads(cuda_device):
     assert err <= REL_K23 * scale
 
 
-# bases one block cannot hold: column slices (2, 2, 4 and 39 of them; the
-# flat k = 40 basis 2), a lone sample and an uneven count
+# bases one block cannot hold: the wide kernel (7, 9, 21 and 230 column
+# tiles; the flat k = 40 basis 7), a lone sample and an uneven count
 @pytest.mark.parametrize("S", [1, 1001])
 @pytest.mark.parametrize("n_extra", [0, 3])
 @pytest.mark.parametrize("k,basis", [(54, "packed"), (65, "packed"), (100, "packed"),
@@ -314,6 +320,82 @@ def test_cap_kernel_in_column_slices_matches_twin(cuda_device, k, basis, n_extra
     err, scale = _k2_ll_error(cuda_device, k, basis, min(S, 64) if k > 300 else S, 1280,
                               n_extra)
     assert err <= REL_K23 * scale
+
+
+# the wide kernel's edges: sample counts one past and one short of a
+# multiple of its 64-sample tile; the odd N = 1,281 (4-byte float32
+# copies); k = 54 (its M columns split over two tiles: tile 5 holds 7
+# pair-basis warps, the last partly padding, and an M warp; tile 6 22 M
+# columns and padding) and 60 (a tile of 2 pair-basis warps, 2 M warps
+# and 4 warps of padding)
+@pytest.mark.parametrize("k, N, S", [(54, 1280, 129), (54, 1280, 255), (54, 1281, 1001),
+                                     (60, 1280, 1001), (60, 1281, 129)])
+@pytest.mark.parametrize("n_extra", [0, 3])
+def test_wide_cap_kernel_at_its_edges(cuda_device, k, N, S, n_extra):
+    err, scale = _k2_ll_error(cuda_device, k, "packed", S, N, n_extra)
+    assert err <= REL_K23 * scale
+
+
+# int16 codes on the wide kernel: the odd N = 1,281 (plain loads), rows
+# aligned to 2 bytes (offset 1: plain loads) and to 4 (offset 2: 2 codes a
+# copy), and the 16-byte copies of N = 1,280
+@pytest.mark.parametrize("N, offset", [(1281, 0), (1280, 1), (1280, 2), (1280, 0)])
+def test_wide_cap_kernel_int16_matches_twin(cuda_device, N, offset):
+    rel, rel32, _ = _k2_int16(cuda_device, N, 1001, 54, 3, offset=offset)
+    assert rel <= REL_K23 and rel32 <= REL_K23
+
+
+def _wide_k2_direct(device, k, S, N, n_extra):
+    """The wide kernel launched on a basis one K2 block holds (its launcher
+    takes any k), through the twin chain against the twin: max |dll| and
+    max |ll|."""
+    (y, mu, M, omega2, v, mask), A, extra = _problem(device, N=N, k=k, S=S, n_extra=n_extra)
+    rows = torch.stack([y, mu, omega2, v, mask.float()])
+    Mp = packed_pair_basis(M)
+    kp = Mp.shape[1]
+    g = wide_cap_geometry(S, N, k, kp, n_extra)
+    P = wide_cap_basis(M, Mp, g)
+    B = torch.empty((S, kp), device=device)
+    u = torch.empty((S, k), device=device)
+    misc = torch.empty((S, 2), device=device)
+    e = [_build.ptr(x) for x in extra] + [_build.ptr(None)] * (3 - n_extra)
+    err = _build.load_library().logmvn_cap_wide_launch(
+        _build.ptr(rows), N, _build.ptr(P), k, kp, _build.ptr(A), *e,
+        n_extra, 0, S, g.samples, g.pixels, g.pair_columns, g.tiles, g.threads,
+        g.shared_bytes, g.grid, _build.ptr(B), _build.ptr(u), _build.ptr(misc),
+        _build.stream_ptr(device))
+    _build.check_launch("logmvn_cap_wide", err)
+    torch.cuda.synchronize()
+    ll_twin = logmvn_chain_reference(*logmvn_cap_reference(rows, M, Mp, A, extra))
+    return (float((logmvn_chain_reference(B, u, misc) - ll_twin).abs().max()),
+            float(ll_twin.abs().max()))
+
+
+# narrow bases on the wide kernel: one tile holds B and u (k = 1, 5, 20:
+# the main path's, 7 pair-basis warps and an M warp)
+@pytest.mark.parametrize("k", [1, 5, 20])
+@pytest.mark.parametrize("n_extra", [0, 3])
+def test_wide_cap_kernel_at_narrow_bases(cuda_device, k, n_extra):
+    err, scale = _wide_k2_direct(cuda_device, k, 1001, 1280, n_extra)
+    assert err <= REL_K23 * scale
+
+
+def test_wide_cap_launcher_refuses_another_geometry(cuda_device):
+    """Any geometry but wide_cap_geometry's is refused before launch."""
+    S, N, k = 16, 64, 54
+    kp = k * (k + 1) // 2
+    g = wide_cap_geometry(S, N, k, kp, 0)
+    x = torch.zeros((S, max(N, kp)), device=cuda_device)
+    lib = _build.load_library()
+    for bad in (g._replace(tiles=g.tiles + 1), g._replace(shared_bytes=g.shared_bytes + 16),
+                g._replace(grid=g.grid - 1), g._replace(threads=128),
+                g._replace(pair_columns=kp)):
+        err = lib.logmvn_cap_wide_launch(
+            _build.ptr(x), N, _build.ptr(x), k, kp, _build.ptr(x), *[
+                _build.ptr(None)] * 3, 0, 0, S, bad.samples, bad.pixels, bad.pair_columns,
+            bad.tiles, bad.threads, bad.shared_bytes, bad.grid, _build.ptr(x), _build.ptr(x),
+            _build.ptr(x), _build.stream_ptr(cuda_device))
+        assert err != 0, bad
 
 
 # S: a lone sample, either side of the main path's 80-sample block, the
@@ -1028,7 +1110,9 @@ def test_device_ms_windows_hold_every_launch(cuda_device):
     Mp = packed_pair_basis(M)
     for _ in range(10):
         assert device_ms(lambda: logmvn_chain(B, u, misc), tries=1)[0] > 0
-        assert device_ms(lambda: logmvn_cap(rows, M, Mp, A, extra), tries=1)[0] > 0
+        # K2 at k = 54 is the wide kernel: its wrapper lays the basis out
+        # (a fill and two copies) and launches it, 4 device records a call
+        assert device_ms(lambda: logmvn_cap(rows, M, Mp, A, extra), kernels=4, tries=1)[0] > 0
 
 
 def _grad_inputs(device, k, S):
