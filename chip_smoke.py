@@ -399,6 +399,10 @@ TF32_OPS_PER_S = 495e12
 # column slices and 128-thread wide chain, the profiler, NVIDIA H100 80GB
 # HBM3, 700.00 W), printed beside this run's
 WIDE_EARLIER_MS = {"K2 k=54": 4.0116, "K2 k=65": 5.3576, "K3 wide k=65": 1.2379}
+# K3's adjoint before its redesign (PERF.md section 6: the Cholesky
+# inverse's device ms by the profiler, NVIDIA H100 80GB HBM3, 700.00 W),
+# printed beside this run's
+ADJOINT_EARLIER_MS = {"k=20 Q=4096": 0.0723, "k=20 Qc=4064": 0.0723, "k=65 Q=4096": 2.0515}
 
 LOGMVN = "gpy_dla_detection_tpu/ops/logmvn_pallas.py"
 KERNELS = {
@@ -2607,8 +2611,15 @@ def main() -> None:
         return (TT.TrainingParams.from_numpy(fields, device),
                 tuple(torch.as_tensor(x, device=device) for x in arrays))
 
-    # K3's adjoint against its twin on the synthetic problem's own inputs
-    grad_inputs, grad_rel = {}, {}
+    def rel_to_float64(outs, B_, u_, misc_, g_):
+        """Each output's max |d| over its max |.| against the twin in
+        float64 on the card, on the same float32 inputs."""
+        want = logmvn_chain_grad_reference(*(x.double() for x in (B_, u_, misc_, g_)))
+        return [float((a.double() - b).abs().max() / b.abs().max()) for a, b in zip(outs, want)]
+
+    # K3's adjoint against its twin on the synthetic problem's own inputs,
+    # and both against the twin in float64
+    grad_inputs, grad_rel, grad_rel64 = {}, {}, {}
     for k_ in TRAIN_GRAD_KS:
         p_, args_ = train_problem(TRAIN_Q, k_, seed=k_)
         with torch.no_grad():
@@ -2620,6 +2631,8 @@ def main() -> None:
         check(all(bool(torch.isfinite(x).all()) for x in got_), f"K3's adjoint k={k_}: non-finite")
         grad_rel[k_] = [float((a - b).abs().max()) / float(b.abs().max())
                         for a, b in zip(got_, want_)]
+        grad_rel64[k_] = (rel_to_float64(got_, B_, u_, misc_, g_),
+                          rel_to_float64(want_, B_, u_, misc_, g_))
         check(max(grad_rel[k_]) <= REL_K3_GRAD,
               f"K3's adjoint k={k_}: |d| / max (dB, du, dmisc) {grad_rel[k_]} > {REL_K3_GRAD}")
         name = "logmvn_chain_grad_wide" if k_ > 64 else "logmvn_chain_grad"
@@ -2711,7 +2724,7 @@ def main() -> None:
     # the adjoint's device time, beside K3's forward on the same inputs,
     # its bound and the library yardstick (on no path): cholesky_ex +
     # cholesky_inverse of the unpacked I + B
-    grad_extra = {}
+    grad_extra, grad_before = {}, {}
     for name, k_ in (("logmvn_chain_grad", params.k), ("logmvn_chain_grad_wide",
                                                        TRAIN_GRAD_KS[-1])):
         B_, u_, misc_, g_ = grad_inputs[k_]
@@ -2723,15 +2736,27 @@ def main() -> None:
             lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(full_)[0]))
         k3_device[name] = device_ms(lambda: logmvn_chain_grad(B_, u_, misc_, g_))
         forward = device_ms(lambda: logmvn_chain(B_, u_, misc_))[0]
+        grad_before[name] = ADJOINT_EARLIER_MS[f"k={k_} Q={TRAIN_Q}"]
         grad_extra[name] = {"note": GRAD_NOTE, "k": k_, "S": TRAIN_Q,
                             "device_ms_forward": forward,
                             "max_rel_err": max(grad_rel[k_])}
     grad_dev = {n: k3_device[n][0] for n in grad_extra}
+    # the adjoint's registers and spill bytes a thread, from ptxas
+    build_log = _build.library_path("kernels").with_suffix(".log").read_text()
+    grad_log = build_log.split("== logmvn_chain_grad.cu")[1].split("\n== ")[0]
+    grad_regs = {f"KMAX {m}": u for (m,), u in
+                 _build.ptxas_usage(grad_log, r"logmvn_chain_grad_kernelILi(\d+)E").items()}
+    grad_regs.update({"workspace" if w == "1" else "wide": u for (w,), u in
+                      _build.ptxas_usage(grad_log, r"logmvn_chain_grad_wide_kernelILb(\d)E").items()})
     print(f"[19 train] {card} | R={rest_pixels} k={params.k} {num_lines} forest lines, float32 | "
           f"K3's adjoint vs twin at Q={TRAIN_Q}, |d| / max|.| (dB, du, dmisc; tol "
           f"{REL_K3_GRAD}): "
           + ", ".join(f"k={k_} " + "/".join(f"{r:.2e}" for r in rel)
                       for k_, rel in grad_rel.items())
+          + "; vs the float64 twin, kernel | float32 twin: "
+          + ", ".join(f"k={k_} " + "/".join(f"{r:.2e}" for r in kern) + " | "
+                      + "/".join(f"{r:.2e}" for r in twin)
+                      for k_, (kern, twin) in grad_rel64.items())
           + f" | golden vs JAX float64 (tests/data/torch_golden_train.npz, Q="
           f"{len(gt['z_qso'])}): losses {gt_loss_rel:.3e} of max|loss| {np.abs(gt['losses']).max():.1f} "
           f"(tol {REL_TRAIN_LOSS}), gradients of each block's max|g| (tol {REL_TRAIN_GRAD}): "
@@ -2747,8 +2772,11 @@ def main() -> None:
           f"times sum to {train_sum_ms:.2f} ms; user annotations left out), peak memory "
           f"{train_peak_mib:.1f} MiB "
           f"above the {train_mem_before / 2**20:.1f} MiB held | k=65 evaluation: launches "
-          f"{path_launches['train_wide_basis']} | device ms (profiler, 50 launches): "
-          + ", ".join(f"{n} (k={grad_extra[n]['k']}) {grad_dev[n]:.4f} vs K3 forward "
+          f"{path_launches['train_wide_basis']} | ptxas (registers, spill bytes) by row bound: "
+          + ", ".join(f"{m} {r}/{sp}" for m, (r, sp) in grad_regs.items())
+          + " | device ms (profiler, 50 launches): "
+          + ", ".join(f"{n} (k={grad_extra[n]['k']}) {grad_dev[n]:.4f} (before the redesign "
+                      f"{grad_before[n]}) vs K3 forward "
                       f"{grad_extra[n]['device_ms_forward']:.4f}, bound {bounds[n][0]:.4f} "
                       f"({bounds[n][1]}), synchronised {ms[n][0]:.3f} vs twin {ms[n][1]:.3f}, "
                       f"library cholesky_ex + cholesky_inverse {library[n]:.3f}"
@@ -2821,6 +2849,8 @@ def main() -> None:
     want_c = logmvn_chain_grad_reference(*chunk_in, g_chunk_in)
     chunk_grad_rel = [float((a - b).abs().max()) / float(b.abs().max())
                       for a, b in zip(got_c, want_c)]
+    chunk_grad_rel64 = (rel_to_float64(got_c, *chunk_in, g_chunk_in),
+                        rel_to_float64(want_c, *chunk_in, g_chunk_in))
     check(chunk_k3_rel <= REL_K23 and max(chunk_grad_rel) <= REL_K3_GRAD,
           f"K3 / its adjoint at Qc={Qc}: {chunk_k3_rel:.2e} (tol {REL_K23}) / {chunk_grad_rel} "
           f"(tol {REL_K3_GRAD})")
@@ -2962,9 +2992,12 @@ def main() -> None:
           f"{peak_chunk:.1f} MiB ({wall_chunk:.1f} ms), unchunked {peak_full:.1f} MiB "
           f"({wall_full:.1f} ms); at Qc={Qc} K3 vs twin {chunk_k3_rel:.2e} of max|ll|, the "
           f"adjoint " + "/".join(f"{r:.2e}" for r in chunk_grad_rel)
+          + "; vs the float64 twin, the adjoint " + "/".join(f"{r:.2e}" for r in chunk_grad_rel64[0])
+          + ", the float32 twin " + "/".join(f"{r:.2e}" for r in chunk_grad_rel64[1])
           + f"; device ms (profiler, 50 launches): K3 {chunk_dev['logmvn_chain']:.4f} (bound "
           f"{chunk_bound['logmvn_chain']:.4f}), adjoint {chunk_dev['logmvn_chain_grad']:.4f} "
-          f"(bound {chunk_bound['logmvn_chain_grad']:.4f}) | (b) golden in "
+          f"(bound {chunk_bound['logmvn_chain_grad']:.4f}; before the redesign "
+          f"{ADJOINT_EARLIER_MS[f'k={params.k} Qc={Qc}']}) | (b) golden in "
           f"{TRAIN_GOLDEN_CHUNKS} chunks: total {gt_chunk_rel:.3e} of sum|loss| (tol "
           f"{REL_TRAIN_LOSS}), gradients " + ", ".join(f"{n} {r:.3e}"
                                                        for n, r in gt_chunk_grad.items())

@@ -21,9 +21,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+import time
 from collections import Counter
 from pathlib import Path
 
@@ -255,3 +257,76 @@ def load_library(name: str = "kernels") -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _libs[name] = lib
     return _libs[name]
+
+
+def build_variants(tag: str, sources, variants, launchers=(), first_alone: bool = False):
+    """Rebuild ``sources`` (under ``csrc/``) once for each of ``variants``,
+    a dict of macros each, defined ahead of the sources, into a shared
+    library of its own in ``csrc/build/``: one ``nvcc`` a variant, all at
+    once (the first alone before the others when ``first_alone``).  The
+    ``launchers`` of each library get their argument types.  Returns
+    [(CDLL, its path, ptxas output, nvcc seconds)] in the variants' order;
+    a failed build raises."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for i, macros in enumerate(variants):
+        # nvcc splits a -D value at its commas, so the macros come from a
+        # source of its own that includes the kernels'
+        stem = BUILD_DIR / f"{tag}_{i}"
+        src, so = stem.with_suffix(".cu"), stem.with_suffix(".so")
+        src.write_text("".join(f"#define {m} {v}\n" for m, v in macros.items())
+                       + "".join(f"#include \"{CSRC / name}\"\n" for name in sources))
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-shared", "-o", str(so), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((macros, so, proc, time.perf_counter()))
+        if i == 0 and first_alone:
+            proc.wait()
+    built = []
+    for macros, so, proc, t0 in jobs:
+        out, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {macros}:\n{out}")
+        lib = ctypes.CDLL(str(so))
+        for fn in launchers:
+            getattr(lib, fn).argtypes = _SIGNATURES["kernels"][fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        built.append((lib, so, out, seconds))
+    return built
+
+
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """Registers and spill store bytes a thread, from ptxas's ``-v`` output
+    ``log``, of each kernel whose mangled name matches the regular
+    expression ``kernel``: {the match's groups: (registers, spill bytes)}."""
+    usage = {}
+    for block in log.split("Compiling entry function")[1:]:
+        inst = re.search(kernel, block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        if inst and regs:
+            usage[inst.groups()] = (int(regs.group(1)), int(spill.group(1)) if spill else 0)
+    return usage
+
+
+def sass_census(so, kernel: str, opcodes, converged: bool = False) -> dict:
+    """Instructions by opcode in the SASS (``cuobjdump``) of each kernel of
+    library ``so`` whose mangled name matches ``kernel``: {the match's
+    groups: (instructions, {opcode: count})} for ``opcodes``.  With
+    ``converged``, only the code ahead of the first divergent branch's
+    target."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    census = {}
+    for body in text.split("Function : ")[1:]:
+        inst = re.match(r"\S*" + kernel, body)
+        if not inst:
+            continue
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)
+        div = [int(t, 16) for t in re.findall(r"BRA\.DIV \w+, (0x[0-9a-f]+)", body)]
+        end = min(div) if converged and div else None
+        ops = Counter(op.split(".")[0] for a, op in ins if end is None or int(a, 16) < end)
+        census[inst.groups()] = (sum(ops.values()), {o: ops[o] for o in opcodes})
+    return census

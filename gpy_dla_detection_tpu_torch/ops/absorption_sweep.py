@@ -38,7 +38,6 @@ import ctypes
 import re
 import shutil
 import subprocess
-from collections import Counter
 
 import numpy as np
 import torch
@@ -77,44 +76,19 @@ OPCODES = ("FFMA", "FMUL", "FADD", "MUFU", "FSETP", "LDS", "STS", "STG", "LDG", 
 
 def build_variants():
     """One library per build: [(name, geometry, CDLL, its path, ptxas output)]."""
-    nvcc = _build._nvcc()
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name, geo, stages in BUILDS:
-        # nvcc splits a -D value at its commas, so the macros come from a
-        # source of its own that includes the kernel's
-        stem = _build.BUILD_DIR / f"k1_sweep_{'_'.join(map(str, geo))}_{stages}"
-        src, so = stem.with_suffix(".cu"), stem.with_suffix(".so")
-        src.write_text(f"#define K1_GEOMETRY {', '.join(map(str, geo))}\n"
-                       f"#define K1_STAGES {stages}\n"
-                       f"#include \"{_build.CSRC / 'absorption_all.cu'}\"\n")
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(src)]
-        jobs.append((name, geo, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                     stderr=subprocess.STDOUT, text=True)))
-    built = []
-    for name, geo, so, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        lib = ctypes.CDLL(str(so))
-        for fn in ("absorption_all_launch", "absorption_all_upload"):
-            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        built.append((name, geo, lib, so, out))
-    return built
+    built = _build.build_variants(
+        "k1_sweep", ("absorption_all.cu",),
+        [{"K1_GEOMETRY": ", ".join(map(str, geo)), "K1_STAGES": stages}
+         for _, geo, stages in BUILDS],
+        ("absorption_all_launch", "absorption_all_upload"))
+    return [(name, geo, lib, so, log)
+            for (name, geo, _), (lib, so, log, _) in zip(BUILDS, built)]
 
 
 def ptxas_usage(log: str) -> dict:
     """Instantiation (lines, poly) -> (registers, spill store bytes)."""
-    usage = {}
-    for block in log.split("Compiling entry function")[1:]:
-        inst = re.search(r"absorption_all_kernelILi(\d+)ELb(\d)E", block)
-        regs = re.search(r"Used (\d+) registers", block)
-        spill = re.search(r"(\d+) bytes spill stores", block)
-        if inst and regs:
-            usage[(int(inst.group(1)), bool(int(inst.group(2))))] = (
-                int(regs.group(1)), int(spill.group(1)) if spill else 0)
-    return usage
+    return {(int(lines), bool(int(poly))): u for (lines, poly), u in
+            _build.ptxas_usage(log, r"absorption_all_kernelILi(\d+)ELb(\d)E").items()}
 
 
 def k1_sass(so) -> list[str]:
@@ -126,18 +100,10 @@ def k1_sass(so) -> list[str]:
             if re.match(r"\S*absorption_all_kernel", body)]
 
 
-def sass_census(bodies) -> dict:
+def sass_census(so) -> dict:
     """Instantiation (lines, poly) -> (instructions, opcode counts)."""
-    census = {}
-    for body in bodies:
-        inst = re.match(r"\S*absorption_all_kernelILi(\d+)ELb(\d)E", body)
-        if not inst:
-            continue
-        ops = Counter(op.split(".")[0] for op in re.findall(
-            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body))
-        census[(int(inst.group(1)), bool(int(inst.group(2))))] = (
-            sum(ops.values()), {o: ops[o] for o in OPCODES})
-    return census
+    return {(int(lines), bool(int(poly))): c for (lines, poly), c in
+            _build.sass_census(so, r"absorption_all_kernelILi(\d+)ELb(\d)E", OPCODES).items()}
 
 
 def main_path_inputs(device):
@@ -266,11 +232,10 @@ def main() -> None:
     for (cname, poly, bname), ts in times.items():
         print(f"[time] {cname} {'poly' if poly else 'weideman'} {bname}: "
               + " / ".join(f"{t:.4f}" for t in ts) + " ms (CUDA events, 50 launches)")
-    bodies = k1_sass(built[0][3])
     if args.sass:
         with open(args.sass, "w") as fh:
-            fh.write("".join(f"Function : {body}" for body in bodies))
-    for (l, p), (n, ops) in sorted(sass_census(bodies).items()):
+            fh.write("".join(f"Function : {body}" for body in k1_sass(built[0][3])))
+    for (l, p), (n, ops) in sorted(sass_census(built[0][3]).items()):
         print(f"[sass] shipped {'poly' if p else 'weideman'} L={l if l else 'any'}: {n} "
               "instructions, " + ", ".join(f"{o} {c}" for o, c in ops.items()))
     print(card)

@@ -36,11 +36,7 @@ root:
 
 from __future__ import annotations
 
-import ctypes
-import re
-import shutil
 import subprocess
-from collections import Counter
 
 import numpy as np
 import torch
@@ -70,56 +66,28 @@ OPCODES = ("HMMA", "LDS", "STS", "LDGSTS", "LDG", "STG", "BAR", "FFMA", "FADD", 
 def build_variants():
     """One library per tile and ablation: [(tile, ablation, CDLL, its path,
     ptxas output)]."""
-    nvcc = _build._nvcc()
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for tile in VARIANTS:
-        for ab in ABLATIONS if tile == VARIANTS[0] else (0,):
-            stem = _build.BUILD_DIR / f"cap_wide_sweep_{'x'.join(map(str, tile))}_{ab}"
-            src, so = stem.with_suffix(".cu"), stem.with_suffix(".so")
-            src.write_text(f"#define CAP_WIDE_ABLATE {ab}\n#define CAP_WIDE_BM {tile[0]}\n"
-                           f"#define CAP_WIDE_BN {tile[1]}\n#define CAP_WIDE_STAGES {tile[2]}\n"
-                           f"#include \"{_build.CSRC / 'logmvn_cap_wide.cu'}\"\n")
-            cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(src)]
-            jobs.append((tile, ab, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                        stderr=subprocess.STDOUT, text=True)))
-    built = []
-    for tile, ab, so, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for tile {tile}, ablation {ab}:\n{out}")
-        lib = ctypes.CDLL(str(so))
-        lib.logmvn_cap_wide_launch.argtypes = _build._SIGNATURES["kernels"][
-            "logmvn_cap_wide_launch"]
-        lib.logmvn_cap_wide_launch.restype = ctypes.c_int
-        built.append((tile, ab, lib, so, out))
-    return built
+    variants = [(tile, ab) for tile in VARIANTS
+                for ab in (ABLATIONS if tile == VARIANTS[0] else (0,))]
+    built = _build.build_variants(
+        "cap_wide_sweep", ("logmvn_cap_wide.cu",),
+        [{"CAP_WIDE_ABLATE": ab, "CAP_WIDE_BM": tile[0], "CAP_WIDE_BN": tile[1],
+          "CAP_WIDE_STAGES": tile[2]} for tile, ab in variants],
+        ("logmvn_cap_wide_launch",))
+    return [(tile, ab, lib, so, log) for (tile, ab), (lib, so, log, _) in zip(variants, built)]
 
 
 def ptxas_usage(log: str) -> dict:
     """(copy bytes, storage) -> (registers, spill store bytes)."""
-    usage = {}
-    for block in log.split("Compiling entry function")[1:]:
-        inst = re.search(r"logmvn_cap_wide_kernelILi(\d+)E(\w)", block)
-        regs = re.search(r"Used (\d+) registers", block)
-        spill = re.search(r"(\d+) bytes spill stores", block)
-        if inst and regs:
-            usage[inst.group(1), {"f": "f32", "s": "i16"}[inst.group(2)]] = (
-                int(regs.group(1)), int(spill.group(1)) if spill else 0)
-    return usage
+    return {(vb, {"f": "f32", "s": "i16"}[st]): u for (vb, st), u in
+            _build.ptxas_usage(log, r"logmvn_cap_wide_kernelILi(\d+)E(\w)").items()}
 
 
 def sass_census(so, pattern: str) -> tuple[int, dict]:
     """Opcode counts of the first function of ``so`` whose name matches."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
-                          check=True).stdout
-    for body in text.split("Function : ")[1:]:
-        if re.match(pattern, body):
-            ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)
-            ops = Counter(op.split(".")[0] for op in ins)
-            return sum(ops.values()), {o: ops[o] for o in OPCODES}
-    raise RuntimeError(f"no function matching {pattern} in {so}")
+    census = _build.sass_census(so, pattern, OPCODES)
+    if not census:
+        raise RuntimeError(f"no function matching {pattern} in {so}")
+    return next(iter(census.values()))
 
 
 def problem(k: int, n_extra: int, device):
@@ -185,7 +153,7 @@ def main() -> None:
                   flush=True)
     for tile in VARIANTS:
         so = next(so for t_, ab, _, so, _ in built if t_ == tile and ab == 0)
-        total, ops = sass_census(so, r"\S*logmvn_cap_wide_kernelILi16EfE")
+        total, ops = sass_census(so, r"logmvn_cap_wide_kernelILi16EfE")
         print(f"K2 wide {tile[0]}x{tile[1]}, {tile[2]} stages, SASS (16-byte copies, float32): "
               f"{total} instructions, " + ", ".join(f"{o} {n}" for o, n in ops.items()),
               flush=True)
@@ -200,7 +168,7 @@ def main() -> None:
     print(f"K3 wide chain S={S}, device ms (profiler, 50 launches): " + ", ".join(line),
           flush=True)
     lib_path = _build.library_path("kernels")
-    total, ops = sass_census(lib_path, r"\S*logmvn_chain_wide_warp_kernel")
+    total, ops = sass_census(lib_path, r"logmvn_chain_wide_warp_kernel")
     print(f"K3 wide chain SASS: {total} instructions, "
           + ", ".join(f"{o} {n}" for o, n in ops.items()), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

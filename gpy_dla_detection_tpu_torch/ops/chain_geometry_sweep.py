@@ -29,11 +29,7 @@ root:
 
 from __future__ import annotations
 
-import ctypes
-import re
-import shutil
 import subprocess
-from collections import Counter
 
 import numpy as np
 import torch
@@ -76,59 +72,24 @@ def device_ms(fn, reps: int = 50) -> float:
 
 def build_variants():
     """One library per geometry: [(geometry, CDLL, its path, ptxas output)]."""
-    nvcc = _build._nvcc()
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for geo in GEOMETRIES:
-        # nvcc splits a -D value at its commas, so the macro comes from a
-        # source of its own that includes the kernel's
-        stem = _build.BUILD_DIR / f"chain_sweep_{'_'.join(map(str, geo))}"
-        src, so = stem.with_suffix(".cu"), stem.with_suffix(".so")
-        src.write_text(f"#define K3_GEOMETRY {', '.join(map(str, geo))}\n"
-                       f"#include \"{_build.CSRC / 'logmvn_chain.cu'}\"\n")
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(src)]
-        jobs.append((geo, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                               stderr=subprocess.STDOUT, text=True)))
-    built = []
-    for geo, so, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {geo}:\n{out}")
-        lib = ctypes.CDLL(str(so))
-        lib.logmvn_chain_launch.argtypes = _build._SIGNATURES["logmvn_chain_launch"]
-        lib.logmvn_chain_launch.restype = ctypes.c_int
-        built.append((geo, lib, so, out))
-    return built
+    built = _build.build_variants(
+        "chain_sweep", ("logmvn_chain.cu",),
+        [{"K3_GEOMETRY": ", ".join(map(str, geo))} for geo in GEOMETRIES],
+        ("logmvn_chain_launch",))
+    return [(geo, lib, so, log) for geo, (lib, so, log, _) in zip(GEOMETRIES, built)]
 
 
 def ptxas_usage(log: str) -> dict:
     """Row bound -> (registers, spill store bytes) of each instantiation."""
-    usage = {}
-    for block in log.split("Compiling entry function")[1:]:
-        kmax = re.search(r"logmvn_chain_kernelILi(\d+)E", block)
-        regs = re.search(r"Used (\d+) registers", block)
-        spill = re.search(r"(\d+) bytes spill stores", block)
-        if kmax and regs:
-            usage[int(kmax.group(1))] = (int(regs.group(1)), int(spill.group(1)) if spill else 0)
-    return usage
+    return {int(m): u for (m,), u in
+            _build.ptxas_usage(log, r"logmvn_chain_kernelILi(\d+)E").items()}
 
 
 def sass_census(so) -> dict:
     """Row bound -> opcode counts of the converged path of its kernel."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
-                          check=True).stdout
-    census = {}
-    for body in text.split("Function : ")[1:]:
-        kmax = re.match(r"\S*logmvn_chain_kernelILi(\d+)E", body)
-        if not kmax:
-            continue
-        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)
-        div = [int(t, 16) for t in re.findall(r"BRA\.DIV \w+, (0x[0-9a-f]+)", body)]
-        end = min(div) if div else None
-        ops = Counter(op.split(".")[0] for a, op in ins if end is None or int(a, 16) < end)
-        census[int(kmax.group(1))] = (sum(ops.values()), {o: ops[o] for o in OPCODES})
-    return census
+    return {int(m): c for (m,), c in
+            _build.sass_census(so, r"logmvn_chain_kernelILi(\d+)E", OPCODES,
+                               converged=True).items()}
 
 
 def capacitance(k: int, S_: int, device, rng):

@@ -329,7 +329,7 @@ def flat_chain_geometry(S: int, k: int, sms: int = H100_SMS) -> FlatChainGeometr
 # buffer (the triangle, 3 floats of alignment, WIDE_CHAIN_PAD of padding, u)
 # in shared memory; past a block's shared bytes, a block of
 # WIDE_CHAIN_THREADS a sample with the triangle in a global workspace (at
-# most WIDE_CHAIN_BLOCKS_PER_SM blocks an SM), as K3's adjoint's wide kernel
+# most WIDE_CHAIN_BLOCKS_PER_SM blocks an SM)
 WIDE_CHAIN_WARPS = 8
 WIDE_CHAIN_PAD = 32
 WIDE_CHAIN_THREADS = 128
@@ -340,9 +340,9 @@ class WideChainGeometry(NamedTuple):
     """The wide chain's launch: ``threads`` a block, ``shared_bytes`` a
     block (0 where the triangle lives in the workspace), ``workspace``
     floats a block in global memory (0 where it lives in shared memory)
-    and ``grid`` blocks.  In shared memory a warp takes a sample: warp w
-    of the grid's T takes the samples ``w * S // T`` up to ``(w + 1) * S
-    // T``; in the workspace a block does: block b takes b, b + grid, ..."""
+    and ``grid`` blocks.  A warp takes a sample: warp w of the grid's T
+    takes the samples ``w * S // T`` up to ``(w + 1) * S // T``; but in
+    K3's workspace a block does: block b takes b, b + grid, ..."""
 
     threads: int
     shared_bytes: int
@@ -370,21 +370,18 @@ def wide_chain_geometry(S: int, k: int, sms: int = H100_SMS) -> WideChainGeometr
         raise ValueError(f"K3 needs S >= 1, got S={S}")
     buf = 4 * wide_chain_buffer_floats(k)
     if buf > MAX_DYNAMIC_SHARED_BYTES:
-        return _wide_geometry(S, k * (k + 1) // 2 + k, sms)
+        return WideChainGeometry(WIDE_CHAIN_THREADS, 0, k * (k + 1) // 2 + k,
+                                 min(S, sms * WIDE_CHAIN_BLOCKS_PER_SM))
+    return _warp_buffers_geometry(S, buf, sms)
+
+
+def _warp_buffers_geometry(S: int, buf: int, sms: int) -> WideChainGeometry:
+    """A warp a sample on a shared buffer of ``buf`` bytes a warp: as many
+    warps a block (up to WIDE_CHAIN_WARPS) and blocks an SM as the shared
+    bytes allow, and :func:`_chain_grid`'s grid."""
     warps = min(WIDE_CHAIN_WARPS, MAX_DYNAMIC_SHARED_BYTES // buf)
     per_sm = SM_SHARED_BYTES // (warps * buf + 1024)
     return WideChainGeometry(32 * warps, warps * buf, 0, _chain_grid(S, warps, per_sm, sms))
-
-
-def _wide_geometry(S: int, floats: int, sms: int) -> WideChainGeometry:
-    """A block of WIDE_CHAIN_THREADS a sample whose ``floats`` live in
-    shared memory where they fit a block, else in a global workspace."""
-    shared = 16 * -(-4 * floats // 16)
-    if shared <= MAX_DYNAMIC_SHARED_BYTES:
-        per_sm = min(WIDE_CHAIN_BLOCKS_PER_SM, SM_SHARED_BYTES // (shared + 1024))
-        return WideChainGeometry(WIDE_CHAIN_THREADS, shared, 0, min(S, sms * per_sm))
-    return WideChainGeometry(WIDE_CHAIN_THREADS, 0, floats,
-                             min(S, sms * WIDE_CHAIN_BLOCKS_PER_SM))
 
 
 def k3_geometry(S: int, k: int, sms: int = H100_SMS) -> ChainGeometry | WideChainGeometry:
@@ -396,32 +393,64 @@ def k3_geometry(S: int, k: int, sms: int = H100_SMS) -> ChainGeometry | WideChai
     return chain_geometry(S, k, sms)
 
 
-# K3's adjoint (csrc/logmvn_chain_grad.cu, K3G_GEOMETRY): K3's warp chain,
-# a warp a sample, for k <= CHAIN_MAX_K; per row bound the warps a block and
-# the blocks an SM (the launch bound: 128 and 255 registers a thread, for
-# the triangle and the vectors beside it); past the row bounds a block of
-# WIDE_CHAIN_THREADS a sample, the factor, t, v and one column a warp in
-# shared memory or a global workspace
-CHAIN_GRAD_WARPS = {32: 8, 64: 8}
-CHAIN_GRAD_BLOCKS_PER_SM = {32: 2, 64: 1}
+# K3's adjoint (csrc/logmvn_chain_grad.cu, K3G_WARPS and K3G_ROWS_AND_BLOCKS):
+# for k <= CHAIN_MAX_K a warp a sample, the symmetric sweep on the rows in
+# registers, compiled for each row bound with its blocks an SM (the launch
+# bound, which caps a thread's registers); past the row bounds a warp a
+# sample on the packed triangle in the warp's own buffer, in shared memory
+# (up to WIDE_CHAIN_WARPS a block) or, past a block's shared bytes, in a
+# global workspace (CHAIN_GRAD_WORK_WARPS a block, at most
+# CHAIN_GRAD_WORK_BLOCKS_PER_SM blocks an SM)
+CHAIN_GRAD_ROW_BOUNDS = (24, 32, 64)
+CHAIN_GRAD_WARPS = 8
+CHAIN_GRAD_BLOCKS_PER_SM = {24: 4, 32: 2, 64: 1}
+CHAIN_GRAD_WORK_WARPS = 4
+CHAIN_GRAD_WORK_BLOCKS_PER_SM = 4
+
+
+def _chain_grad_shared_bytes(k: int, rows: int, warps: int) -> int:
+    """The warp kernel's buffer a warp: two column buffers (a slot a lane
+    and row, then u_p), then the triangle and up to 3 floats of alignment,
+    in whole float4s."""
+    column = 32 * -(-rows // 32) + 4
+    return 4 * warps * (2 * column + 4 * -(-(k * (k + 1) // 2 + 3) // 4))
+
+
+def chain_grad_wide_floats(k: int) -> int:
+    """Floats of a wide warp's buffer: F (a float4 a column and one for u),
+    u in whole float4s, the triangle and 3 floats of alignment in whole
+    float4s."""
+    return 4 * (k + 1) + 4 * -(-k // 4) + 4 * -(-(k * (k + 1) // 2 + 3) // 4)
 
 
 def chain_grad_geometry(S: int, k: int,
                         sms: int = H100_SMS) -> ChainGeometry | WideChainGeometry:
     """The geometry K3's adjoint launches for S samples of a k x k
-    capacitance on ``sms`` SMs: for k <= CHAIN_MAX_K K3's row bound and
-    buffer a warp and :func:`_chain_grid`'s grid at this kernel's warps and
-    launch bound; beyond, the wide chain's block holding the triangle, t, v
-    and a column for each of its warps."""
+    capacitance on ``sms`` SMs: for k <= CHAIN_MAX_K the smallest compiled
+    row bound that holds k, its buffers and :func:`_chain_grid`'s grid at
+    its launch bound; beyond, a warp a sample on its
+    :func:`chain_grad_wide_floats` buffer, as many warps a block (up to
+    WIDE_CHAIN_WARPS) and blocks an SM as shared memory holds, else
+    CHAIN_GRAD_WORK_WARPS warps a block on a global workspace."""
     if S < 1 or k < 1:
         raise ValueError(f"K3's adjoint needs S >= 1 and k >= 1, got S={S}, k={k}")
     if k > CHAIN_MAX_K:
-        return _wide_geometry(S, k * (k + 1) // 2 + (2 + WIDE_CHAIN_THREADS // 32) * k, sms)
-    rows = next(b for b in CHAIN_ROW_BOUNDS if k <= b)
-    warps = CHAIN_GRAD_WARPS[rows]
-    return ChainGeometry(rows=rows, warps=warps,
-                         shared_bytes=_chain_shared_bytes(k, rows, warps),
-                         grid=_chain_grid(S, warps, CHAIN_GRAD_BLOCKS_PER_SM[rows], sms))
+        floats = chain_grad_wide_floats(k)
+        if 4 * floats > MAX_DYNAMIC_SHARED_BYTES:
+            warps = CHAIN_GRAD_WORK_WARPS
+            return WideChainGeometry(32 * warps, 0, warps * floats,
+                                     _chain_grid(S, warps, CHAIN_GRAD_WORK_BLOCKS_PER_SM, sms))
+        return _warp_buffers_geometry(S, 4 * floats, sms)
+    rows = next(b for b in CHAIN_GRAD_ROW_BOUNDS if k <= b)
+    return ChainGeometry(rows=rows, warps=CHAIN_GRAD_WARPS,
+                         shared_bytes=_chain_grad_shared_bytes(k, rows, CHAIN_GRAD_WARPS),
+                         grid=_chain_grid(S, CHAIN_GRAD_WARPS, CHAIN_GRAD_BLOCKS_PER_SM[rows],
+                                          sms))
+
+
+# the last k whose wide warp buffer fits a block's shared memory
+CHAIN_GRAD_SHARED_MAX_K = max(k for k in range(CHAIN_MAX_K + 1, 400)
+                              if 4 * chain_grad_wide_floats(k) <= MAX_DYNAMIC_SHARED_BYTES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -713,8 +742,8 @@ def logmvn_chain_grad(B: torch.Tensor, u: torch.Tensor, misc: torch.Tensor, g: t
     the CPU (float32): the gradient of ``g . logmvn_chain(B, u, misc)``
     with respect to B, u and misc (:func:`logmvn_chain_grad_reference`).
     The warp kernel takes 1 <= k <= ``CHAIN_MAX_K`` (counted as
-    ``logmvn_chain_grad``), a block a sample any wider k (counted as
-    ``logmvn_chain_grad_wide``)."""
+    ``logmvn_chain_grad``), the wide kernel, a warp a sample too, any wider
+    k (counted as ``logmvn_chain_grad_wide``)."""
     if not use_kernel(B):
         return logmvn_chain_grad_reference(B, u, misc, g)
     device = B.device

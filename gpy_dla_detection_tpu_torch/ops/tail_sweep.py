@@ -30,8 +30,6 @@ root:
 
 from __future__ import annotations
 
-import ctypes
-import re
 import subprocess
 
 import numpy as np
@@ -74,43 +72,16 @@ SOURCES = ("absorption_tail.cu", "absorption_windowed.cu")
 
 def build_variants():
     """One library per build: [(name, geometry, CDLL, ptxas output)]."""
-    nvcc = _build._nvcc()
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name, geo in BUILDS:
-        # nvcc splits a -D value at its commas, so the macro comes from a
-        # source of its own that includes the kernels'
-        stem = _build.BUILD_DIR / f"k56_sweep_{'_'.join(map(str, geo))}"
-        src, so = stem.with_suffix(".cu"), stem.with_suffix(".so")
-        src.write_text(f"#define K56_GEOMETRY {', '.join(map(str, geo))}\n"
-                       + "".join(f"#include \"{_build.CSRC / s}\"\n" for s in SOURCES))
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(src)]
-        jobs.append((name, geo, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                     stderr=subprocess.STDOUT, text=True)))
-    built = []
-    for name, geo, so, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        lib = ctypes.CDLL(str(so))
-        for fn in ("absorption_tail_launch", "absorption_windowed_launch"):
-            getattr(lib, fn).argtypes = _build._SIGNATURES["kernels"][fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        built.append((name, geo, lib, out))
-    return built
+    built = _build.build_variants(
+        "k56_sweep", SOURCES, [{"K56_GEOMETRY": ", ".join(map(str, geo))} for _, geo in BUILDS],
+        ("absorption_tail_launch", "absorption_windowed_launch"))
+    return [(name, geo, lib, log) for (name, geo), (lib, _, log, _) in zip(BUILDS, built)]
 
 
 def ptxas_usage(log: str) -> dict:
     """Instantiation (source, store) -> (registers, spill store bytes)."""
-    usage = {}
-    for block in log.split("Compiling entry function")[1:]:
-        inst = re.search(r"tail_kernelI.*?(Tail|Windowed)SourceE?([fs])", block)
-        regs = re.search(r"Used (\d+) registers", block)
-        spill = re.search(r"(\d+) bytes spill stores", block)
-        if inst and regs:
-            usage[(inst.group(1), "float32" if inst.group(2) == "f" else "int16")] = (
-                int(regs.group(1)), int(spill.group(1)) if spill else 0)
-    return usage
+    return {(src, "float32" if st == "f" else "int16"): u for (src, st), u in
+            _build.ptxas_usage(log, r"tail_kernelI.*?(Tail|Windowed)SourceE?([fs])").items()}
 
 
 def inputs(device, S: int, P: int, seed: int = 3):

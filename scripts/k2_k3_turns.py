@@ -27,7 +27,17 @@ K3 gives on each checkout's own K2 output.  It prints each turn's device ms, the
 whether the two checkouts' are equal bit for bit, and for the wide
 likelihoods (whose arithmetic a redesign may change) the largest |dll|
 between the checkouts beside the largest |ll| (through a temporary
-directory, removed at the end).
+directory, removed at the end).  K3's adjoint (``logmvn_chain_grad``)
+follows on the GP training's own inputs (that checkout's
+``woodbury_inputs`` of ``synthetic_training_problem``, R = 1,217, 31
+forest lines, seed k): at k = 20 with a training chunk's Qc = 4,064
+spectra and at k = 65 (its wide kernel) with Q = 4,096, its device ms and
+each output's (dB, du, dmisc) largest |d| against the twin in float64 on
+the card over that output's largest magnitude; the two checkouts' dB are
+not expected to agree bit for bit.  Each turn also prints the seconds its
+checkout's kernel library took to build (``_build.build``; the first turn
+of each checkout builds it, the second finds it built) and, from the
+build's log, ptxas's compile seconds by source.
 """
 
 from __future__ import annotations
@@ -35,14 +45,17 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 TIMING = Path(__file__).resolve().parent.parent / "gpy_dla_detection_tpu_torch" / "ops" / "timing.py"
 SHAPES = {"N1280": (1280, 0), "N1280_3streams": (1280, 3), "N1664": (1664, 0)}
 WIDE_KS = (54, 65)
+ADJOINT_SHAPES = ((20, 4064), (65, 4096))  # (k, spectra)
 
 
 def wide_problem(k, device, np, torch):
@@ -72,6 +85,7 @@ def worker(root: Path, out: Path) -> None:
     import numpy as np
     import torch
 
+    from gpy_dla_detection_tpu_torch.ops import _build
     from gpy_dla_detection_tpu_torch.ops.cap_geometry_sweep import problem
     from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import logmvn_cap, logmvn_chain
     from gpy_dla_detection_tpu_torch.ops.voigt import encode_profile_store
@@ -82,6 +96,11 @@ def worker(root: Path, out: Path) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("k2_k3_turns: no CUDA device")
     device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    (lib,) = _build.build("kernels")
+    build = {"seconds": time.perf_counter() - t0, "ptxas_seconds": {
+        sec.split("\n")[0].strip(): sum(map(float, re.findall(r"Compile time = ([\d.]+) ms", sec))) / 1e3
+        for sec in lib.with_suffix(".log").read_text().split("== ")[1:]}}
     i16 = lambda x: encode_profile_store(x, torch.int16)
     times, arrays = {}, {}
     for name, (N, n_extra) in SHAPES.items():
@@ -105,8 +124,31 @@ def worker(root: Path, out: Path) -> None:
             if store == "f32":
                 times[f"K3_f32_k{k}"] = timing.device_ms(lambda: logmvn_chain(*cap))[0]
         del cap
+    from gpy_dla_detection_tpu_torch.data.synthetic import synthetic_training_problem
+    from gpy_dla_detection_tpu_torch.models import training as TT
+    from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
+        logmvn_chain_grad,
+        logmvn_chain_grad_reference,
+    )
+
+    errors = {}
+    for k, Q in ADJOINT_SHAPES:
+        fields, train = synthetic_training_problem(Q, 1217, k, seed=k)
+        p = TT.TrainingParams.from_numpy(fields, device)
+        with torch.no_grad():
+            B, u, misc = TT.woodbury_inputs(p, *(torch.as_tensor(x, device=device) for x in train),
+                                            31)
+        g = torch.as_tensor(np.random.default_rng(Q).normal(size=Q).astype(np.float32),
+                            device=device)
+        got = logmvn_chain_grad(B, u, misc, g)
+        want = logmvn_chain_grad_reference(*(x.double() for x in (B, u, misc, g)))
+        errors[f"adjoint_k{k}_Q{Q}"] = [float((a.double() - b).abs().max() / b.abs().max())
+                                        for a, b in zip(got, want)]
+        times[f"K3grad_k{k}_Q{Q}"] = timing.device_ms(lambda: logmvn_chain_grad(B, u, misc, g))[0]
+        arrays[f"adjoint_k{k}_Q{Q}_dB"] = got[0]
     np.savez(out, **{k: v.cpu().numpy() for k, v in arrays.items()})
-    print(json.dumps({"root": str(root), "card": torch.cuda.get_device_name(0), **times}))
+    print(json.dumps({"root": str(root), "card": torch.cuda.get_device_name(0), **times,
+                      "errors_vs_float64": errors, "build": build}))
 
 
 def main() -> None:
@@ -134,14 +176,20 @@ def main() -> None:
             raise SystemExit(f"k2_k3_turns: {tag} run failed:\n{res.stdout}{res.stderr}")
         times = json.loads(res.stdout.strip().splitlines()[-1])
         print(f"turn {turn} {tag}: " + ", ".join(
-            f"{n} {v:.4f} ms" for n, v in times.items() if n.startswith("K")), flush=True)
+            f"{n} {v:.4f} ms" for n, v in times.items() if n.startswith("K")) + "; K3's adjoint "
+            "vs the float64 twin (dB/du/dmisc): " + ", ".join(
+            f"{n} " + "/".join(f"{r:.2e}" for r in v)
+            for n, v in times["errors_vs_float64"].items()), flush=True)
+        b = times["build"]
+        print(f"turn {turn} {tag}: kernel library build {b['seconds']:.1f} s; ptxas s by source: "
+              + ", ".join(f"{n} {t:.1f}" for n, t in b["ptxas_seconds"].items()), flush=True)
         files.setdefault(tag, out)
     base, changed = np.load(files["base"]), np.load(files["changed"])
     for name in base.files:
         same = np.array_equal(base[name], changed[name], equal_nan=True)
         diff = float(np.nanmax(np.abs(base[name].astype(np.float64) - changed[name])))
-        scale = (f", max |ll| {float(np.nanmax(np.abs(base[name]))):.6g}"
-                 if name.startswith("wide_") else "")
+        scale = (f", max |.| {float(np.nanmax(np.abs(base[name]))):.6g}"
+                 if name.startswith(("wide_", "adjoint_")) else "")
         print(f"{name}: bitwise equal {same}, max |d| {diff:.3e}{scale}", flush=True)
     tmp.cleanup()
 

@@ -59,9 +59,11 @@ agree bitwise).
 
 K3's adjoint (``logmvn_chain_grad``, the backward of ``chain_loglik`` in the
 GP training) is held to its twin and to the CPU float64 value within 1e-5
-of each output's largest magnitude (dB, du, dmisc), at k = 1 to 65 (both
-sides of the warp chain's row bounds, the wide kernel past 64, 340 in its
-global workspace) and S = 1 to 4,096, with NaN where its twin gives NaN;
+of each output's largest magnitude (dB, du, dmisc), at k = 1 to 100 (both
+sides of the warp kernel's row bounds, the wide kernel past 64, in shared
+memory and in its global workspace either side of
+``CHAIN_GRAD_SHARED_MAX_K``) and S = 1 to 4,096, and on the GP training's
+own inputs against the float64 twin, with NaN where its twin gives NaN;
 ``chain_loglik`` and one ``total_objective`` backward launch K3 and its
 adjoint once each and nothing else.
 """
@@ -85,6 +87,7 @@ from gpy_dla_detection_tpu_torch.ops.logmvn_ablate import (
     stage_geometry,
 )
 from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
+    CHAIN_GRAD_SHARED_MAX_K,
     cap_geometry,
     chain_geometry,
     flat_chain_geometry,
@@ -1130,11 +1133,13 @@ def _assert_grads_close(got, want, rel=REL_K3_GRAD):
         assert err <= rel * float(b.abs().max()), (name, err, float(b.abs().max()))
 
 
-# k: both sides of the row bounds 32 and 64 and of a half warp, the main
-# path's 20, the odd 21, past 64 the wide kernel; S: a lone sample, one
-# past a warp, an uneven count, the training's 4,096
+# k: both sides of the row bounds 24, 32 and 64 and of a half warp in a
+# lane's first and second rows (16/17, 48/49), 8/9, the main path's 20,
+# the odd 21, past 64 the wide kernel; S: a lone sample, one past a warp,
+# an uneven count, the training's 4,096
 @pytest.mark.parametrize("S", [1, 33, 1001, 4096])
-@pytest.mark.parametrize("k", [1, 2, 8, 16, 17, 20, 21, 31, 32, 33, 41, 63, 64, 65, 100])
+@pytest.mark.parametrize("k", [1, 2, 8, 9, 16, 17, 20, 21, 24, 25, 31, 32, 33, 41, 48, 49, 63,
+                               64, 65, 100])
 def test_chain_grad_kernel_matches_twin(cuda_device, k, S):
     B, u, misc, g = _grad_inputs(cuda_device, k, S)
     name = "logmvn_chain_grad_wide" if k > 64 else "logmvn_chain_grad"
@@ -1145,13 +1150,36 @@ def test_chain_grad_kernel_matches_twin(cuda_device, k, S):
     _assert_grads_close(got, logmvn_chain_grad_reference(B, u, misc, g))
 
 
-@pytest.mark.parametrize("k", [334, 335])  # the last in shared memory, the first past it
+# the last in shared memory, the first past it
+@pytest.mark.parametrize("k", [CHAIN_GRAD_SHARED_MAX_K, CHAIN_GRAD_SHARED_MAX_K + 1])
 def test_chain_grad_wide_kernel_in_shared_memory_and_workspace(cuda_device, k):
-    assert (chain_grad_geometry(8, k).workspace > 0) == (k == 335)
+    assert (chain_grad_geometry(8, k).workspace > 0) == (k == CHAIN_GRAD_SHARED_MAX_K + 1)
     B, u, misc, g = _grad_inputs(cuda_device, k, 8)
     got = logmvn_chain_grad(B, u, misc, g)
     torch.cuda.synchronize()
     _assert_grads_close(got, logmvn_chain_grad_reference(B, u, misc, g))
+
+
+@pytest.mark.parametrize("k", [1, 20, 21, 64, 65])
+def test_chain_grad_kernel_on_the_training_inputs_against_float64(cuda_device, k):
+    """The GP training's own capacitances (``woodbury_inputs`` of the
+    synthetic training problem at Q = 1,024, R = 1,217, 31 forest lines,
+    as chip_smoke.py phase 19): the kernel within REL_K3_GRAD of each
+    output's max of the twin in float64 on the card."""
+    from gpy_dla_detection_tpu_torch.data.synthetic import synthetic_training_problem
+    from gpy_dla_detection_tpu_torch.models import training as TT
+
+    fields, arrays = synthetic_training_problem(1024, 1217, k, seed=k)
+    p = TT.TrainingParams.from_numpy(fields, cuda_device)
+    with torch.no_grad():
+        B, u, misc = TT.woodbury_inputs(
+            p, *(torch.as_tensor(x, device=cuda_device) for x in arrays), 31)
+    g = torch.as_tensor(np.random.default_rng(k).normal(size=1024).astype(np.float32),
+                        device=cuda_device)
+    got = logmvn_chain_grad(B, u, misc, g)
+    want = logmvn_chain_grad_reference(*(x.double() for x in (B, u, misc, g)))
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want)
 
 
 @pytest.mark.parametrize("k", [5, 20, 41, 65])
