@@ -18,6 +18,11 @@ fixed-point codes of ``ops/kernel_config.py``, the reference's
 ``GPY_DLA_ABS_DTYPE=i16`` and ``i16p``): the absorption kernels encode
 them at their store, the chained rows are gathered as codes, and K2
 decodes them as it assembles.  The default keeps the model's dtype.
+
+Stages are marked with ``utils.timing.span``: ``gpy.profiles`` (the
+profiles, where this module computes them), and per level ``gpy.level``,
+in it ``gpy.resample`` (the chained levels' draw and gathers) and
+``gpy.likelihood`` (the batched likelihood).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..ops.voigt import (
 )
 from ..ops.voigt_kernels import absorption_all, absorption_windowed
 from ..params import Parameters
+from ..utils.timing import span
 from .learned import SpectrumModel
 
 
@@ -241,10 +247,11 @@ def qmc_log_evidences(
 
     z_samples = model.min_z_dla + (model.max_z_dla - model.min_z_dla) * offset_samples
     if A_override is None:
-        (A,) = single_absorber_profiles(
-            model.padded_wavelengths, z_samples, (nhi_samples,), params.num_lines,
-            voigt_impl, profile, out_dtype=abs_dtype, window_tier=window_tier,
-        )
+        with span("gpy.profiles"):
+            (A,) = single_absorber_profiles(
+                model.padded_wavelengths, z_samples, (nhi_samples,), params.num_lines,
+                voigt_impl, profile, out_dtype=abs_dtype, window_tier=window_tier,
+            )
     else:
         A = A_override
     M_pair = likelihood_pair_basis(model.M)
@@ -258,59 +265,62 @@ def qmc_log_evidences(
 
     log_evidences, sample_lls, base_inds_rows, map_z, map_lognhi = [], [], [], [], []
     for k0 in range(max_k):  # k0 = number of additional absorbers
-        if k0 > 0:
-            if base_inds_override is not None:
-                base = base_inds_override[k0 - 1].to(device=device, dtype=torch.int64)
+        with span("gpy.level"):
+            if k0 > 0:
+                with span("gpy.resample"):
+                    if base_inds_override is not None:
+                        base = base_inds_override[k0 - 1].to(device=device, dtype=torch.int64)
+                    else:
+                        logits = torch.where(prev_valid, prev_ll_centered, -math.inf)
+                        # an underflowed previous level keeps indices in range
+                        # with uniform logits (its results are NaN-masked)
+                        logits = torch.where(alive, logits, 0.0)
+                        probs = torch.exp(logits - torch.max(logits))
+                        base = _draw_base_indices(generator, probs, resampler)
+                    base_inds_rows.append(base)
+                    extra.append(A[base])  # in A's storage: int16 codes stay codes
+                    z_rows.append(z_samples[base])
+                    lognhi_rows.append(log_nhi_samples[base])
+
+            with span("gpy.likelihood"):
+                ll = (
+                    batched_log_mvnpdf(
+                        model.y, model.mu, model.M, model.omega2, model.v, model.mask,
+                        A, M_pair, extra=extra, use_kernels=use_kernels,
+                    )
+                    - log_S
+                )
+
+            # pair-separation validity
+            if k0 > 0:
+                all_z = torch.sort(torch.stack(z_rows), dim=0).values
+                valid = torch.all(torch.diff(all_z, dim=0) >= min_sep, dim=0)
             else:
-                logits = torch.where(prev_valid, prev_ll_centered, -math.inf)
-                # an underflowed previous level keeps indices in range with
-                # uniform logits (its results are NaN-masked)
-                logits = torch.where(alive, logits, 0.0)
-                probs = torch.exp(logits - torch.max(logits))
-                base = _draw_base_indices(generator, probs, resampler)
-            base_inds_rows.append(base)
-            extra.append(A[base])  # in A's storage: int16 codes stay codes
-            z_rows.append(z_samples[base])
-            lognhi_rows.append(log_nhi_samples[base])
+                valid = torch.ones((S,), dtype=torch.bool, device=device)
 
-        ll = (
-            batched_log_mvnpdf(
-                model.y, model.mu, model.M, model.omega2, model.v, model.mask,
-                A, M_pair, extra=extra, use_kernels=use_kernels,
+            masked_ll = torch.where(valid, ll, -math.inf)
+            max_ll = torch.max(masked_ll)
+            ll_centered = ll - max_ll
+            n_valid = torch.sum(valid)
+            mean_prob = torch.sum(torch.where(valid, torch.exp(ll_centered), 0.0)) / n_valid
+            evidence = max_ll + torch.log(mean_prob) - k0 * log_S
+            prev_valid, prev_ll_centered = valid, ll_centered
+
+            evidence = torch.where(alive, evidence, math.nan)
+            alive = alive & torch.isfinite(evidence)
+
+            log_evidences.append(evidence)
+            sample_lls.append(torch.where(valid & alive, ll, math.nan))
+
+            # MAP chain: argmax returns the first maximum, as the reference's.
+            # index_select keeps the index on the device (indexing with a 0-dim
+            # tensor reads it back to the host and stalls the queue)
+            maxind = torch.argmax(masked_ll).reshape(1)
+            pad = torch.full((max_k - k0 - 1,), math.nan, dtype=dtype, device=device)
+            map_z.append(torch.cat([torch.stack(z_rows).index_select(1, maxind)[:, 0], pad]))
+            map_lognhi.append(
+                torch.cat([torch.stack(lognhi_rows).index_select(1, maxind)[:, 0], pad])
             )
-            - log_S
-        )
-
-        # pair-separation validity
-        if k0 > 0:
-            all_z = torch.sort(torch.stack(z_rows), dim=0).values
-            valid = torch.all(torch.diff(all_z, dim=0) >= min_sep, dim=0)
-        else:
-            valid = torch.ones((S,), dtype=torch.bool, device=device)
-
-        masked_ll = torch.where(valid, ll, -math.inf)
-        max_ll = torch.max(masked_ll)
-        ll_centered = ll - max_ll
-        n_valid = torch.sum(valid)
-        mean_prob = torch.sum(torch.where(valid, torch.exp(ll_centered), 0.0)) / n_valid
-        evidence = max_ll + torch.log(mean_prob) - k0 * log_S
-        prev_valid, prev_ll_centered = valid, ll_centered
-
-        evidence = torch.where(alive, evidence, math.nan)
-        alive = alive & torch.isfinite(evidence)
-
-        log_evidences.append(evidence)
-        sample_lls.append(torch.where(valid & alive, ll, math.nan))
-
-        # MAP chain: argmax returns the first maximum, as the reference's.
-        # index_select keeps the index on the device (indexing with a 0-dim
-        # tensor reads it back to the host and stalls the queue)
-        maxind = torch.argmax(masked_ll).reshape(1)
-        pad = torch.full((max_k - k0 - 1,), math.nan, dtype=dtype, device=device)
-        map_z.append(torch.cat([torch.stack(z_rows).index_select(1, maxind)[:, 0], pad]))
-        map_lognhi.append(
-            torch.cat([torch.stack(lognhi_rows).index_select(1, maxind)[:, 0], pad])
-        )
 
     base_sample_inds = (
         torch.stack(base_inds_rows)

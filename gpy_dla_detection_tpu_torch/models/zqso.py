@@ -21,6 +21,11 @@ reference's, bit for bit.  The learned model's tensors decide the device
 and dtype of a scan (:meth:`ZLearnedModel.to`); wavelengths stay float64
 on every device, since they only enter comparisons against the grid and
 the shift s0(z), which float32 would move by ~0.02 table entries.
+
+Stages are marked with ``utils.timing.span``: ``gpy.scan_dispatch``
+around :func:`dispatch_scan`, ``gpy.scan_chunk`` around each chunk of the
+exact scan and the correlation scan's call, ``gpy.scan_wait`` around
+:meth:`ScanReadback.result`.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from ..ops.interp import interp_uniform
 from ..ops.logmvn import LOG_2PI, log_mvnpdf_low_rank
 from ..params import ZParameters
+from ..utils.timing import span
 
 # candidate redshifts the exact scan evaluates at once.  Each holds the
 # model interpolated onto every pixel, (P, k) floats, in the Woodbury's
@@ -397,10 +403,12 @@ def z_log_evidences(
     :param z_grid: (Z,) float64 on the model's device.
     """
     sorted_aux = _sorted_flux_view(spec)
-    return torch.cat([
-        _z_log_evidences_at(learned, spec, z_grid[i:i + EXACT_CHUNK], params, sorted_aux)
-        for i in range(0, z_grid.shape[0], EXACT_CHUNK)
-    ])
+    chunks = []
+    for i in range(0, z_grid.shape[0], EXACT_CHUNK):
+        with span("gpy.scan_chunk"):
+            chunks.append(_z_log_evidences_at(learned, spec, z_grid[i:i + EXACT_CHUNK],
+                                              params, sorted_aux))
+    return torch.cat(chunks)
 
 
 def _dispatch_scan(
@@ -443,7 +451,8 @@ def _dispatch_scan(
         # (models/zqso_corr.py) — no per-z table reads at all
         from .zqso_corr import z_scan_corr
 
-        return z_scan_corr(learned, spec, params, pixel_dlog, z_qso_min, z_qso_max)
+        with span("gpy.scan_chunk"):
+            return z_scan_corr(learned, spec, params, pixel_dlog, z_qso_min, z_qso_max)
     device, dtype = _model_placement(learned)
     z_np, z_grid = _z_grid_for(params.num_zqso_samples, z_qso_min, z_qso_max, device)
     return z_np, z_log_evidences(learned, device_spectrum(spec, device, dtype), z_grid, params)
@@ -486,9 +495,10 @@ class ScanReadback(NamedTuple):
 
     def result(self) -> np.ndarray:
         """The scan's log likelihoods, after waiting on its copy alone."""
-        if self.done is not None:
-            self.done.synchronize()
-        return self.host.numpy()
+        with span("gpy.scan_wait"):
+            if self.done is not None:
+                self.done.synchronize()
+            return self.host.numpy()
 
 
 def dispatch_scan(
@@ -506,15 +516,16 @@ def dispatch_scan(
 
     :return: (the host z grid, the result's :class:`ScanReadback`).
     """
-    z_np, lls = _dispatch_scan(learned, spec, params, z_qso_min, z_qso_max, method)
-    cuda = lls.is_cuda
-    host = torch.empty(lls.shape, dtype=lls.dtype, pin_memory=cuda)
-    host.copy_(lls, non_blocking=cuda)
-    done = None
-    if cuda:
-        done = torch.cuda.Event()
-        done.record()
-    return z_np, ScanReadback(host, done)
+    with span("gpy.scan_dispatch"):
+        z_np, lls = _dispatch_scan(learned, spec, params, z_qso_min, z_qso_max, method)
+        cuda = lls.is_cuda
+        host = torch.empty(lls.shape, dtype=lls.dtype, pin_memory=cuda)
+        host.copy_(lls, non_blocking=cuda)
+        done = None
+        if cuda:
+            done = torch.cuda.Event()
+            done.record()
+        return z_np, ScanReadback(host, done)
 
 
 def inference_z_qso_many(

@@ -26,6 +26,12 @@ batches in flight and finalize one while the device computes the next
 ``device_put_inputs`` moves the batch-invariant inputs to the device
 once, and with them the decision that the two sample sets share their
 offsets.
+
+Stages are marked with ``utils.timing.span`` (recorded only inside a
+``timing.recording()`` block): ``gpy.dispatch`` around a dispatch, in it
+``gpy.model`` (the batch's tensors, models and null evidences),
+``gpy.profiles`` per spectrum, the levels of ``models/evidence`` and
+``gpy.readback``; ``gpy.finalize`` around a finalize, in it ``gpy.select``.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from ..models.pipeline import (
 )
 from ..params import Parameters
 from ..utils.pipeline import host_copy
+from ..utils.timing import span
 
 
 def _stack_results(results: list[QMCEvidenceResult]) -> QMCEvidenceResult:
@@ -63,7 +70,7 @@ def _stack_results(results: list[QMCEvidenceResult]) -> QMCEvidenceResult:
 
 def batch_evidences(
     learned: LearnedModel,
-    specs: Spectrum,
+    spectra: list[Spectrum],
     dla: SampleTensors,
     sub: SampleTensors,
     generator: torch.Generator,
@@ -77,7 +84,8 @@ def batch_evidences(
     use_kernels: bool | None = None,
     resampler: str = "multinomial",
 ) -> EvidenceOutputs:
-    """Evidences for a batch of tensor spectra (leading axis).
+    """Evidences for a batch of spectra, stacked and moved to the learned
+    model's device and dtype here.
 
     :param shared_offsets: the DLA and subDLA offsets are equal, so one
         profile evaluation serves both families.
@@ -98,19 +106,22 @@ def batch_evidences(
         ``"multinomial"`` or ``"systematic"`` (see
         ``models.evidence.qmc_log_evidences``).
     """
-    models = build_spectrum_model(learned, specs, params)
-    null = null_log_evidence(models)
+    with span("gpy.model"):
+        specs = to_torch(stack(spectra), learned.mu.device, learned.mu.dtype)
+        models = build_spectrum_model(learned, specs, params)
+        null = null_log_evidence(models)
     dla_out, sub_out = [], []
     for i in range(null.shape[0]):
         model = SpectrumModel(*[f[i] for f in models])
         A_dla = A_sub = None
         if shared_offsets:
-            z = model.min_z_dla + (model.max_z_dla - model.min_z_dla) * dla.offset_samples
-            A_dla, A_sub = single_absorber_profiles(
-                model.padded_wavelengths, z,
-                (dla.nhi_samples, sub.nhi_samples), params.num_lines,
-                voigt_impl, out_dtype=abs_dtype, window_tier=window_tier,
-            )
+            with span("gpy.profiles"):
+                z = model.min_z_dla + (model.max_z_dla - model.min_z_dla) * dla.offset_samples
+                A_dla, A_sub = single_absorber_profiles(
+                    model.padded_wavelengths, z,
+                    (dla.nhi_samples, sub.nhi_samples), params.num_lines,
+                    voigt_impl, out_dtype=abs_dtype, window_tier=window_tier,
+                )
         dla_out.append(
             qmc_log_evidences(
                 model, *dla, generator, max_dlas, params,
@@ -206,20 +217,21 @@ def _start_readback(out: EvidenceOutputs, with_sample_lls: bool) -> BatchReadbac
     work already queued on the current stream, and return at once
     (the counterpart of the reference's ``copy_to_host_async``)."""
     sample = lambda t: host_copy(t) if with_sample_lls else None
-    fields = (
-        host_copy(out.log_evidence_null),
-        host_copy(out.dla.log_evidences),
-        host_copy(out.subdla.log_evidences),
-        sample(out.dla.sample_log_likelihoods),
-        sample(out.subdla.sample_log_likelihoods),
-        sample(out.dla.base_sample_inds),
-        host_copy(out.dla.map_z_dlas),
-        host_copy(out.dla.map_log_nhis),
-    )
-    done = None
-    if out.log_evidence_null.is_cuda:
-        done = torch.cuda.Event()
-        done.record()
+    with span("gpy.readback"):
+        fields = (
+            host_copy(out.log_evidence_null),
+            host_copy(out.dla.log_evidences),
+            host_copy(out.subdla.log_evidences),
+            sample(out.dla.sample_log_likelihoods),
+            sample(out.subdla.sample_log_likelihoods),
+            sample(out.dla.base_sample_inds),
+            host_copy(out.dla.map_z_dlas),
+            host_copy(out.dla.map_log_nhis),
+        )
+        done = None
+        if out.log_evidence_null.is_cuda:
+            done = torch.cuda.Event()
+            done.record()
     return BatchReadback(*fields, done)
 
 
@@ -256,28 +268,29 @@ def dispatch_batch(
         :func:`finalize_batch` gives None in those fields (evidences, MAPs
         and posteriors are unchanged).
     """
-    device, dtype = inputs.learned.mu.device, inputs.learned.mu.dtype
-    out = batch_evidences(
-        inputs.learned,
-        to_torch(stack(spectra), device, dtype),
-        inputs.dla,
-        inputs.sub,
-        generator,
-        params,
-        max_dlas,
-        shared_offsets=inputs.shared_offsets,
-        base_inds_override=(
-            None
-            if base_inds_override is None
-            else torch.as_tensor(np.asarray(base_inds_override, np.int64), device=device)
-        ),
-        voigt_impl=voigt_impl,
-        abs_dtype=abs_dtype,
-        window_tier=window_tier,
-        use_kernels=use_kernels,
-        resampler=resampler,
-    )
-    return _start_readback(out, with_sample_lls)
+    with span("gpy.dispatch"):
+        out = batch_evidences(
+            inputs.learned,
+            spectra,
+            inputs.dla,
+            inputs.sub,
+            generator,
+            params,
+            max_dlas,
+            shared_offsets=inputs.shared_offsets,
+            base_inds_override=(
+                None
+                if base_inds_override is None
+                else torch.as_tensor(np.asarray(base_inds_override, np.int64),
+                                     device=inputs.learned.mu.device)
+            ),
+            voigt_impl=voigt_impl,
+            abs_dtype=abs_dtype,
+            window_tier=window_tier,
+            use_kernels=use_kernels,
+            resampler=resampler,
+        )
+        return _start_readback(out, with_sample_lls)
 
 
 def finalize_batch(
@@ -289,20 +302,22 @@ def finalize_batch(
 ) -> list[SpectrumResult]:
     """Wait for one dispatched batch's host copies (its event, not the
     device's queue) and run the model selection per spectrum."""
-    if out.done is not None:
-        out.done.synchronize()
-    host = lambda t: None if t is None else t.numpy()
-    null_ev, dla_ev, sub_ev, dla_sll, sub_sll, base_inds, map_z, map_lognhi = (
-        host(t) for t in out[:-1])
-    at = lambda a, i: None if a is None else a[i]
-    return [
-        spectrum_result(
-            null_ev[i], dla_ev[i], sub_ev[i], at(dla_sll, i), at(sub_sll, i),
-            at(base_inds, i), map_z[i], map_lognhi[i], spec, subdla_samples,
-            prior, max_dlas,
-        )
-        for i, spec in enumerate(spectra)
-    ]
+    with span("gpy.finalize"):
+        if out.done is not None:
+            out.done.synchronize()
+        host = lambda t: None if t is None else t.numpy()
+        null_ev, dla_ev, sub_ev, dla_sll, sub_sll, base_inds, map_z, map_lognhi = (
+            host(t) for t in out[:-1])
+        at = lambda a, i: None if a is None else a[i]
+        with span("gpy.select"):
+            return [
+                spectrum_result(
+                    null_ev[i], dla_ev[i], sub_ev[i], at(dla_sll, i), at(sub_sll, i),
+                    at(base_inds, i), map_z[i], map_lognhi[i], spec, subdla_samples,
+                    prior, max_dlas,
+                )
+                for i, spec in enumerate(spectra)
+            ]
 
 
 def process_batch(

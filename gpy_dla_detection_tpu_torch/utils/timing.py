@@ -5,13 +5,23 @@ accumulates named wall-clock stages (a copy), ``trace`` wraps
 ``torch.profiler`` and writes a Chrome trace (viewable in Perfetto or
 ``chrome://tracing``), and ``block_and_time`` times a call with the card
 synchronised around it.  ``card_line`` names the card a time was taken on.
+
+``span(name)`` marks a stage of the program where its work happens (the
+``gpy.*`` spans of ``parallel/batch`` and ``models/``).  It records nothing
+unless a ``recording()`` block is open, and then, on any thread, the span's
+name, its thread's native id, its parent (the innermost span open on the
+same thread) and its ``time.time_ns()`` bounds, the clock
+``torch.profiler`` stamps its events in.  Off, a span costs one flag read
+and enters no profiler code.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import subprocess
+import threading
 import time
 from collections import defaultdict
 
@@ -40,6 +50,86 @@ class StageTimer:
             t, c = self.totals[name], self.counts[name]
             lines.append(f"{name:<30} {t:8.3f}s  ({c} calls, {t / c * 1e3:8.2f} ms/call)")
         return "\n".join(lines)
+
+
+class Recording(list):
+    """The spans of one :func:`recording` block, in the order they were
+    entered, filled when the block ends: ``(name, thread, parent, start_ns,
+    end_ns)``, with ``thread`` the native id of the span's thread
+    (``threading.get_native_id()``, the id the profiler gives its CPU
+    events) and ``parent`` the index of the enclosing span of that thread,
+    or -1.  ``dropped`` counts the spans past the block's ``limit`` and
+    those still open when it ended (their ``end_ns`` is None)."""
+
+    dropped: int = 0
+
+
+_NULL_SPAN = contextlib.nullcontext()
+_recording = False  # the one flag a span reads while no block is open
+_slots: list = []  # the open block's entries, [name, thread, parent, start, end]
+_next_index = itertools.count().__next__
+_threads = threading.local()  # per thread: its native id and its open spans
+
+
+class _Span:
+    __slots__ = ("name", "entry")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        local = _threads.__dict__
+        stack = local.get("stack")
+        if stack is None:
+            stack = local["stack"] = []
+            local["tid"] = threading.get_native_id()
+        slots, index = _slots, _next_index()  # the counter is atomic under the GIL
+        self.entry = None
+        if index < len(slots):
+            self.entry = slots[index] = [self.name, local["tid"], stack[-1] if stack else -1,
+                                         time.time_ns(), None]
+        stack.append(index)
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        _threads.stack.pop()
+        if self.entry is not None:
+            self.entry[4] = end
+        return False
+
+
+def span(name: str):
+    """A context manager that records the block as the stage ``name`` while
+    a :func:`recording` block is open; otherwise the shared null context."""
+    if not _recording:
+        return _NULL_SPAN
+    return _Span(name)
+
+
+@contextlib.contextmanager
+def recording(limit: int = 200_000):
+    """Record every :func:`span` entered, on any thread, while the block is
+    open, up to ``limit`` spans.
+
+    :return: (as the context's value) a :class:`Recording`, filled when the
+        block ends.
+    """
+    global _recording, _slots, _next_index
+    if _recording:
+        raise RuntimeError("a recording block is already open")
+    out = Recording()
+    _slots, _next_index = [None] * limit, itertools.count().__next__
+    _recording = True
+    try:
+        yield out
+    finally:
+        _recording = False
+        entered = _next_index()
+        slots, _slots = _slots, []
+        kept = [e or [None, None, -1, None, None] for e in slots[:min(entered, limit)]]
+        out.extend(tuple(e) for e in kept)
+        out.dropped = max(entered - limit, 0) + sum(e[4] is None for e in kept)
 
 
 @contextlib.contextmanager
