@@ -138,7 +138,7 @@ Phases, one line each; any failure exits non-zero before the result:
      on the first (the same z_map and NaN pattern, every finite |dll| within
      1e-4 of the largest finite |ll|, within 1% of the peak's margin near
      the peak), one K3 launch a spectrum (the correlation scan's solves) and
-     none for the exact scan, no composition; K3 on the zQSO's own inputs
+     one zqso_cap and one K3 a chunk for the exact scan, no composition; K3 on the zQSO's own inputs
      against its twin, its device ms beside the catalog's and its bound;
      the library path on 8 spectra (one K3 launch each, every |z_map -
      z_true| < 0.5, the count within 0.05), its dispatch under CUDA's sync
@@ -236,6 +236,16 @@ Phases, one line each; any failure exits non-zero before the result:
      throughput twins at reduced counts (heads --count 32, MCMC_REPS=1
      with 1,000-step chains, survey --runs 2 --spectra 96 --batch-size
      8), their lines beside the card's name and power limit
+ 24. zqso_cap, the zQSO exact scan's in-window inputs, at the main path's
+     shapes (ops/zqso_cap_sweep.problem: DESI's linear 0.8 A grid of 5,600
+     pixels padded to 5,632, k = 20; the main path's chunk, the whole grid
+     of 10,000, and the 1,000 of before): against its twin (B, u, misc
+     within 1e-5 of each output's largest magnitude; B within 1.5e-6 of its
+     largest magnitude from its float64 sum, and no farther from it than
+     the twin; K3's twin on either within 2e-6 of |ll|), its device ms (CUDA events over 50 calls, both of its kernels)
+     beside the twin's synchronised ms and the composition it replaces
+     (interp_uniform + log_mvnpdf_low_rank, as library_ms) on the same
+     inputs, its bound (the products over the float32 peak), launches
 Every other phase asserts that the Weideman window is never launched, and
 every phase before 14 that no int16 instantiation is.
 Then a JSON line of the kernels, the card line, and the result line.
@@ -279,6 +289,8 @@ sys.meta_path.insert(0, _Blocked())
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+from gpy_dla_detection_tpu_torch.ops.timing import events_ms  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_fullscale.npz"
@@ -383,6 +395,13 @@ ABS_GOLDEN_P_DLA = 1e-3
 # peak |ll| reaches ~1e5), and within +-0.2 of the peak within this share of
 # the peak's margin (tests/test_zqso.py::test_corr_scan_matches_shift_and_exact)
 REL_ZQSO_GLOBAL = 1e-4
+# zqso_cap's likelihood against its twin's (phase 24): K2's REL_K23 scaled by
+# the root of the sums' lengths (~4,150 pixels in the window against 1,280)
+REL_ZQSO_CAP_LL = 2e-6
+# zqso_cap's B from the same float32 terms summed in float64, a share of
+# its largest magnitude (phase 24; 3.8e-7 measured at 10,000 z, the twin
+# 4.0e-6): float32 sums of ~4,150 terms in the kernel's order
+REL_ZQSO_CAP_F64 = 1.5e-6
 NEAR_PEAK_ZQSO = 0.01
 REL_K3_GRAD = 1e-5  # each output of K3's adjoint within this share of its max |.|, vs twin
 # the training against the JAX float64 golden: losses within this share of
@@ -435,6 +454,12 @@ KERNELS = {
     "logmvn_chain_wide": (
         "gpy_dla_detection_tpu_torch/csrc/logmvn_chain.cu",
         f"{LOGMVN}:497",
+    ),
+    # the zQSO exact scan's in-window inputs (phases 18, 24): no TPU kernel;
+    # the JAX exact scan's interp_uniform + log_mvnpdf_low_rank, plain XLA
+    "zqso_cap": (
+        "gpy_dla_detection_tpu_torch/csrc/zqso_cap.cu",
+        "gpy_dla_detection_tpu/models/zqso.py:z_log_evidences (plain XLA)",
     ),
     # K3's adjoint (phase 19): no TPU kernel; the function JAX differentiates
     "logmvn_chain_grad": (
@@ -505,22 +530,6 @@ def timed_median(fn, reps: int = 10, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
-
-
-def events_ms(fn, reps: int = 50) -> float:
-    """Milliseconds a call of ``fn()`` by CUDA events around ``reps``
-    back-to-back calls, after a warm-up: the device time of a kernel that
-    is longer than its launch's host time."""
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -683,6 +692,106 @@ def load_script(path: Path, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+ZQSO_CAP_OLD_CHUNK = 1_000  # the exact scan's chunk before zqso_cap (phase 24)
+
+
+def zqso_composition(z, med, lo, hi, wl, flux, noise, valid, rest_wl, mu, M, min_lambda,
+                     max_lambda):
+    """The in-window likelihood as the exact scan composed it before
+    zqso_cap: the (C, P, k) basis by interp_uniform, then
+    log_mvnpdf_low_rank (a library Cholesky)."""
+    from gpy_dla_detection_tpu_torch.ops.interp import interp_uniform
+    from gpy_dla_detection_tpu_torch.ops.logmvn import log_mvnpdf_low_rank
+
+    rest = wl / (1.0 + z[:, None])
+    ind = ((rest >= min_lambda) & (rest <= max_lambda) & (wl > lo[:, None])
+           & (wl < hi[:, None]) & valid)
+    m = med[:, None]
+    x0, dx = rest_wl[0], rest_wl[1] - rest_wl[0]
+    rest_q = rest.to(torch.float32)
+    return log_mvnpdf_low_rank(flux / m, interp_uniform(x0, dx, mu, rest_q),
+                               interp_uniform(x0, dx, M, rest_q), noise / (m * m), ind)
+
+
+def zqso_cap_timings(device, sizes) -> dict:
+    """Phase 24's numbers at each chunk size of ``sizes``: zqso_cap against
+    its twin, its device ms (both kernels, CUDA events over 50 calls), the
+    twin's synchronised ms and the composition's (library) device ms on the
+    same inputs, the bound, and the peak memory of each route."""
+    from gpy_dla_detection_tpu_torch.ops import _build
+    from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
+        logmvn_chain,
+        logmvn_chain_reference,
+        zqso_cap,
+        zqso_cap_reference,
+    )
+    from gpy_dla_detection_tpu_torch.ops.zqso_cap_sweep import float64_sum, problem
+
+    out = {}
+    for C in sizes:
+        args = problem(device, C)
+        before = _build.launch_counts["zqso_cap"]
+        got = zqso_cap(*args)
+        torch.cuda.synchronize()
+        check(_build.launch_counts["zqso_cap"] == before + 1, "zqso_cap: one launch a call")
+        want = zqso_cap_reference(*args)
+        rel = []
+        for g, w in zip(got, want):
+            check(bool(torch.equal(torch.isfinite(g), torch.isfinite(w))),
+                  f"zqso_cap at C={C}: the non-finite pattern differs from the twin's")
+            fin = torch.isfinite(w)
+            rel.append(float((g[fin] - w[fin]).abs().max() / w[fin].abs().max()))
+        check(max(rel) <= 1e-5, f"zqso_cap at C={C}: B, u, misc vs twin {rel} > 1e-5")
+        # both against the same float32 terms summed in float64: the order
+        # of the sums is all that parts them, and the kernel's may be no
+        # worse than the library SGEMM's (a product rounded to TF32 would
+        # put it ~6e-6 off)
+        exact = float64_sum(*args)
+        fin64 = torch.isfinite(exact)
+        err64 = [float((x.double() - exact)[fin64].abs().max() / exact[fin64].abs().max())
+                 for x in (got[0], want[0])]
+        del exact
+        check(err64[0] <= REL_ZQSO_CAP_F64 and err64[0] <= err64[1],
+              f"zqso_cap at C={C}: B {err64[0]:.2e} of max from its float64 sum (limit "
+              f"{REL_ZQSO_CAP_F64}; the twin {err64[1]:.2e})")
+        ll_k, ll_t = logmvn_chain_reference(*got), logmvn_chain_reference(*want)
+        fin = torch.isfinite(ll_t)
+        ll_err = float((ll_k[fin] - ll_t[fin]).abs().max())
+        check(ll_err <= REL_ZQSO_CAP_LL * float(ll_t[fin].abs().max()),
+              f"zqso_cap at C={C}: |dll| {ll_err:.3e} > {REL_ZQSO_CAP_LL} max|ll|")
+        comp_ll = zqso_composition(*args)
+        comp_err = float((logmvn_chain(*got) - comp_ll)[fin].abs().max())
+        rest = args[4] / (1.0 + args[0][:, None])
+        pairs = float(((rest >= args[11]) & (rest <= args[12]) & (args[4] > args[2][:, None])
+                       & (args[4] < args[3][:, None]) & args[7]).sum())
+        k = args[10].shape[1]
+        del want, rest
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        # CUDA events: the profiler lost records of these launches late in
+        # this process ([73, 99, 73] of 100 in three windows); the two
+        # agreed within 0.7% in a process of their own (1.3855 / 1.3924 ms)
+        cap_ms = events_ms(lambda: zqso_cap(*args))
+        chain_ms = events_ms(lambda: logmvn_chain(*got))
+        cap_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        sync_ms = timed_median(lambda: zqso_cap(*args))
+        twin_ms = timed_median(lambda: zqso_cap_reference(*args), reps=5, warmup=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        comp_ms = events_ms(lambda: zqso_composition(*args), reps=5)
+        comp_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        out[C] = {"ms": sync_ms, "device_ms": cap_ms, "chain_device_ms": chain_ms,
+                  "twin_ms": twin_ms, "library_ms": comp_ms,
+                  "bound_ms": bound(0.0, 2.0 * pairs * (k * (k + 1) // 2 + k))[0],
+                  "pairs": pairs, "rel_err": rel, "ll_err": ll_err, "B_vs_float64": err64,
+                  "vs_composition": comp_err, "peak_mib": cap_peak,
+                  "composition_peak_mib": comp_peak}
+        del got, args
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -2395,7 +2504,7 @@ def main() -> None:
         synthetic_z_learned_model,
         synthetic_z_observation,
     )
-    from gpy_dla_detection_tpu_torch.models import zqso_corr
+    from gpy_dla_detection_tpu_torch.models import zqso, zqso_corr
     from gpy_dla_detection_tpu_torch.models.zqso import (
         dispatch_scan,
         inference_z_qso_many,
@@ -2459,7 +2568,9 @@ def main() -> None:
     (exact_res, _), launches = count_launches(lambda: inference_z_qso_many(
         z_learned, golden_specs[:1], zparams, method="exact", keep_lls=True))
     path_launches["zqso_golden_exact"] = launches
-    check(not launches, f"zQSO golden exact: launches {launches} (it runs no kernel)")
+    exact_chunks = -(-zparams.num_zqso_samples // zqso.EXACT_CHUNK)
+    check(launches == {"zqso_cap": exact_chunks, "logmvn_chain": exact_chunks},
+          f"zQSO golden exact: launches {launches} (zqso_cap and K3 once a chunk)")
     exact_rules = scan_rules(exact_res[0][1], gz["lls_exact"][0], z_grid_np, "zQSO golden exact")
     check(exact_res[0][0] == gz["z_map_exact"][0],
           f"zQSO golden exact: z_map {exact_res[0][0]} != {gz['z_map_exact'][0]}")
@@ -3704,6 +3815,37 @@ def main() -> None:
 
 
 
+    # 24. zqso_cap at the main path's shapes: its chunk (the whole grid)
+    # and the chunk of 1,000 of before, against its twin, beside the
+    # composition it replaces
+    t24 = time.perf_counter()
+    main_chunk = min(zqso.EXACT_CHUNK, zparams.num_zqso_samples)
+    cap = zqso_cap_timings(device, sorted({ZQSO_CAP_OLD_CHUNK, main_chunk}))
+    main_cap = cap[main_chunk]
+    err["zqso_cap"] = main_cap["ll_err"]
+    ms["zqso_cap"] = (main_cap["ms"], main_cap["twin_ms"])
+    zqso_extra = {"zqso_cap": {
+        "device_ms": main_cap["device_ms"], "chunk": main_chunk,
+        "by_chunk": {str(C): {n: c[n] for n in ("device_ms", "library_ms", "twin_ms", "bound_ms",
+                                                  "peak_mib", "composition_peak_mib")}
+                     for C, c in cap.items()}}}
+    bounds["zqso_cap"] = (main_cap["bound_ms"], "operations")
+    library["zqso_cap"] = main_cap["library_ms"]
+    print(f"[24 zqso_cap] {card} | k=20, P=5,632 (DESI's linear 0.8 A grid), float32 | "
+          + " | ".join(
+              f"C={C}: synchronised {c['ms']:.3f} ms, device {c['device_ms']:.4f} ms (both "
+              f"kernels, CUDA events over 50 calls), bound {c['bound_ms']:.4f} ms ({c['pairs']:.0f} (z, pixel) "
+              f"in the window; {100 * c['bound_ms'] / c['device_ms']:.1f}% of it), K3 after it "
+              f"{c['chain_device_ms']:.4f} ms; twin {c['twin_ms']:.3f} ms; the composition it "
+              f"replaces {c['library_ms']:.3f} ms (device); B/u/misc vs twin "
+              + "/".join(f"{r:.2e}" for r in c["rel_err"]) + " of max (B vs its float64 sum "
+              + "/".join(f"{r:.2e}" for r in c["B_vs_float64"]) + f", kernel/twin), |dll| "
+              f"{c['ll_err']:.3e}"
+              f", vs the composition {c['vs_composition']:.3e}; peak {c['peak_mib']:.1f} MiB "
+              f"(composition {c['composition_peak_mib']:.1f})"
+              for C, c in cap.items())
+          + f" | {time.perf_counter() - t24:.1f} s")
+
     # phase 15's numbers beside each K5 and K6 row of the kernels line
     tail_extra = {n: {"device_ms_profiler": tail_dev[n], "bound_share": tail_share[n][0],
                       "copy_rate_share": tail_share[n][1], "copy_rate_gbs": copy_gbs,
@@ -3751,7 +3893,8 @@ def main() -> None:
              "bound_ms_lls_break": bounds[f"{name}_lls"][0]} if name in k1_device else {}),
          **({"branch": "poly=False (voigt_pallas.py:357)"}
             if name == "absorption_all_weideman" else {}),
-         **tail_extra.get(name, {})}
+         **tail_extra.get(name, {}),
+         **zqso_extra.get(name, {})}
         for name, (src, rep) in KERNELS.items()
     ] + [
         {"name": name, "route": "cuda", "source": ABLATE_SOURCE, "replaces": rep,

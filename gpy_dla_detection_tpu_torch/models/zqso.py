@@ -7,10 +7,15 @@ the padded spectrum, batched over chunks of the grid to bound memory.
 
 Two scans compute it.  The exact scan (:func:`z_log_evidences`)
 interpolates the learned model onto the observed pixels at every z and
-runs the dense low-rank Woodbury (``ops/logmvn.log_mvnpdf_low_rank``,
-a library Cholesky) per z.  The correlation scan
-(``models/zqso_corr.py``) turns every per-z reduction into an FFT
-cross-correlation and runs the k x k solves on K3; "auto" takes it
+runs the low-rank Woodbury per z, by one of three routes
+(:func:`_exact_route`): on the card a float32 model's K3 inputs come from
+``ops/logmvn_kernels.zqso_cap``, one kernel that interpolates in registers
+and never writes the (C, P, k) basis, and K3 solves them; on the CPU their
+plain twins do the same; a float64 model, or a float32 basis wider than
+the kernel takes, forms the basis and runs
+``ops/logmvn.log_mvnpdf_low_rank`` (a library Cholesky).  The
+correlation scan (``models/zqso_corr.py``) turns every per-z reduction into
+an FFT cross-correlation and runs the k x k solves on K3; "auto" takes it
 wherever the pixel grid is log-uniform within ``SCAN_WL_BOUNDS``.  The
 reference's third scan, the shift scan, is a TPU workaround the port
 leaves out: ``method="shift"`` is refused by name.
@@ -40,15 +45,29 @@ import torch
 
 from ..ops.interp import interp_uniform
 from ..ops.logmvn import LOG_2PI, log_mvnpdf_low_rank
+from ..ops.logmvn_kernels import (
+    ZQSO_CAP_MAX_K,
+    logmvn_chain,
+    logmvn_chain_reference,
+    zqso_cap,
+    zqso_cap_reference,
+)
 from ..params import ZParameters
 from ..utils.timing import span
 
-# candidate redshifts the exact scan evaluates at once.  Each holds the
-# model interpolated onto every pixel, (P, k) floats, in the Woodbury's
-# temporaries: on an H100 a chunk of 1,000 takes 2.4 GiB and 115 ms a
-# spectrum, the whole grid at once 24 GiB and 110 ms; measured by
-# ``scripts/profile_torch_slice.py --path zqso --chunk-sizes``, PERF.md
-EXACT_CHUNK = 1_000
+# candidate redshifts the exact scan evaluates at once on the "kernel"
+# route (:func:`_exact_route`), where zqso_cap forms the in-window inputs
+# without the (C, P, k) basis: what stays are the per-z median and iid
+# passes' (C, P) temporaries, 0.179 GiB a thousand candidates at P = 5,632
+# on an H100 (a scan's peak: 1.79 GiB for the whole grid of 10,000 in one
+# chunk), so the largest chunk within the 2.4 GiB that a chunk of 1,000
+# took before the kernel (PERF.md)
+EXACT_CHUNK = 13_000
+# ... and on the routes that form the interpolated basis ("twin", "basis"),
+# at most this many: each candidate holds (P, k) floats in the Woodbury's
+# temporaries; on an H100 a chunk of 1,000 took 2.4 GiB, the whole grid at
+# once 24 GiB
+BASIS_CHUNK = 1_000
 
 
 class ZLearnedModel(NamedTuple):
@@ -227,11 +246,10 @@ def _z_log_evidences_at(
     """log p(D | z) at each candidate redshift of ``z`` (C, float64), in
     the spectrum's dtype, for a spectrum on the model's device
     (:func:`device_spectrum`): the reference's ``z_log_evidence`` over a
-    batch of z."""
+    batch of z, its in-window likelihood by :func:`_exact_route`'s route."""
     wl = spec.wavelengths
     dtype = spec.flux.dtype
     zc = z[:, None]
-    rest = wl / (1.0 + zc)  # (C, P)
 
     # observable cut: the part of the spectrum the GP window can cover
     max_obs = torch.minimum(
@@ -240,32 +258,45 @@ def _z_log_evidences_at(
     min_obs = torch.maximum(
         params.min_lambda * (1.0 + z), torch.min(torch.where(spec.valid, wl, math.inf))
     )[:, None]
-    in_cut = (wl > min_obs) & (wl < max_obs)
 
     # normalization over the rest-frame window (reference: zqso_gp.py:141-148)
+    rest = None
     if sorted_aux is not None:
         median = _normalization_median(sorted_aux, zc, min_obs, max_obs, params)
     else:
+        rest = wl / (1.0 + zc)  # (C, P)
         norm_ind = (
             (rest >= params.normalization_min_lambda)
             & (rest <= params.normalization_max_lambda)
-            & in_cut
+            & (wl > min_obs) & (wl < max_obs)
             & spec.valid
         )
         median = _masked_median(spec.flux, norm_ind)
+
     median = median[:, None]
     y = spec.flux / median
     v = spec.noise_variance / (median * median)
 
-    # in-model window
-    model_ind = (rest >= params.min_lambda) & (rest <= params.max_lambda) & in_cut & spec.valid
-
-    x0 = learned.rest_wavelengths[0]
-    dx = learned.rest_wavelengths[1] - learned.rest_wavelengths[0]
-    rest_q = rest.to(dtype)
-    mu = interp_uniform(x0, dx, learned.mu, rest_q)
-    M = interp_uniform(x0, dx, learned.M, rest_q)
-    in_window_ll = log_mvnpdf_low_rank(y, mu, M, v, model_ind)
+    route = _exact_route(learned)
+    if route == "basis":
+        if rest is None:
+            rest = wl / (1.0 + zc)
+        # in-model window
+        model_ind = ((rest >= params.min_lambda) & (rest <= params.max_lambda)
+                     & (wl > min_obs) & (wl < max_obs) & spec.valid)
+        x0 = learned.rest_wavelengths[0]
+        dx = learned.rest_wavelengths[1] - learned.rest_wavelengths[0]
+        rest_q = rest.to(dtype)
+        mu = interp_uniform(x0, dx, learned.mu, rest_q)
+        M = interp_uniform(x0, dx, learned.M, rest_q)
+        in_window_ll = log_mvnpdf_low_rank(y, mu, M, v, model_ind)
+    else:
+        cap, chain = ((zqso_cap, logmvn_chain) if route == "kernel"
+                      else (zqso_cap_reference, logmvn_chain_reference))
+        B, u, misc = cap(z, median[:, 0], min_obs[:, 0], max_obs[:, 0], wl, spec.flux,
+                         spec.noise_variance, spec.valid, learned.rest_wavelengths, learned.mu,
+                         learned.M, params.min_lambda, params.max_lambda)
+        in_window_ll = chain(B, u, misc)
 
     # out-of-window pixels: iid Gaussians (reference: zqso_gp.py:196-212)
     bw_ind = (wl < min_obs) & spec.valid
@@ -390,6 +421,21 @@ def detect_pixel_dlog(wavelengths, max_drift: float = 0.02):
     return d
 
 
+def _exact_route(learned: ZLearnedModel) -> str:
+    """How the exact scan forms its in-window likelihood, and so its chunk:
+    "kernel" (``zqso_cap`` and K3 on the card: a float32 model whose basis
+    the kernel's row bounds hold), "twin" (their plain twins: a float32
+    model on the CPU), else "basis" (the (C, P, k) basis by
+    ``interp_uniform``, then ``log_mvnpdf_low_rank``: a float64 model, and a
+    float32 one on the card wider than ``ZQSO_CAP_MAX_K``)."""
+    M = learned.M
+    if M.dtype != torch.float32:
+        return "basis"
+    if M.device.type != "cuda":
+        return "twin"
+    return "kernel" if M.shape[1] <= ZQSO_CAP_MAX_K else "basis"
+
+
 def z_log_evidences(
     learned: ZLearnedModel,
     spec: ZSpectrum,
@@ -397,16 +443,20 @@ def z_log_evidences(
     params: ZParameters,
 ):
     """log p(D | z) over the whole grid by the exact scan, ``EXACT_CHUNK``
-    candidates at a time to bound memory, one flux sort for the grid.
+    candidates at a time to bound memory (at most ``BASIS_CHUNK`` on the
+    routes that form the basis), one flux sort for the grid.
 
     :param spec: the spectrum on the model's device (:func:`device_spectrum`).
     :param z_grid: (Z,) float64 on the model's device.
     """
     sorted_aux = _sorted_flux_view(spec)
+    chunk = EXACT_CHUNK
+    if _exact_route(learned) != "kernel":
+        chunk = min(EXACT_CHUNK, BASIS_CHUNK)
     chunks = []
-    for i in range(0, z_grid.shape[0], EXACT_CHUNK):
+    for i in range(0, z_grid.shape[0], chunk):
         with span("gpy.scan_chunk"):
-            chunks.append(_z_log_evidences_at(learned, spec, z_grid[i:i + EXACT_CHUNK],
+            chunks.append(_z_log_evidences_at(learned, spec, z_grid[i:i + chunk],
                                               params, sorted_aux))
     return torch.cat(chunks)
 

@@ -38,7 +38,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 LIBRARIES = {
     "kernels": ("absorption_all.cu", "absorption_tail.cu", "absorption_windowed.cu",
                 "logmvn_cap.cu", "logmvn_cap_wide.cu", "logmvn_chain.cu",
-                "logmvn_chain_grad.cu"),
+                "logmvn_chain_grad.cu", "zqso_cap.cu"),
     "ablate": ("logmvn_ablate.cu",),
 }
 BUILD_DIR = CSRC / "build"
@@ -61,6 +61,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 # library -> launcher -> argument types
 _SIGNATURES = {"kernels": {
     # wl, P, z, S, nhi, F, num_lines, far_lines, lls_break, poly, store
@@ -99,6 +100,12 @@ _SIGNATURES = {"kernels": {
     # B, u, g, S, k, then the geometry (threads, shared bytes, grid), the
     # workspace (or null), dB, du, dmisc, stream
     "logmvn_chain_grad_wide_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # the zQSO exact scan's in-window inputs: z, med, min_obs, max_obs, C,
+    # wl, flux, noise, valid, P, rest_wl, mu, M, R, k, min_lambda,
+    # max_lambda, then the geometry (row bound, pixels a tile, tiles,
+    # threads, shared bytes), the workspace, B, u, misc, stream
+    "zqso_cap_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _D, _D,
+                        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }, "ablate": {
     # stage, rows, N, M, k, Mp, A, S, then K2's geometry (samples a block,
     # pixels a chunk, threads, shared bytes, grid), ll, stream

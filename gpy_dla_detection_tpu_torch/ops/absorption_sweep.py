@@ -44,6 +44,7 @@ import torch
 
 from . import _build
 from .logmvn_kernels import H100_SMS, _chain_grid
+from .timing import events_ms
 from .voigt_kernels import (
     K1_BLOCKS_PER_SM,
     K1_CHUNK,
@@ -55,7 +56,6 @@ from .voigt_kernels import (
 )
 
 ROUNDS = 3
-REPS = 50
 TOL = {True: 2e-6, False: 5e-4}  # K1's card tolerances, polynomial and Weideman
 SHIPPED = (K1_PIXELS, K1_WARPS, K1_BLOCKS_PER_SM)
 # (name, K1_GEOMETRY, K1_STAGES)
@@ -159,19 +159,6 @@ def launcher(lib, geo, case, poly, device, per_sm=None):
         _build.check_launch("absorption_all", lib.absorption_all_launch(*args))
 
     return run, out
-
-
-def events_ms(fn, reps: int = REPS) -> float:
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main() -> None:

@@ -16,6 +16,12 @@ instantiation of its own decodes as it assembles (counted as
 ``logmvn_cap_i16``); its twin decodes with
 ``ops/logmvn.decode_profile_store``.
 
+The zQSO exact scan's in-window inputs to K3 (``zqso_cap``,
+``csrc/zqso_cap.cu``) come from the learned table and the padded spectrum
+in one kernel that interpolates the GP basis in registers: the JAX package
+forms that basis, (C, P, k), in plain XLA, so this kernel has no TPU
+counterpart either.
+
 K3's adjoint (``logmvn_chain_grad``, ``csrc/logmvn_chain_grad.cu``) is the
 backward of :func:`chain_loglik`, the ``torch.autograd.Function`` that the
 GP training differentiates (``models/training.py``): the JAX package
@@ -689,6 +695,198 @@ def logmvn_chain(B: torch.Tensor, u: torch.Tensor, misc: torch.Tensor):
     check_launch("logmvn_chain", err)
     launch_counts["logmvn_chain"] += 1
     return ll
+
+
+# zqso_cap (csrc/zqso_cap.cu): the zQSO exact scan's in-window Woodbury
+# inputs.  A block takes a run of redshifts (a lane each) over a tile of
+# pixels in sub-tiles of ZQSO_CAP_SUB, staging a band of up to
+# ZQSO_CAP_BAND_ROWS table rows; each warp holds a piece of the triangle's
+# rows, at most ZQSO_CAP_PIECE_CAP accumulators a thread.  Compiled for GP
+# bases up to each row bound, with its blocks an SM (the launch bound).
+ZQSO_CAP_ROW_BOUNDS = (20, 32)
+ZQSO_CAP_MAX_K = ZQSO_CAP_ROW_BOUNDS[-1]
+ZQSO_CAP_SUB = 32
+ZQSO_CAP_BAND_ROWS = 256
+ZQSO_CAP_PIECE_CAP = 120
+ZQSO_CAP_BLOCKS_PER_SM = {20: 3, 32: 2}
+ZQSO_CAP_TILES = (1024, 512, 256, 128)  # pixels a tile, the widest first
+# waves of blocks a tile should give: at 10,000 z a 256-pixel tile (8.7
+# waves) took 1.39 ms against 1.41 for 1,024 (2.4), at 1,000 z 128 pixels
+# 0.22 ms against 0.56 (ops/zqso_cap_sweep.py, PERF.md)
+ZQSO_CAP_WAVES = 8
+
+
+class ZqsoCapGeometry(NamedTuple):
+    """zqso_cap's launch: the row bound ``rows`` (KMAX) of the
+    instantiation, ``redshifts`` and ``threads`` a block, ``shared_bytes`` a
+    block, ``tile_pixels`` a tile, ``tiles`` over the pixels, ``grid``
+    blocks (redshift runs x tiles), the band's row ``stride`` in floats and
+    the ``workspace`` of the tiles' partial sums, (tiles, kp + k + 3, C)."""
+
+    rows: int
+    redshifts: int
+    threads: int
+    shared_bytes: int
+    tile_pixels: int
+    tiles: int
+    grid: int
+    stride: int
+    workspace: tuple[int, int, int]
+
+
+def zqso_cap_pieces(rows: int) -> tuple[int, ...]:
+    """The first row of each piece of the triangle's rows and the end: row
+    a holds a + 1 entries of B and one of u, and a piece as many rows as
+    keep it within ZQSO_CAP_PIECE_CAP accumulators (one row at least)."""
+    lo, a = [0], 0
+    while a < rows:
+        held, b = 0, a
+        while b < rows and (held + b + 2 <= ZQSO_CAP_PIECE_CAP or b == a):
+            held, b = held + b + 2, b + 1
+        lo.append(b)
+        a = b
+    return tuple(lo)
+
+
+def zqso_cap_shared_bytes(redshifts: int, stride: int, sub: int = ZQSO_CAP_SUB) -> int:
+    """A block's shared bytes: the pixel terms (16 bytes a redshift and
+    pixel of a sub-tile), the band (rows of ``stride`` floats), two
+    sub-tiles' pixels (wavelength, flux, noise, valid: 20 bytes) and the
+    band's bounds."""
+    return sub * redshifts * 16 + ZQSO_CAP_BAND_ROWS * stride * 4 + 2 * sub * 20 + 16
+
+
+def zqso_cap_geometry(C: int, P: int, k: int, sms: int = H100_SMS, tile: int | None = None,
+                      sub: int = ZQSO_CAP_SUB) -> ZqsoCapGeometry:
+    """zqso_cap's launch for C redshifts, P pixels and a GP basis of k
+    columns: the smallest row bound that holds k; a warp a piece (four
+    warps of redshifts for one piece, two for two, else one); and the
+    widest tile of ZQSO_CAP_TILES that still gives ZQSO_CAP_WAVES waves of
+    blocks at the launch bound (the narrowest where none does), so blocks
+    whose pixels fall outside the window leave no SM idle for long.
+    ``tile`` and ``sub`` (pixels a sub-tile, compiled in) are for builds
+    and tiles other than the shipped ones (``ops/zqso_cap_sweep.py``)."""
+    if not 1 <= k <= ZQSO_CAP_MAX_K:
+        raise ValueError(f"zqso_cap takes 1 <= k <= {ZQSO_CAP_MAX_K}, got k={k}")
+    if C < 1 or P < 1:
+        raise ValueError(f"empty problem: C={C}, P={P}")
+    rows = next(b for b in ZQSO_CAP_ROW_BOUNDS if k <= b)
+    pieces = len(zqso_cap_pieces(rows)) - 1
+    zs = 32 * {1: 4, 2: 2}.get(pieces, 1)
+    stride = rows if rows % 8 == 4 else rows + 4
+    runs = -(-C // zs)
+    if tile is None:
+        target = ZQSO_CAP_WAVES * sms * ZQSO_CAP_BLOCKS_PER_SM[rows]
+        tile = next((t for t in ZQSO_CAP_TILES if runs * -(-P // t) >= target),
+                    ZQSO_CAP_TILES[-1])
+        tile = min(tile, ZQSO_CAP_SUB * -(-P // ZQSO_CAP_SUB))
+    tiles = -(-P // tile)
+    return ZqsoCapGeometry(
+        rows=rows, redshifts=zs, threads=zs * pieces,
+        shared_bytes=zqso_cap_shared_bytes(zs, stride, sub),
+        tile_pixels=tile, tiles=tiles, grid=runs * tiles, stride=stride,
+        workspace=(tiles, k * (k + 1) // 2 + k + 3, C))
+
+
+def zqso_cap_reference(z, median, min_obs, max_obs, wavelengths, flux, noise_variance, valid,
+                       rest_wavelengths, mu, M, min_lambda: float, max_lambda: float):
+    """Plain twin of zqso_cap: the exact scan's composition
+    (``models/zqso``: ``interp_uniform``, then ``log_mvnpdf_low_rank``'s
+    masked inputs and products) regrouped to stop at K3's inputs.
+
+    :param z, min_obs, max_obs: (C,) float64: the redshifts and the
+        observable cut's ends.
+    :param median: (C,) the flux's normalization median at each z.
+    :param wavelengths: (P,) float64; ``flux``, ``noise_variance`` (P,);
+        ``valid`` (P,) bool.
+    :param rest_wavelengths, mu: (R,) the learned grid (uniform) and mean;
+        ``M`` (R, k).
+    :return: B (C, k(k+1)/2) packed without the +I, u (C, k), misc (C, 2) =
+        (sum delta^2 d_inv, sum log d + n log 2 pi), in ``flux``'s dtype.
+    """
+    from ..ops.interp import interp_uniform
+    from .logmvn import _masked_inputs
+
+    rest = wavelengths / (1.0 + z[:, None])
+    mask = ((rest >= min_lambda) & (rest <= max_lambda)
+            & (wavelengths > min_obs[:, None]) & (wavelengths < max_obs[:, None]) & valid)
+    med = median[:, None]
+    y = flux / med
+    v = noise_variance / (med * med)
+    x0 = rest_wavelengths[0]
+    dx = rest_wavelengths[1] - rest_wavelengths[0]
+    rest_q = rest.to(flux.dtype)
+    Mz = interp_uniform(x0, dx, M, rest_q)
+    delta, d_inv, log_d = _masked_inputs(y, interp_uniform(x0, dx, mu, rest_q), v, mask)
+    rows, cols = _pair_index(M.shape[1], M.device)
+    B = torch.einsum("cni,cnj->cij", Mz, Mz * d_inv[..., None])[:, rows, cols]
+    u = torch.einsum("cni,cn->ci", Mz, d_inv * delta)
+    n = torch.sum(mask, dim=-1).to(flux.dtype)
+    misc = torch.stack([torch.sum(delta * delta * d_inv, dim=-1),
+                        torch.sum(log_d, dim=-1) + n * LOG_2PI], dim=1)
+    return B, u, misc
+
+
+def zqso_cap(z, median, min_obs, max_obs, wavelengths, flux, noise_variance, valid,
+             rest_wavelengths, mu, M, min_lambda: float, max_lambda: float):
+    """The zQSO exact scan's in-window Woodbury inputs for a chunk of
+    redshifts (:func:`zqso_cap_reference`'s contract): the kernel
+    (``csrc/zqso_cap.cu``) on float32 CUDA tensors, the twin on float32 CPU
+    tensors.  On the card a basis wider than ``ZQSO_CAP_MAX_K`` is refused
+    (ValueError): ``models/zqso`` sends such a model to the composition.
+    Nothing of the (C, P, k) basis reaches device memory;
+    :func:`logmvn_chain` finishes the likelihood."""
+    if not use_kernel(flux):
+        return zqso_cap_reference(z, median, min_obs, max_obs, wavelengths, flux,
+                                  noise_variance, valid, rest_wavelengths, mu, M,
+                                  min_lambda, max_lambda)
+    device = flux.device
+    check_cuda_f32(device, median=median, flux=flux, noise_variance=noise_variance,
+                   rest_wavelengths=rest_wavelengths, mu=mu, M=M)
+    for name, t, dtype in (("z", z, torch.float64), ("min_obs", min_obs, torch.float64),
+                           ("max_obs", max_obs, torch.float64),
+                           ("wavelengths", wavelengths, torch.float64),
+                           ("valid", valid, torch.bool)):
+        if t.dtype != dtype or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} on {device}")
+    C, P, (R, k) = z.shape[0], wavelengths.shape[0], M.shape
+    if (median.shape != (C,) or min_obs.shape != (C,) or max_obs.shape != (C,)
+            or flux.shape != (P,) or noise_variance.shape != (P,) or valid.shape != (P,)
+            or rest_wavelengths.shape != (R,) or mu.shape != (R,) or R < 2):
+        raise ValueError(
+            f"shape mismatch: z {tuple(z.shape)}, median {tuple(median.shape)}, min_obs "
+            f"{tuple(min_obs.shape)}, max_obs {tuple(max_obs.shape)}, wavelengths {(P,)}, "
+            f"flux {tuple(flux.shape)}, noise {tuple(noise_variance.shape)}, valid "
+            f"{tuple(valid.shape)}, rest_wavelengths {tuple(rest_wavelengths.shape)}, mu "
+            f"{tuple(mu.shape)}, M {(R, k)}")
+    out = zqso_cap_launch(load_library(), zqso_cap_geometry(C, P, k, _sm_count(device)), z,
+                          median, min_obs, max_obs, wavelengths, flux, noise_variance, valid,
+                          rest_wavelengths, mu, M, min_lambda, max_lambda)
+    launch_counts["zqso_cap"] += 1
+    return out
+
+
+def zqso_cap_launch(lib, g: ZqsoCapGeometry, z, median, min_obs, max_obs, wavelengths, flux,
+                    noise_variance, valid, rest_wavelengths, mu, M, min_lambda: float,
+                    max_lambda: float):
+    """Launch ``lib``'s zqso_cap at the geometry ``g`` on inputs that
+    :func:`zqso_cap` has checked (its workspace and outputs allocated
+    here): B, u, misc.  Uncounted; ``ops/zqso_cap_sweep.py`` times other
+    builds and tiles through it."""
+    device = flux.device
+    C, P, (R, k) = z.shape[0], wavelengths.shape[0], M.shape
+    part = torch.empty(g.workspace, dtype=torch.float32, device=device)
+    B = torch.empty((C, k * (k + 1) // 2), dtype=torch.float32, device=device)
+    u = torch.empty((C, k), dtype=torch.float32, device=device)
+    misc = torch.empty((C, 2), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.zqso_cap_launch(
+            ptr(z), ptr(median), ptr(min_obs), ptr(max_obs), C, ptr(wavelengths), ptr(flux),
+            ptr(noise_variance), ptr(valid), P, ptr(rest_wavelengths), ptr(mu), ptr(M), R, k,
+            float(min_lambda), float(max_lambda), g.rows, g.tile_pixels, g.tiles, g.threads,
+            g.shared_bytes, ptr(part), ptr(B), ptr(u), ptr(misc), stream_ptr(device))
+    check_launch("zqso_cap", err)
+    return B, u, misc
 
 
 def _cholesky_unrolled(A: torch.Tensor) -> torch.Tensor:

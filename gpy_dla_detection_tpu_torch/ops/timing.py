@@ -15,8 +15,12 @@ are left out.  ``tests/test_torch_kernels_gpu.py::
 test_device_ms_windows_hold_every_launch`` holds twenty windows in a row
 to every launch.
 
-Used by ``chip_smoke.py`` and ``scripts/k2_k3_turns.py``; needs only
-``torch``, so a script may load this file on its own.
+A kernel longer than its launch's host time can be timed more simply, by
+CUDA events around back-to-back calls (:func:`events_ms`).
+
+Used by ``chip_smoke.py``, ``scripts/k2_k3_turns.py`` and the kernels'
+sweeps (``ops/*_sweep.py``); needs only ``torch``, so a script may load this
+file on its own.
 """
 
 from __future__ import annotations
@@ -102,3 +106,19 @@ def device_ms(fn, kernels: int | None = 1, reps: int = 50,
     raise RuntimeError(
         f"the profiler recorded {seen} device records in {tries} windows of {reps} calls, "
         f"not {reps * kernels}")
+
+
+def events_ms(fn, reps: int = 50) -> float:
+    """Milliseconds a call of ``fn()`` by CUDA events around ``reps``
+    back-to-back calls, after a warm-up: the device time of a kernel that
+    is longer than its launch's host time."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

@@ -66,6 +66,21 @@ memory and in its global workspace either side of
 own inputs against the float64 twin, with NaN where its twin gives NaN;
 ``chain_loglik`` and one ``total_objective`` backward launch K3 and its
 adjoint once each and nothing else.
+
+zqso_cap (the zQSO exact scan's in-window inputs to K3) is held to its twin
+at the main path's shapes (``ops/zqso_cap_sweep.problem``: DESI's linear
+grid, P = 5,632, k = 20, C = ``EXACT_CHUNK`` and the whole grid of
+10,000), at C = 1 and 37 (ragged), at k = 5, 21 and 32, on a coarse grid
+(several band windows a sub-tile), with a z whose window holds no pixel
+and one whose normalization median is +inf: B, u and misc within 1e-5 of
+each output's largest magnitude (the order of the float32 sums, ~4,000
+terms, is all that differs), the same non-finite pattern, and K3's twin on
+either within ``REL_ZQSO_CAP_LL``, and B no farther from its float64
+sum than the twin and within ``REL_ZQSO_CAP_F64``; it repeats bit for bit,
+and k = 33 is refused on the card (the exact scan takes the composition
+there).  Both zQSO scans on the card are held to the
+CPU's, the exact one at 1,000 and 10,000 z with one ``zqso_cap`` and one
+K3 launch a chunk.
 """
 
 import numpy as np
@@ -132,6 +147,13 @@ TOL_TRUTH_FLOOR = 1e-4
 TOL_K5 = 1e-6
 TOL_K6 = 1e-6
 REL_K23 = 1e-6
+# zqso_cap's likelihood against its twin's: K2's 1e-6 scaled by the root of
+# the sums' lengths (~4,150 pixels in the window against K2's 1,280);
+# 1.3e-6 measured at 10,000 z
+REL_ZQSO_CAP_LL = 2e-6
+# zqso_cap's B from the same float32 terms summed in float64, a share of
+# its largest magnitude: 3.8e-7 measured at 10,000 z (the twin 4.0e-6)
+REL_ZQSO_CAP_F64 = 1.5e-6
 REL_K7_STAGE = 2e-6
 # K3's adjoint: each output within this share of its largest magnitude, of
 # its float32 twin and of the CPU float64 value (the float32 twin's own
@@ -1066,14 +1088,18 @@ def test_chain_kernel_on_zqso_shaped_inputs(cuda_device):
     assert float((ll_kernel - ll_twin).abs().max()) <= REL_K23 * float(ll_twin.abs().max())
 
 
-@pytest.mark.parametrize("method, num_z", [("corr", 10_000), ("exact", 1_000)])
+@pytest.mark.parametrize("method, num_z", [("corr", 10_000), ("exact", 1_000),
+                                           ("exact", 10_000)])
 def test_zqso_scan_on_the_card_matches_the_cpu(cuda_device, method, num_z):
     """A zQSO scan at ZParameters()'s width (k = 20, P = 5,632) on the card
-    (float32; the correlation scan's solves on K3, once) against the same
-    scan on the CPU in float32: the same NaN pattern and MAP, every |dll|
-    within 1e-4 of the largest |ll| and, within +-0.2 of the peak, within
-    1% of the peak's margin."""
+    (float32; the correlation scan's solves on K3, once; the exact scan's
+    in-window inputs on zqso_cap and its solves on K3, once a chunk)
+    against the same scan on the CPU in float32 (the exact scan through
+    the twins): the same NaN pattern and MAP, every |dll| within 1e-4 of
+    the largest |ll| and, within +-0.2 of the peak, within 1% of the
+    peak's margin."""
     from gpy_dla_detection_tpu_torch.data.synthetic import synthetic_z_observation
+    from gpy_dla_detection_tpu_torch.models import zqso
     from gpy_dla_detection_tpu_torch.models.zqso import inference_z_qso, prepare_z_spectrum
     from gpy_dla_detection_tpu_torch.params import ZParameters
 
@@ -1083,8 +1109,11 @@ def test_zqso_scan_on_the_card_matches_the_cpu(cuda_device, method, num_z):
     before = dict(_build.launch_counts)
     z_card, got, grid = inference_z_qso(learned.to(cuda_device, torch.float32), spec, params,
                                         method=method)
-    launched = _build.launch_counts["logmvn_chain"] - before.get("logmvn_chain", 0)
-    assert launched == (1 if method == "corr" else 0)
+    launched = {n: _build.launch_counts[n] - before.get(n, 0)
+                for n in ("logmvn_chain", "zqso_cap")}
+    chunks = -(-num_z // zqso.EXACT_CHUNK)
+    assert launched == ({"logmvn_chain": 1, "zqso_cap": 0} if method == "corr"
+                        else {"logmvn_chain": chunks, "zqso_cap": chunks})
     assert _build.launch_counts["logmvn_composition"] == before.get("logmvn_composition", 0)
     z_cpu, want, _ = inference_z_qso(learned.to("cpu", torch.float32), spec, params,
                                      method=method)
@@ -1098,6 +1127,89 @@ def test_zqso_scan_on_the_card_matches_the_cpu(cuda_device, method, num_z):
     near = fin & (np.abs(grid - grid[peak]) < 0.2)
     margin = want[peak] - want[fin & (np.abs(grid - grid[peak]) > 0.2)].max()
     assert d[near].max() <= 0.01 * margin
+
+
+# zqso_cap's inputs: ops/zqso_cap_sweep.problem (DESI's linear 0.8 A grid of
+# 5,600 pixels padded to 5,632, C consecutive redshifts of a grid's step)
+@pytest.mark.parametrize("C, k, special, step", [
+    (None, 20, None, 4.02e-4),  # the main path: C = EXACT_CHUNK
+    (10_000, 20, None, 4.02e-4),  # the whole grid
+    (1, 20, None, 4.02e-4),
+    (37, 21, None, 4.02e-4),  # odd k (five pieces), a ragged chunk
+    (200, 5, None, 0.02),  # a coarse grid: several band windows a sub-tile
+    (64, 32, None, 4.02e-4),
+    (40, 20, "window", 0.01),
+    (40, 20, "median", 0.01),
+])
+def test_zqso_cap_kernel_matches_twin(cuda_device, C, k, special, step):
+    """zqso_cap against its twin on the same inputs: B, u and misc within
+    1e-5 of each output's largest magnitude (the sums' order is all that
+    differs: float32 sums of ~4,000 terms, a 256-pixel tile's in sequence,
+    against the library's SGEMM; 4.1e-6 measured on B at C = 1,000), the
+    same non-finite pattern, and K3's twin on either within
+    ``REL_ZQSO_CAP_LL`` of the largest |ll|; one launch.  Both against B's
+    float64 sum of the same float32 terms: the kernel within
+    ``REL_ZQSO_CAP_F64`` of its largest magnitude and no farther than the
+    twin, which a kernel whose products were rounded lower would miss."""
+    from gpy_dla_detection_tpu_torch.models import zqso
+    from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import zqso_cap, zqso_cap_reference
+    from gpy_dla_detection_tpu_torch.ops.zqso_cap_sweep import float64_sum, problem
+
+    C = zqso.EXACT_CHUNK if C is None else C
+    args = problem(cuda_device, C, k, special, step=step)
+    before = _build.launch_counts["zqso_cap"]
+    got = zqso_cap(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["zqso_cap"] == before + 1
+    want = zqso_cap_reference(*args)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+        fin = torch.isfinite(w)
+        scale = float(w[fin].abs().max())
+        assert float((g[fin] - w[fin]).abs().max()) <= 1e-5 * scale
+    exact = float64_sum(*args)
+    fin = torch.isfinite(exact)
+    scale = float(exact[fin].abs().max())
+    err_kernel, err_twin = (float((x.double() - exact)[fin].abs().max()) / scale
+                            for x in (got[0], want[0]))
+    assert err_kernel <= REL_ZQSO_CAP_F64 and err_kernel <= err_twin, (err_kernel, err_twin)
+    ll_k, ll_t = logmvn_chain_reference(*got), logmvn_chain_reference(*want)
+    assert torch.equal(torch.isfinite(ll_k), torch.isfinite(ll_t))
+    fin = torch.isfinite(ll_t)
+    assert float((ll_k[fin] - ll_t[fin]).abs().max()) <= (
+        REL_ZQSO_CAP_LL * float(ll_t[fin].abs().max()))
+    if special == "window":
+        assert float(ll_k[-1]) == 0.0
+    if special == "median":
+        assert not bool(torch.isfinite(ll_k[3]))
+
+
+def test_zqso_cap_repeats_bit_for_bit_and_refuses_wide_bases(cuda_device):
+    """Two launches on the same inputs give the same bits (the tiles'
+    partial sums are added in order, no atomics).  k = 33, past the
+    kernel's row bounds, is refused on the card; the exact scan sends such
+    a model to the composition (interp_uniform + log_mvnpdf_low_rank) and
+    launches no zqso_cap."""
+    from gpy_dla_detection_tpu_torch.data.synthetic import synthetic_z_observation
+    from gpy_dla_detection_tpu_torch.models import zqso
+    from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import ZQSO_CAP_MAX_K, zqso_cap
+    from gpy_dla_detection_tpu_torch.ops.zqso_cap_sweep import problem
+    from gpy_dla_detection_tpu_torch.params import ZParameters
+
+    args = problem(cuda_device, 1_000, 20)
+    a, b = zqso_cap(*args), zqso_cap(*args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    k = ZQSO_CAP_MAX_K + 1
+    before = dict(_build.launch_counts)
+    with pytest.raises(ValueError, match=f"k={k}"):
+        zqso_cap(*problem(cuda_device, 8, k))
+    learned, obs = synthetic_z_observation(3.45, seed=0, k=k, obs_seed=9)
+    model = learned.to(cuda_device, torch.float32)
+    assert zqso._exact_route(model) == "basis"
+    zqso.inference_z_qso(model, zqso.prepare_z_spectrum(*obs),
+                         ZParameters(k=k, num_zqso_samples=64), method="exact")
+    assert _build.launch_counts["zqso_cap"] == before.get("zqso_cap", 0)
 
 
 def test_device_ms_windows_hold_every_launch(cuda_device):

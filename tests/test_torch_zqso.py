@@ -393,3 +393,115 @@ def test_golden_fixture_layout_and_inputs():
             float(z), seed=int(g["model_seed"]), k=int(g["k"]), obs_seed=int(obs_seed))
         np.testing.assert_array_equal(flux[::step], g["flux_probe"][i])
         np.testing.assert_array_equal(flux, jflux)
+
+
+# (k, redshifts, the case's special z): a ragged chunk is one no block of
+# the kernel's redshifts (32 or 64) divides; "window" is a z whose model
+# window holds no pixel (given a finite median), "median" a z whose
+# normalization window is empty (median +inf)
+CAP_CASES = {"k5": (5, 64, None), "k20": (20, 64, None), "k21": (21, 64, None),
+             "ragged": (20, 37, None), "empty_window": (20, 40, "window"),
+             "empty_normalization": (20, 40, "median")}
+
+
+def _cap_inputs(k, C, special):
+    """A float32 CPU spectrum and model at width k, C redshifts over the
+    grid's range, and the scan's own cut and normalization median."""
+    learned, obs = _observation(3.1, 12, k=k)
+    spec = TZ.device_spectrum(TZ.prepare_z_spectrum(*obs, P), "cpu", torch.float32)
+    model = learned.to("cpu", torch.float32)
+    params = ZParameters(k=k)
+    z = torch.linspace(2.3, 5.9, C, dtype=torch.float64)
+    if special == "window":
+        z[-1] = 20.0  # 910 A x 21 lies redward of the last pixel
+    wl = spec.wavelengths
+    max_obs = torch.minimum(params.max_lambda * (1.0 + z),
+                            torch.max(torch.where(spec.valid, wl, -np.inf)))
+    min_obs = torch.maximum(params.min_lambda * (1.0 + z),
+                            torch.min(torch.where(spec.valid, wl, np.inf)))
+    median = TZ._normalization_median(TZ._sorted_flux_view(spec), z[:, None], min_obs[:, None],
+                                      max_obs[:, None], params)
+    if special == "window":
+        median[-1] = 1.0
+    if special == "median":
+        median[3] = np.inf
+    return model, spec, params, z, median, min_obs, max_obs
+
+
+@pytest.mark.parametrize("case", list(CAP_CASES))
+def test_zqso_cap_twin_and_k3_twin_match_the_composition(case):
+    """zqso_cap's twin and K3's twin, the exact scan's float32 CPU route,
+    against the composition they replace (``interp_uniform`` +
+    ``log_mvnpdf_low_rank``) on the same float32 inputs: the same
+    non-finite pattern, every finite |dll| within 1e-6 of the largest |ll|
+    (measured: 1.8e-7);
+    a z whose window holds no pixel gives 0."""
+    from gpy_dla_detection_tpu_torch.ops.interp import interp_uniform
+    from gpy_dla_detection_tpu_torch.ops.logmvn import log_mvnpdf_low_rank
+    from gpy_dla_detection_tpu_torch.ops.logmvn_kernels import (
+        logmvn_chain_reference,
+        zqso_cap,
+        zqso_cap_reference,
+    )
+
+    k, C, special = CAP_CASES[case]
+    model, spec, params, z, median, min_obs, max_obs = _cap_inputs(k, C, special)
+    args = (z, median, min_obs, max_obs, spec.wavelengths, spec.flux, spec.noise_variance,
+            spec.valid, model.rest_wavelengths, model.mu, model.M, params.min_lambda,
+            params.max_lambda)
+    _build.reset_launch_counts()
+    B, u, misc = zqso_cap(*args)
+    assert not _build.launch_counts  # the CPU runs the twin
+    for got, want in zip((B, u, misc), zqso_cap_reference(*args)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert B.shape == (C, k * (k + 1) // 2) and u.shape == (C, k) and misc.shape == (C, 2)
+    assert B.dtype == u.dtype == misc.dtype == torch.float32
+    got = logmvn_chain_reference(B, u, misc).numpy()
+
+    rest = spec.wavelengths / (1.0 + z[:, None])
+    ind = ((rest >= params.min_lambda) & (rest <= params.max_lambda)
+           & (spec.wavelengths > min_obs[:, None]) & (spec.wavelengths < max_obs[:, None])
+           & spec.valid)
+    med = median[:, None]
+    x0 = model.rest_wavelengths[0]
+    dx = model.rest_wavelengths[1] - model.rest_wavelengths[0]
+    rest_q = rest.to(torch.float32)
+    want = log_mvnpdf_low_rank(spec.flux / med, interp_uniform(x0, dx, model.mu, rest_q),
+                               interp_uniform(x0, dx, model.M, rest_q),
+                               spec.noise_variance / (med * med), ind).numpy()
+    assert got.dtype == want.dtype == np.float32
+    assert np.array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    assert fin.sum() >= C - 1
+    scale = np.abs(want[fin]).max()
+    assert np.abs(got[fin].astype(np.float64) - want[fin]).max() <= 1e-6 * scale
+    empty = ~ind.any(dim=1).numpy()
+    assert (got[empty] == 0).all() and (special != "window" or empty[-1])
+    if special == "median":
+        assert not np.isfinite(got[3])
+
+
+@pytest.mark.parametrize("dtype, k, route", [(torch.float32, 5, "twin"),
+                                             (torch.float32, 33, "twin"),
+                                             (torch.float64, 5, "basis")])
+def test_exact_route_and_its_chunk(monkeypatch, dtype, k, route):
+    """On the CPU a float32 model's exact scan takes the twins (any k) and
+    a float64 one the composition, whose ``log_mvnpdf_low_rank`` the twins'
+    route never calls; both form the basis, so both chunk at
+    ``BASIS_CHUNK`` at most, whatever ``EXACT_CHUNK`` is."""
+    learned, obs = _observation(3.1, 12, k=k)
+    model = learned.to("cpu", dtype)
+    assert TZ._exact_route(model) == route
+    chunks, composed = [], []
+    at, low_rank = TZ._z_log_evidences_at, TZ.log_mvnpdf_low_rank
+    monkeypatch.setattr(TZ, "_z_log_evidences_at",
+                        lambda *a: chunks.append(a[2].shape[0]) or at(*a))
+    monkeypatch.setattr(TZ, "log_mvnpdf_low_rank",
+                        lambda *a: composed.append(1) or low_rank(*a))
+    monkeypatch.setattr(TZ, "BASIS_CHUNK", 40)
+    spec = TZ.device_spectrum(TZ.prepare_z_spectrum(*obs, P), "cpu", dtype)
+    z = torch.linspace(2.3, 5.9, 100, dtype=torch.float64)
+    lls = TZ.z_log_evidences(model, spec, z, ZParameters(k=k))
+    assert chunks == [40, 40, 20]
+    assert len(composed) == (3 if route == "basis" else 0)
+    assert lls.dtype == dtype and torch.isfinite(lls).sum() >= 90
