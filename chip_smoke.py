@@ -1166,6 +1166,10 @@ def main() -> None:
         out = fn()
         torch.cuda.synchronize()
         counts = dict(_build.launch_counts)
+        # a CIV doublet profile counts as a stage, not a kernel: each launches K5 once
+        profiles = counts.pop("civ_profile", 0)
+        check(profiles <= counts.get("absorption_tail", 0),
+              f"{profiles} CIV profiles, {counts.get('absorption_tail', 0)} K5 launches")
         if not int16:
             i16 = {n: c for n, c in counts.items() if n.endswith("_i16")}
             check(not i16, f"an int16 instantiation launched on a float32 path: {i16}")

@@ -9,6 +9,16 @@ exp and the convolution on float32), the likelihoods K2 and K3 with no
 absorption-noise term (omega2 = 0: the CIV covariance is M M^T + V).
 Per spectrum that is one K5, one K2 and one K3 launch.
 
+A batch is dispatched by :func:`dispatch_civ_batch`, which enqueues its
+device work and returns its evidences' tensors without waiting, and
+finalized by :func:`finalize_civ_batch` from the read-back evidences;
+:func:`civ_inference_many` runs the two through the in-flight window.  Stages are marked with ``utils.timing.span`` (recorded
+only inside a ``timing.recording()`` block): ``gpy.civ_dispatch`` around
+a dispatch, in it ``gpy.civ_model`` (the batch's models and null
+evidences) and per spectrum ``gpy.civ_profile`` (the doublet's unit
+optical depth and K5) and ``gpy.civ_likelihood`` (K2, K3 and the
+log-mean-exp); ``gpy.civ_finalize`` around a finalize.
+
 The numpy parts (samples, posterior) are the port's own copies of the
 reference's, under the same names.
 """
@@ -28,6 +38,7 @@ from ..ops.logmvn import batched_log_mvnpdf, likelihood_pair_basis, log_mvnpdf_l
 from ..ops.voigt import voigt_absorption_civ
 from ..params import CIVParameters
 from ..utils.pipeline import pipelined_batches
+from ..utils.timing import span
 from .learned import LearnedModel, SpectrumModel, build_spectrum_model
 
 
@@ -88,16 +99,18 @@ def civ_qmc_log_evidence(
         for x in (samples.offset_samples, samples.nciv_samples, samples.sigma_samples)
     )
     S = offsets.shape[0]
-    z_civ = model.min_z_dla + (model.max_z_dla - model.min_z_dla) * offsets
-    absorption = voigt_absorption_civ(
-        model.padded_wavelengths, nciv, z_civ, sigma, params.num_lines
-    )
-    lls = batched_log_mvnpdf(
-        model.y, model.mu, model.M, torch.zeros_like(model.v), model.v, model.mask,
-        absorption, likelihood_pair_basis(model.M), use_kernels=use_kernels,
-    ) - math.log(S)
-    max_ll = torch.max(lls)
-    evidence = max_ll + torch.log(torch.mean(torch.exp(lls - max_ll)))
+    with span("gpy.civ_profile"):
+        z_civ = model.min_z_dla + (model.max_z_dla - model.min_z_dla) * offsets
+        absorption = voigt_absorption_civ(
+            model.padded_wavelengths, nciv, z_civ, sigma, params.num_lines
+        )
+    with span("gpy.civ_likelihood"):
+        lls = batched_log_mvnpdf(
+            model.y, model.mu, model.M, torch.zeros_like(model.v), model.v, model.mask,
+            absorption, likelihood_pair_basis(model.M), use_kernels=use_kernels,
+        ) - math.log(S)
+        max_ll = torch.max(lls)
+        evidence = max_ll + torch.log(torch.mean(torch.exp(lls - max_ll)))
     return evidence, lls
 
 
@@ -135,6 +148,52 @@ def civ_log_evidences(
             civ_qmc_log_evidence(model, samples, params, use_kernels)[0])
 
 
+def civ_sample_tensors(samples: CIVSamples, learned: LearnedModel) -> CIVSamples:
+    """The QMC samples as tensors on the learned model's device and dtype,
+    moved there once for every batch :func:`dispatch_civ_batch` takes."""
+    device, dtype = learned.mu.device, learned.mu.dtype
+    return CIVSamples(*[torch.as_tensor(x, dtype=dtype, device=device) for x in samples])
+
+
+def dispatch_civ_batch(
+    learned: LearnedModel,
+    batch: list[Spectrum],
+    samples: CIVSamples,
+    params: CIVParameters,
+    use_kernels: bool | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Enqueue one batch's CIV evidences on the learned model's device and
+    dtype and return without waiting: the batch is stacked and modelled in
+    one pass with its null evidences, then each spectrum's QMC evidence
+    runs on the device.
+
+    :param samples: the QMC samples as :func:`civ_sample_tensors` gives them.
+    :param use_kernels: as for :func:`civ_qmc_log_evidence`.
+    :return: the (2, B) null and CIV log evidences and the (B, S)
+        per-sample log-likelihoods (with the 1/S Occam factor).
+    """
+    with span("gpy.civ_dispatch"):
+        with span("gpy.civ_model"):
+            models = civ_spectrum_model(learned, stack(batch), params)
+            null = civ_null_log_evidence(models)
+        civ, lls = zip(*[
+            civ_qmc_log_evidence(SpectrumModel(*[f[i] for f in models]), samples, params,
+                                 use_kernels)
+            for i in range(len(batch))
+        ])
+        return torch.stack([null, torch.stack(civ)]), torch.stack(lls)
+
+
+def finalize_civ_batch(evidences, p_civ_prior: float = 0.5) -> list[tuple[float, float, float]]:
+    """Per spectrum (p_civ, log_evidence_null, log_evidence_civ) of one
+    batch, from its (2, B) evidences read back to the host."""
+    with span("gpy.civ_finalize"):
+        return [
+            (civ_model_posterior(null, civ, p_civ_prior), float(null), float(civ))
+            for null, civ in zip(*evidences)
+        ]
+
+
 def civ_inference_many(
     learned: LearnedModel,
     specs: Iterable[Spectrum],
@@ -159,23 +218,9 @@ def civ_inference_many(
         each batch is read back before the next is dispatched).
     :return: per spectrum (p_civ, log_evidence_null, log_evidence_civ).
     """
-    device, dtype = learned.mu.device, learned.mu.dtype
-    sample_t = CIVSamples(*[torch.as_tensor(x, dtype=dtype, device=device) for x in samples])
-
-    def dispatch(batch, _):
-        models = civ_spectrum_model(learned, stack(batch), params)
-        null = civ_null_log_evidence(models)
-        civ = torch.stack([
-            civ_qmc_log_evidence(SpectrumModel(*[f[i] for f in models]), sample_t, params,
-                                 use_kernels)[0]
-            for i in range(len(batch))
-        ])
-        return torch.stack([null, civ])
-
-    def finalize(n, out):
-        return [
-            (civ_model_posterior(null, civ, p_civ_prior), float(null), float(civ))
-            for null, civ in zip(*out)
-        ]
-
-    return pipelined_batches(specs, batch_size, max_in_flight, dispatch, finalize)
+    sample_t = civ_sample_tensors(samples, learned)
+    return pipelined_batches(
+        specs, batch_size, max_in_flight,
+        lambda batch, _: dispatch_civ_batch(learned, batch, sample_t, params, use_kernels)[0],
+        lambda n, evidences: finalize_civ_batch(evidences, p_civ_prior),
+    )

@@ -14,6 +14,9 @@ float32 on the CPU takes the kernel's plain PyTorch twin, anything else
 raises.  Every wrapper adds one to ``launch_counts[name]`` where it
 launches its kernel and nowhere else; an instantiation that stores or
 reads int16 profile codes counts under its own name (:func:`store_name`).
+One count is of a stage and not of a kernel: ``"civ_profile"``, a CIV
+doublet profile evaluated on the card (``ops/voigt.voigt_absorption_civ``,
+whose K5 launch counts as ``"absorption_tail"``).
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # dynamic shared memory one block may use on Hopper (227 KB)
 MAX_DYNAMIC_SHARED_BYTES = 232448
 
-# kernel name -> launches since the last reset
+# kernel name (or "civ_profile") -> launches since the last reset
 launch_counts: Counter = Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}

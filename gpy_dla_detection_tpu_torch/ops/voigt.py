@@ -26,6 +26,7 @@ import torch
 
 from .. import constants as C
 
+from ._build import launch_counts
 from .faddeeva import RADIUS, SQRT_PI, _wofz_cf, _wofz_weideman, wofz_parts
 from .kernel_config import ABS_I16_SCALE
 
@@ -205,7 +206,8 @@ def voigt_absorption_civ(
     [cm/s] is a free parameter per sample
     (``gpy_dla_detection_tpu/ops/voigt.py:voigt_absorption_civ``).  The
     optical depth per unit column density goes through the same exp and
-    convolution as the Lyman series (K5 on float32).
+    convolution as the Lyman series (K5 on float32).  Each call on a CUDA
+    device adds one to ``launch_counts["civ_profile"]``.
 
     :param nciv, z_civ, sigma: (...,) per-sample parameters.
     :return: (..., P - 6).
@@ -222,6 +224,8 @@ def voigt_absorption_civ(
         )
         contrib = (float(C.CIV_LEADING_CONSTANTS[l]) / SQRT_PI) * inv * w_re
         tau = contrib if tau is None else tau + contrib
+    if tau.is_cuda:
+        launch_counts["civ_profile"] += 1
     return absorption_from_unit_tau(tau, nciv)
 
 
