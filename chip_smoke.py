@@ -246,6 +246,14 @@ Phases, one line each; any failure exits non-zero before the result:
      beside the twin's synchronised ms and the composition it replaces
      (interp_uniform + log_mvnpdf_low_rank, as library_ms) on the same
      inputs, its bound (the products over the float32 peak), launches
+ 25. civ_tau, the CIV doublet's unit optical depth, at the CIV head's
+     shapes (S = 10,000 samples of the CIV prior, P = 774): against its
+     twin (every pixel within ULPS_CIV_TAU float32 ulps, and whether bit
+     for bit; the profile through K5 within TOL_K1 of the twin's tau
+     through K5's twin), its device ms (CUDA events over 50 calls) beside
+     K5's after it, the twin's device and synchronised ms (the plain
+     composition it replaces) and its bound (the (S, P) float32 output's
+     bytes)
 Every other phase asserts that the Weideman window is never launched, and
 every phase before 14 that no int16 instantiation is.
 Then a JSON line of the kernels, the card line, and the result line.
@@ -404,6 +412,9 @@ REL_ZQSO_CAP_LL = 2e-6
 REL_ZQSO_CAP_F64 = 1.5e-6
 NEAR_PEAK_ZQSO = 0.01
 REL_K3_GRAD = 1e-5  # each output of K3's adjoint within this share of its max |.|, vs twin
+# civ_tau against its twin: float32 ulps (2^-23 of the value) at every pixel
+# (tests/test_torch_kernels_gpu.py); the order of its operations is the twin's
+ULPS_CIV_TAU = 4
 # the training against the JAX float64 golden: losses within this share of
 # max|loss|, each gradient block within this share of its max|g|
 REL_TRAIN_LOSS = 1e-5
@@ -454,6 +465,12 @@ KERNELS = {
     "logmvn_chain_wide": (
         "gpy_dla_detection_tpu_torch/csrc/logmvn_chain.cu",
         f"{LOGMVN}:497",
+    ),
+    # the CIV doublet's unit optical depth (phases 9, 12, 17, 23, 25): no TPU
+    # kernel; the JAX package's voigt_absorption_civ is plain XLA
+    "civ_tau": (
+        "gpy_dla_detection_tpu_torch/csrc/civ_tau.cu",
+        "gpy_dla_detection_tpu/ops/voigt.py:voigt_absorption_civ (plain XLA)",
     ),
     # the zQSO exact scan's in-window inputs (phases 18, 24): no TPU kernel;
     # the JAX exact scan's interp_uniform + log_mvnpdf_low_rank, plain XLA
@@ -798,6 +815,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
 
+    from gpy_dla_detection_tpu_torch import constants as C
     from gpy_dla_detection_tpu_torch.data.samples import (
         generate_dla_samples,
         generate_subdla_samples,
@@ -870,6 +888,8 @@ def main() -> None:
         absorption_tail_reference,
         absorption_windowed,
         absorption_windowed_reference,
+        civ_unit_tau,
+        civ_unit_tau_reference,
     )
     from gpy_dla_detection_tpu_torch.models.pipeline import spectrum_result
     from gpy_dla_detection_tpu_torch.params import CIVParameters, Parameters
@@ -1166,10 +1186,13 @@ def main() -> None:
         out = fn()
         torch.cuda.synchronize()
         counts = dict(_build.launch_counts)
-        # a CIV doublet profile counts as a stage, not a kernel: each launches K5 once
+        # a CIV doublet profile counts as a stage, not a kernel: each launches
+        # civ_tau and K5 once
         profiles = counts.pop("civ_profile", 0)
-        check(profiles <= counts.get("absorption_tail", 0),
-              f"{profiles} CIV profiles, {counts.get('absorption_tail', 0)} K5 launches")
+        check(profiles <= counts.get("absorption_tail", 0)
+              and profiles == counts.get("civ_tau", 0),
+              f"{profiles} CIV profiles, {counts.get('civ_tau', 0)} civ_tau and "
+              f"{counts.get('absorption_tail', 0)} K5 launches")
         if not int16:
             i16 = {n: c for n, c in counts.items() if n.endswith("_i16")}
             check(not i16, f"an int16 instantiation launched on a float32 path: {i16}")
@@ -1392,8 +1415,9 @@ def main() -> None:
         lambda: run_civ_mcmc(mmodel, params, mgen, nwalkers=Wc, nsamples=steps_c))
     civ_s = time.perf_counter() - t0
     path_launches["mcmc_civ"] = launches_c
-    check(launches_c.get("absorption_tail", 0) == 2 * steps_c + 1,
-          f"civ mcmc: absorption_tail launched {launches_c.get('absorption_tail', 0)}")
+    for name in ("absorption_tail", "civ_tau"):
+        check(launches_c.get(name, 0) == 2 * steps_c + 1,
+              f"civ mcmc: {name} launched {launches_c.get(name, 0)} != {2 * steps_c + 1}")
     check(launches_c.get("absorption_all_weideman", 0) == 0,
           "civ mcmc: the Weideman window launched")
     check(bool(torch.isfinite(lps_c[-1]).all()), "civ mcmc: non-finite log posterior")
@@ -1658,12 +1682,13 @@ def main() -> None:
           f"{ms_stage} | library yardsticks (on no path): "
           + ", ".join(f"{n} {v:.3f} ms" for n, v in yard.items()))
 
-    # 12. the CIV QMC head: per spectrum one K5 (the doublet's tail), one K2
-    # and one K3 launch
+    # 12. the CIV QMC head: per spectrum one civ_tau and one K5 (the doublet),
+    # one K2 and one K3 launch
     outs, launches = count_launches(run_civ)
     path_launches["civ"] = launches
     n_civ = len(civ_spectra)
-    need = {"absorption_tail": n_civ, "logmvn_cap": n_civ, "logmvn_chain": n_civ,
+    need = {"civ_tau": n_civ, "absorption_tail": n_civ, "logmvn_cap": n_civ,
+            "logmvn_chain": n_civ,
             "absorption_all": 0, "absorption_windowed": 0, "absorption_all_weideman": 0}
     for name, n in need.items():
         check(launches.get(name, 0) == n, f"civ: {name} launched {launches.get(name, 0)} != {n}")
@@ -2480,7 +2505,8 @@ def main() -> None:
             ["--qso_list", *civ_files, "--z_qso_list", *[repr(float(z)) for z in gc["z_qso"]],
              "--output", str(work / "civ.h5")])))
         path_launches["cli_civ"] = launches
-        need = {"absorption_tail": len(civ_files), "logmvn_cap": len(civ_files),
+        need = {"civ_tau": len(civ_files), "absorption_tail": len(civ_files),
+                "logmvn_cap": len(civ_files),
                 "logmvn_chain": len(civ_files), "absorption_all": 0, "absorption_windowed": 0,
                 "absorption_all_weideman": 0}
         for name, n in need.items():
@@ -3624,8 +3650,9 @@ def main() -> None:
              {"absorption_all": NUM_LLS_WINDOW, "logmvn_cap": MAX_LYA * NUM_LLS_WINDOW,
               "logmvn_chain": MAX_LYA * NUM_LLS_WINDOW}, lls_bits),
             ("civ", civ_window, 4,
-             {"absorption_tail": NUM_CIV_WINDOW, "logmvn_cap": NUM_CIV_WINDOW,
-              "logmvn_chain": NUM_CIV_WINDOW}, lambda out: np.array(out).tobytes())):
+             {"civ_tau": NUM_CIV_WINDOW, "absorption_tail": NUM_CIV_WINDOW,
+              "logmvn_cap": NUM_CIV_WINDOW, "logmvn_chain": NUM_CIV_WINDOW},
+             lambda out: np.array(out).tobytes())):
         outs = {}
         for w in (0, window):
             torch.cuda.synchronize()
@@ -3673,8 +3700,8 @@ def main() -> None:
         "zqso": {"logmvn_chain": GATE_N["zqso"]},
         "lls": {"absorption_all": GATE_N["lls"], "logmvn_cap": 2 * GATE_N["lls"],
                 "logmvn_chain": 2 * GATE_N["lls"]},
-        "civ": {"absorption_tail": GATE_N["civ"], "logmvn_cap": GATE_N["civ"],
-                "logmvn_chain": GATE_N["civ"]},
+        "civ": {"civ_tau": GATE_N["civ"], "absorption_tail": GATE_N["civ"],
+                "logmvn_cap": GATE_N["civ"], "logmvn_chain": GATE_N["civ"]},
     }
     for name in ("zqso", "lls", "civ"):
         gate = getattr(gates, f"{name}_gate")
@@ -3738,7 +3765,8 @@ def main() -> None:
     cd, cd_text, _ = ex_out["civ_mcmc_demo_torch"]
     civ_steps = cd["chain"].shape[0]
     check(cd["p_civ"] > 0.5 and "P(CIV | D)" in cd_text, f"civ demo: P(CIV|D) {cd['p_civ']}")
-    check(ex_launches["civ_mcmc_demo_torch"] == {"absorption_tail": 1 + 2 * civ_steps + 1,
+    check(ex_launches["civ_mcmc_demo_torch"] == {"civ_tau": 1 + 2 * civ_steps + 1,
+                                                 "absorption_tail": 1 + 2 * civ_steps + 1,
                                                  "logmvn_cap": 1, "logmvn_chain": 1},
           f"civ demo: launches {ex_launches['civ_mcmc_demo_torch']}")
     demo, demo_text, _ = ex_out["demo_synthetic_torch"]
@@ -3779,7 +3807,8 @@ def main() -> None:
     path_launches["heads_twin"] = launches
     twin_lines["heads"] = printed.getvalue().strip().splitlines()
     check(set(head_rates) == {"lls", "civ", "zqso"} and all(r > 0 for r in head_rates.values())
-          and set(launches) == {"absorption_all", "absorption_tail", "logmvn_cap", "logmvn_chain"},
+          and set(launches) == {"absorption_all", "absorption_tail", "civ_tau", "logmvn_cap",
+                                "logmvn_chain"},
           f"heads twin: {head_rates}, launches {launches}")
     saved = {k: os.environ.get(k) for k in ("MCMC_REPS", "MCMC_STEPS")}
     os.environ.update(MCMC_REPS="1", MCMC_STEPS=str(MCMC_TWIN_STEPS))
@@ -3797,7 +3826,8 @@ def main() -> None:
         mcmc_rates, launches = count_launches(lambda: mcmc_twin.main([]))
     path_launches["mcmc_twin"] = launches
     twin_lines["mcmc"] = printed.getvalue().strip().splitlines()
-    check(launches == {"absorption_tail": 2 * (2 * (mcmc_twin.WARM_STEPS + MCMC_TWIN_STEPS) + 2)},
+    check(launches == {"absorption_tail": 2 * (2 * (mcmc_twin.WARM_STEPS + MCMC_TWIN_STEPS) + 2),
+                       "civ_tau": 2 * (mcmc_twin.WARM_STEPS + MCMC_TWIN_STEPS) + 2},
           f"mcmc twin: launches {launches}")
     survey = load_script(ROOT / "scripts" / "survey_throughput_torch.py",
                          "survey_throughput_torch")
@@ -3850,6 +3880,53 @@ def main() -> None:
               for C, c in cap.items())
           + f" | {time.perf_counter() - t24:.1f} s")
 
+    # 25. civ_tau at the CIV head's shapes: S = 10,000 samples of the CIV
+    # prior (z with the doublet on the window's grid, sigma 1e6-8e6 cm/s,
+    # logN 12.88-14.5), P = 774, against its twin and beside it
+    t25 = time.perf_counter()
+    rng = np.random.default_rng(25)
+    S_civ = civ_params.num_civ_samples
+    lam_civ = C.CIV_WAVELENGTHS_CM * 1e8
+    grid_civ = 1311.0 * 3.4 * 10 ** (1e-4 * (np.arange(CIV_PIXELS) - 3))
+    put = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    wl_civ = put(grid_civ)
+    z_civ = put(rng.uniform(grid_civ[0] / lam_civ[0] - 1.0, grid_civ[-1] / lam_civ[1] - 1.0,
+                            S_civ))
+    sigma_civ = put(rng.uniform(1e6, 8e6, S_civ))
+    nciv_civ = put(10 ** rng.uniform(12.88, 14.5, S_civ))
+    civ_args = (wl_civ, z_civ, sigma_civ)
+    before = _build.launch_counts["civ_tau"]
+    tau_k = civ_unit_tau(*civ_args)
+    torch.cuda.synchronize()
+    check(_build.launch_counts["civ_tau"] == before + 1, "civ_tau: one launch a call")
+    tau_t = civ_unit_tau_reference(*civ_args)
+    civ_ulps = float(((tau_k - tau_t).abs() / tau_t.abs()).max()) * 2.0**23
+    civ_bits = bool(torch.equal(tau_k, tau_t))
+    err["civ_tau"] = float((absorption_tail(tau_k, nciv_civ)
+                            - absorption_tail_reference(tau_t, nciv_civ)).abs().max())
+    check(civ_ulps <= ULPS_CIV_TAU, f"civ_tau: {civ_ulps:.2f} ulps from its twin "
+          f"(limit {ULPS_CIV_TAU})")
+    check(err["civ_tau"] <= TOL_K1, f"civ_tau: the profile through K5 {err['civ_tau']:.3e} "
+          f"from the twin's (limit {TOL_K1})")
+    civ_dev = events_ms(lambda: civ_unit_tau(*civ_args))
+    civ_k5_dev = events_ms(lambda: absorption_tail(tau_k, nciv_civ))
+    civ_twin_dev = events_ms(lambda: civ_unit_tau_reference(*civ_args), reps=5)
+    ms["civ_tau"] = (timed_median(lambda: civ_unit_tau(*civ_args)),
+                     timed_median(lambda: civ_unit_tau_reference(*civ_args), reps=5, warmup=1))
+    bounds["civ_tau"] = bound(4.0 * S_civ * CIV_PIXELS, 0.0)
+    civ_tau_extra = {"civ_tau": {"device_ms": civ_dev, "plain_device_ms": civ_twin_dev,
+                                 "k5_device_ms": civ_k5_dev, "max_ulps": civ_ulps,
+                                 "bit_for_bit": civ_bits}}
+    del tau_k, tau_t
+    print(f"[25 civ_tau] {card} | S={S_civ} P={CIV_PIXELS}, float32 | synchronised "
+          f"{ms['civ_tau'][0]:.3f} ms, device {civ_dev:.4f} ms (CUDA events over 50 calls), "
+          f"bound {bounds['civ_tau'][0]:.4f} ms (bytes; "
+          f"{100 * bounds['civ_tau'][0] / civ_dev:.1f}% of it); K5 after it {civ_k5_dev:.4f} "
+          f"ms | twin (the plain composition it replaces): device {civ_twin_dev:.3f} ms, "
+          f"synchronised {ms['civ_tau'][1]:.3f} ms | vs twin: {civ_ulps:.2f} ulps at most "
+          f"(limit {ULPS_CIV_TAU}), bit for bit {civ_bits}; through K5 max |d| "
+          f"{err['civ_tau']:.3e} (tol {TOL_K1}) | {time.perf_counter() - t25:.1f} s")
+
     # phase 15's numbers beside each K5 and K6 row of the kernels line
     tail_extra = {n: {"device_ms_profiler": tail_dev[n], "bound_share": tail_share[n][0],
                       "copy_rate_share": tail_share[n][1], "copy_rate_gbs": copy_gbs,
@@ -3898,7 +3975,8 @@ def main() -> None:
          **({"branch": "poly=False (voigt_pallas.py:357)"}
             if name == "absorption_all_weideman" else {}),
          **tail_extra.get(name, {}),
-         **zqso_extra.get(name, {})}
+         **zqso_extra.get(name, {}),
+         **civ_tau_extra.get(name, {})}
         for name, (src, rep) in KERNELS.items()
     ] + [
         {"name": name, "route": "cuda", "source": ABLATE_SOURCE, "replaces": rep,

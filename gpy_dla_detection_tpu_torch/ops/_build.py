@@ -16,7 +16,8 @@ launches its kernel and nowhere else; an instantiation that stores or
 reads int16 profile codes counts under its own name (:func:`store_name`).
 One count is of a stage and not of a kernel: ``"civ_profile"``, a CIV
 doublet profile evaluated on the card (``ops/voigt.voigt_absorption_civ``,
-whose K5 launch counts as ``"absorption_tail"``).
+whose unit optical depth counts as ``"civ_tau"`` and whose K5 launch as
+``"absorption_tail"``).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 LIBRARIES = {
     "kernels": ("absorption_all.cu", "absorption_tail.cu", "absorption_windowed.cu",
                 "logmvn_cap.cu", "logmvn_cap_wide.cu", "logmvn_chain.cu",
-                "logmvn_chain_grad.cu", "zqso_cap.cu"),
+                "logmvn_chain_grad.cu", "zqso_cap.cu", "civ_tau.cu"),
     "ablate": ("logmvn_ablate.cu",),
 }
 BUILD_DIR = CSRC / "build"
@@ -109,6 +110,10 @@ _SIGNATURES = {"kernels": {
     # threads, shared bytes), the workspace, B, u, misc, stream
     "zqso_cap_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _D, _D,
                         _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # the CIV doublet's unit optical depth: wl, P, z, sigma, S, num_lines,
+    # the host constants and their count, then the geometry (warps a block,
+    # grid), out, stream
+    "civ_tau_launch": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P],
 }, "ablate": {
     # stage, rows, N, M, k, Mp, A, S, then K2's geometry (samples a block,
     # pixels a chunk, threads, shared bytes, grid), ll, stream

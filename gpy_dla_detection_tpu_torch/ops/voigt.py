@@ -7,7 +7,8 @@ Port of ``gpy_dla_detection_tpu/ops/voigt.py``:
   device), ``exp(-nhi * unit_tau)`` with the 7-tap instrumental
   convolution (K5 on float32, ``ops/voigt_kernels.absorption_tail``), the
   Lyman-limit break of the LLS profile and the CIV doublet profile with a
-  free broadening per sample;
+  free broadening per sample (its unit optical depth by
+  ``ops/voigt_kernels.civ_unit_tau``);
 * the windowed unit optical depth in unplaced form
   (:func:`windowed_tau_parts`: a far field on the chunk-padded grid plus
   one 256-pixel correction window per line), which K6
@@ -205,28 +206,22 @@ def voigt_absorption_civ(
     """Broadened CIV doublet absorption; the broadening velocity ``sigma``
     [cm/s] is a free parameter per sample
     (``gpy_dla_detection_tpu/ops/voigt.py:voigt_absorption_civ``).  The
-    optical depth per unit column density goes through the same exp and
-    convolution as the Lyman series (K5 on float32).  Each call on a CUDA
-    device adds one to ``launch_counts["civ_profile"]``.
+    optical depth per unit column density (``ops/voigt_kernels.civ_unit_tau``:
+    civ_tau on float32 CUDA tensors, its plain twin on the CPU) goes through
+    the same exp and convolution as the Lyman series (K5 on float32).  Each
+    call on a CUDA device adds one to ``launch_counts["civ_profile"]``.
 
     :param nciv, z_civ, sigma: (...,) per-sample parameters.
     :return: (..., P - 6).
     """
-    sigma = sigma[..., None]
-    one_plus_z = (1.0 + z_civ)[..., None]
-    inv = 1.0 / (math.sqrt(2.0) * sigma)
-    tau = None
-    for l in range(num_lines):
-        lam_c = float(C.CIV_WAVELENGTHS_CM[l] * 1e8) * one_plus_z
-        velocity = (wavelengths - lam_c) * (C.SPEED_OF_LIGHT_CGS / lam_c)
-        w_re, _ = wofz_parts(
-            velocity * inv, float(C.CIV_LORENTZIAN_WIDTHS[l]) * inv
-        )
-        contrib = (float(C.CIV_LEADING_CONSTANTS[l]) / SQRT_PI) * inv * w_re
-        tau = contrib if tau is None else tau + contrib
+    from .voigt_kernels import civ_unit_tau
+
+    z_civ, sigma = torch.broadcast_tensors(z_civ, sigma)
+    tau = civ_unit_tau(wavelengths.contiguous(), z_civ.reshape(-1).contiguous(),
+                       sigma.reshape(-1).contiguous(), num_lines)
     if tau.is_cuda:
         launch_counts["civ_profile"] += 1
-    return absorption_from_unit_tau(tau, nciv)
+    return absorption_from_unit_tau(tau.reshape(*z_civ.shape, wavelengths.shape[0]), nciv)
 
 
 class WindowedTauParts(NamedTuple):

@@ -33,12 +33,20 @@ under its own name (``_build.store_name``: ``absorption_all_i16``,
 ``absorption_all_weideman_i16``, ``absorption_tail_i16``,
 ``absorption_windowed_i16``).  Each twin encodes its float32 result with
 ``ops/voigt.encode_profile_store``.
+
+``civ_unit_tau`` computes K5's input for the CIV doublet, the unit optical
+depth of ``ops/voigt.voigt_absorption_civ``: it launches
+``csrc/civ_tau.cu`` on float32 CUDA tensors (no TPU counterpart: the JAX
+package composes it in plain XLA) and runs its plain twin
+``civ_unit_tau_reference``, that composition in PyTorch, on float32 and
+float64 CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from collections.abc import Sequence
 from typing import NamedTuple
 
@@ -62,8 +70,10 @@ from .faddeeva import (
     _WEIDEMAN_A32,
     _WEIDEMAN_L32,
     RADIUS,
+    SQRT_PI,
     _wofz_cf,
     _wofz_weideman,
+    wofz_parts,
 )
 from .logmvn_kernels import H100_SMS, _chain_grid, _sm_count
 from .voigt import (
@@ -114,6 +124,15 @@ K56_DEPTH = 2
 K56_WARPS = 8
 K56_BLOCKS_PER_SM = 4
 K56_CHUNK = 32 * K56_PIXELS
+
+
+# civ_tau's launch (csrc/civ_tau.cu, CIV_TAU_GEOMETRY): a lane owns a
+# pixel, so a warp steps through a row CIV_TAU_STEP pixels at a time, the
+# unit of its Weideman vote; CIV_TAU_WARPS warps a block,
+# CIV_TAU_BLOCKS_PER_SM blocks an SM (the launch bound).
+CIV_TAU_STEP = 32
+CIV_TAU_WARPS = 8
+CIV_TAU_BLOCKS_PER_SM = 6
 
 
 class AbsorptionGeometry(NamedTuple):
@@ -590,4 +609,116 @@ def absorption_windowed(parts: WindowedTauParts, nhi: torch.Tensor,
     name = store_name("absorption_windowed", out_dtype)
     check_launch(name, err)
     launch_counts[name] += 1
+    return out
+
+
+def civ_unit_tau_reference(
+    wavelengths: torch.Tensor,
+    z_civ: torch.Tensor,
+    sigma: torch.Tensor,
+    num_lines: int = 2,
+) -> torch.Tensor:
+    """Plain PyTorch twin of civ_tau: the CIV doublet's optical depth per
+    unit column density, each line's Re w by ``ops/faddeeva.wofz_parts``
+    (float32: Weideman N = 20, continued fraction K = 5; float64: N = 40, K
+    = 14), with the broadening velocity ``sigma`` [cm/s] free per sample
+    (``gpy_dla_detection_tpu/ops/voigt.py:voigt_absorption_civ``).
+
+    :param wavelengths: (P,) padded observed wavelengths [A].
+    :param z_civ, sigma: (...,) per-sample redshifts and broadenings.
+    :return: (..., P).
+    """
+    sigma = sigma[..., None]
+    one_plus_z = (1.0 + z_civ)[..., None]
+    inv = 1.0 / (math.sqrt(2.0) * sigma)
+    tau = None
+    for l in range(num_lines):
+        lam_c = float(C.CIV_WAVELENGTHS_CM[l] * 1e8) * one_plus_z
+        velocity = (wavelengths - lam_c) * (C.SPEED_OF_LIGHT_CGS / lam_c)
+        w_re, _ = wofz_parts(
+            velocity * inv, float(C.CIV_LORENTZIAN_WIDTHS[l]) * inv
+        )
+        contrib = (float(C.CIV_LEADING_CONSTANTS[l]) / SQRT_PI) * inv * w_re
+        tau = contrib if tau is None else tau + contrib
+    return tau
+
+
+@functools.lru_cache(maxsize=1)
+def civ_tau_constants() -> np.ndarray:
+    """civ_tau's constants (``csrc/civ_tau.cu``, Constants), float32 as its
+    twin rounds them: the Weideman scale L and 2 L, sqrt(pi), sqrt(2), c
+    [cm/s], the continued fraction's 1e-30; per line the rest wavelength
+    [A], the Lorentzian width [cm/s] and a_l / sqrt(pi); the 20 float32
+    Weideman coefficients, highest power first."""
+    return np.array(
+        [_WEIDEMAN_L32, 2.0 * _WEIDEMAN_L32, SQRT_PI, math.sqrt(2.0), C.SPEED_OF_LIGHT_CGS,
+         1e-30, *(C.CIV_WAVELENGTHS_CM * 1e8), *C.CIV_LORENTZIAN_WIDTHS,
+         *(C.CIV_LEADING_CONSTANTS / SQRT_PI), *_WEIDEMAN_A32],
+        dtype=np.float32,
+    )
+
+
+def civ_tau_grid(S: int, P: int, sms: int = H100_SMS) -> int:
+    """civ_tau's grid for S rows of P pixels on ``sms`` SMs: K3's grid rule
+    (``_chain_grid``) over the rows' S ceil(P / CIV_TAU_STEP) warp steps,
+    so every warp takes an even share of them in one wave."""
+    if S < 1 or P < 1:
+        raise ValueError(f"civ_tau needs S >= 1 and P >= 1, got S={S}, P={P}")
+    steps = S * -(-P // CIV_TAU_STEP)
+    if steps >= 2**31:
+        raise ValueError(f"S x steps a row = {steps} does not fit the kernel's int index")
+    return _chain_grid(steps, CIV_TAU_WARPS, CIV_TAU_BLOCKS_PER_SM, sms)
+
+
+def civ_unit_tau(
+    wavelengths: torch.Tensor,
+    z_civ: torch.Tensor,
+    sigma: torch.Tensor,
+    num_lines: int = 2,
+) -> torch.Tensor:
+    """The CIV doublet's unit optical depth, K5's input: civ_tau on float32
+    CUDA tensors (one launch, counted ``launch_counts["civ_tau"]``), its twin
+    :func:`civ_unit_tau_reference` on float32 CPU tensors and, as the
+    conformance path, on float64 CPU tensors; anything else raises.
+
+    :param wavelengths: (P,) padded observed wavelengths [A].
+    :param z_civ, sigma: (S,) absorber redshifts and broadenings [cm/s].
+    :param num_lines: the doublet's first ``num_lines`` lines (1 or 2).
+    :return: (S, P) in the wavelengths' dtype.
+    """
+    if not 1 <= num_lines <= len(C.CIV_WAVELENGTHS_CM):
+        raise ValueError(f"the CIV doublet has 1 or 2 lines, got {num_lines}")
+    for name, t in (("z_civ", z_civ), ("sigma", sigma)):
+        if t.dtype != wavelengths.dtype or t.device != wavelengths.device:
+            raise TypeError(f"{name} is {t.dtype} on {t.device}, the wavelengths "
+                            f"{wavelengths.dtype} on {wavelengths.device}")
+    if wavelengths.ndim != 1 or z_civ.ndim != 1 or sigma.shape != z_civ.shape:
+        raise ValueError(
+            f"expected wavelengths (P,), z_civ (S,), sigma (S,); got "
+            f"{tuple(wavelengths.shape)}, {tuple(z_civ.shape)}, {tuple(sigma.shape)}"
+        )
+    for name, t in (("wavelengths", wavelengths), ("z_civ", z_civ), ("sigma", sigma)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if wavelengths.dtype == torch.float64:
+        if wavelengths.device.type != "cpu":
+            raise TypeError("the float64 unit optical depth is the CPU conformance path; the "
+                            "CUDA kernel takes float32")
+        return civ_unit_tau_reference(wavelengths, z_civ, sigma, num_lines)
+    if not use_kernel(wavelengths):
+        return civ_unit_tau_reference(wavelengths, z_civ, sigma, num_lines)
+    device = wavelengths.device
+    S, P = z_civ.shape[0], wavelengths.shape[0]
+    grid = civ_tau_grid(S, P, _sm_count(device))
+    out = torch.empty((S, P), dtype=torch.float32, device=device)
+    table = civ_tau_constants()
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.civ_tau_launch(
+            ptr(wavelengths), P, ptr(z_civ), ptr(sigma), S, num_lines,
+            ctypes.c_void_p(table.ctypes.data), table.size, CIV_TAU_WARPS, grid, ptr(out),
+            stream_ptr(device),
+        )
+    check_launch("civ_tau", err)
+    launch_counts["civ_tau"] += 1
     return out

@@ -81,12 +81,23 @@ and k = 33 is refused on the card (the exact scan takes the composition
 there).  Both zQSO scans on the card are held to the
 CPU's, the exact one at 1,000 and 10,000 z with one ``zqso_cap`` and one
 K3 launch a chunk.
+
+civ_tau (the CIV doublet's unit optical depth, K5's input) is held to its
+twin at the CIV head's S = 10,000 x P = 774 (sigma over 1e6-8e6 cm/s, z
+over the window), at S = 1 (the MCMC's row), at the odd P = 773 and with
+line centres within a pixel of each end of the row: every pixel within
+``ULPS_CIV_TAU`` float32 ulps of the twin's value (the kernel follows the
+twin operation by operation in round-to-nearest intrinsics; only PyTorch's
+own kernels could part them), and the profile through K5 within TOL_K1 of
+the twin's tau through K5's twin (K5's 1e-6 and the tau's ulps; TOL_K1 is
+the ceiling); one ``civ_tau`` launch a call.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from gpy_dla_detection_tpu_torch import constants as C
 from gpy_dla_detection_tpu_torch.models.evidence import single_absorber_profiles
 from gpy_dla_detection_tpu_torch.ops import _build
 from gpy_dla_detection_tpu_torch.ops import logmvn as T
@@ -134,6 +145,8 @@ from gpy_dla_detection_tpu_torch.ops.voigt_kernels import (
     absorption_tail_reference,
     absorption_windowed,
     absorption_windowed_reference,
+    civ_unit_tau,
+    civ_unit_tau_reference,
     k1_launch_name,
 )
 
@@ -159,6 +172,10 @@ REL_K7_STAGE = 2e-6
 # its float32 twin and of the CPU float64 value (the float32 twin's own
 # error on these capacitances: <= 8.3e-7)
 REL_K3_GRAD = 1e-5
+# civ_tau against its twin: ulps of float32 (2^-23 of the value) at every
+# pixel; the op-by-op order gives the twin's bits in numpy
+# (tests/test_torch_civ_tau.py)
+ULPS_CIV_TAU = 4
 
 pytestmark = pytest.mark.gpu
 
@@ -500,6 +517,45 @@ def test_absorption_tail_takes_rows_beyond_shared_memory(cuda_device):
             assert float((got - want).abs().max()) <= TOL_K5
         else:
             assert _dcode(got, want) <= MAX_DCODE
+
+
+def _civ_tau_inputs(device, S, P, edges=False, seed=5):
+    """A CIV window's grid (rest 1,311 A at z_QSO = 2.4, SDSS's 1e-4 dex
+    pixels) and S samples of the CIV prior: z with the doublet on the grid,
+    sigma over 1e6-8e6 cm/s, logN over 12.88-14.5.  With ``edges`` the rows
+    take line 1548's centre within a pixel of the row's first pixel and
+    line 1550's within a pixel of its last, in turn."""
+    rng = np.random.default_rng(seed)
+    wl = 1311.0 * 3.4 * 10 ** (1e-4 * (np.arange(P) - 3))
+    lam = C.CIV_WAVELENGTHS_CM * 1e8
+    z = rng.uniform(wl[0] / lam[0] - 1.0, wl[-1] / lam[1] - 1.0, S)
+    if edges:
+        u = rng.uniform(-1.0, 1.0, S)
+        first = (wl[0] + u * (wl[1] - wl[0])) / lam[0] - 1.0
+        last = (wl[-1] + u * (wl[-1] - wl[-2])) / lam[1] - 1.0
+        z = np.where(np.arange(S) % 2 == 0, first, last)
+    put = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return (put(wl), put(z), put(rng.uniform(1e6, 8e6, S)),
+            put(10 ** rng.uniform(12.88, 14.5, S)))
+
+
+@pytest.mark.parametrize("S, P, edges", [(10_000, 774, False), (1, 774, False),
+                                         (1001, 773, False), (64, 774, True)],
+                         ids=["civ_head", "mcmc_row", "ragged", "edges"])
+def test_civ_tau_kernel_matches_twin(cuda_device, S, P, edges):
+    wl, z, sigma, nciv = _civ_tau_inputs(cuda_device, S, P, edges)
+    before = _build.launch_counts["civ_tau"]
+    got = civ_unit_tau(wl, z, sigma)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["civ_tau"] == before + 1
+    want = civ_unit_tau_reference(wl, z, sigma)
+    assert got.shape == want.shape == (S, P)
+    assert bool(torch.isfinite(got).all()) and float(got.min()) > 0.0
+    assert float(((got - want).abs() / want.abs()).max()) <= ULPS_CIV_TAU * 2.0**-23
+    absorbed = absorption_tail(got, nciv)
+    assert float((absorbed - absorption_tail_reference(want, nciv)).abs().max()) <= TOL_K1
+    if edges:  # the lines absorb at both ends of the row
+        assert float(absorbed[0::2, 0].min()) < 0.99 and float(absorbed[1::2, -1].min()) < 0.99
 
 
 def _chain_inputs(device, k, S):
